@@ -1,0 +1,392 @@
+#!/usr/bin/env python3
+"""Chip smoke test of the PyTorch/H100 port (`openstereo_tpu_torch`).
+
+    python3 chip_smoke.py
+
+Needs one CUDA card; exits non-zero, printing no result, without one (or
+without the repository around it). Phases, each of which fails the run:
+
+1. the card: `nvidia-smi` name and power limit, torch and CUDA versions;
+2. build every CUDA kernel of the main path from `openstereo_tpu_torch/csrc`
+   (one nvcc per source, in parallel);
+3. K1 (corr_volume) against its plain version at the main-path shape, f32
+   (TF32 off) and bf16, plus a ragged-width and a d >= W case;
+4. K2 (fused_mbconv) against its plain version at the 9 distinct main-path
+   shapes, f32 (TF32 off) and bf16, with and without the residual where
+   Cin == Cout;
+5. the main path: LightStereo-S at 544x960, b1, bf16, random weights from a
+   seed, through the port's infer entry (`tools/infer.py:run_pair`) on a few
+   synthetic pairs (a random image and the same image rolled by 12 px), with
+   the launch counts, and the shapes the kernels were launched at, read
+   around it and held against the expected ones, and the kernel path held
+   against the eager path in f32 and bf16;
+6. timing with CUDA events: frames/s eager vs kernels (the `bench.py`
+   protocol), and per kernel at each shape the main path launched it at
+   its time, its plain version's, a yardstick and its bound, summed per
+   frame with the launch counts recorded in phase 5.
+
+The line before the card line is a JSON object with one entry per kernel;
+the last line is {"ok": true, "device": {...}}.
+"""
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+H, W = 544, 960
+N_PAIRS = 3
+CFG_FILE = Path(__file__).resolve().parent / "cfgs/lightstereo/lightstereo_s_sceneflow.yaml"
+
+# expected K2 launches per LightStereo-S frame: (batch, H, W, Cin, Ch, Cout, residual) → count
+K2_SHAPES = {
+    (2, 136, 240, 24, 144, 24, True): 1,
+    (2, 68, 120, 32, 192, 32, True): 2,
+    (2, 34, 60, 64, 384, 64, True): 3,
+    (2, 34, 60, 64, 384, 96, False): 1,
+    (2, 34, 60, 96, 576, 96, True): 2,
+    (2, 17, 30, 160, 960, 160, True): 2,
+    (1, 136, 240, 48, 192, 48, True): 2,
+    (1, 68, 120, 96, 384, 96, True): 2,
+    (1, 34, 60, 192, 768, 192, True): 3,
+}
+K1_SHAPE = (1, 24, 136, 240, 48)  # B, C, H/4, W/4, D
+
+# dense peaks: (memory bytes/s, bf16 tensor flop/s), NVIDIA data sheets
+CARDS = {"H100 PCIe": (2.0e12, 756e12), "H100 NVL": (3.9e12, 835e12), "H100": (3.35e12, 989e12)}
+
+
+class SmokeFailure(Exception):
+    pass
+
+
+def check(cond, msg):
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+def peaks(name):
+    for key, val in CARDS.items():  # most specific names first
+        if key in name:
+            return val
+    raise SmokeFailure(f"no peak rates known for card {name!r}")
+
+
+def time_ms(fn, iters=50, warmup=5):
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bf16_close(got, ref, rtol=8e-3, atol=1e-3):
+    """|got - ref| <= rtol·|ref| + atol: one bf16 rounding of an f32 result."""
+    return bool(((got.float() - ref).abs() <= rtol * ref.abs() + atol).all())
+
+
+def phase_card():
+    import torch
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    name = torch.cuda.get_device_name(0)
+    print(f"[card] {smi}")
+    print(f"[card] torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"{torch.cuda.device_count()} device(s), using {name}")
+    return smi, name
+
+
+def phase_build():
+    from openstereo_tpu_torch.ops.kernels import build
+
+    t0 = time.perf_counter()
+    paths = build.build_all()
+    print(f"[build] {len(paths)} kernel libraries in {time.perf_counter() - t0:.1f} s")
+    for name, path in paths.items():
+        print(f"[build]   {name}: {path}")
+
+
+def phase_k1(dev):
+    import torch
+
+    from openstereo_tpu_torch import ops
+
+    g = torch.Generator().manual_seed(1)
+    errs = {}
+    for (b, c, h, w, d), tag in ((K1_SHAPE, "main"), ((1, 8, 3, 37, 48), "ragged W"),
+                                 ((2, 24, 5, 130, 100), "ragged W, D>64"),
+                                 ((1, 4, 2, 6, 10), "d >= W")):
+        left, right = (torch.randn(b, c, h, w, generator=g).to(dev) for _ in range(2))
+        ref = ops.correlation_volume(left, right, d)
+        got = ops.corr_volume(left, right, d)
+        err32 = (got - ref).abs().max().item()
+        check(err32 <= 1e-5, f"K1 f32 {tag} {(b, c, h, w, d)}: max-abs {err32} > 1e-5")
+        lb, rb = left.bfloat16(), right.bfloat16()
+        ref16 = ops.correlation_volume(lb.float(), rb.float(), d)
+        got16 = ops.corr_volume(lb, rb, d)
+        err16 = (got16.float() - ref16).abs().max().item()
+        check(bf16_close(got16, ref16), f"K1 bf16 {tag}: max-abs {err16} beyond rtol 8e-3")
+        if w < d:
+            check(not got16[:, w:].any(), "K1: planes with d >= W are not zero")
+        print(f"[K1] {tag} {(b, c, h, w, d)}: f32 max-abs {err32:.3g} (tol 1e-5), "
+              f"bf16 max-abs {err16:.3g} (tol 8e-3·|ref| + 1e-3)")
+        errs[tag] = (err32, err16)
+    return errs["main"]
+
+
+def k2_inputs(shape, dev, dtype, g):
+    import torch
+
+    b, h, w, cin, ch, cout, _ = shape
+    # scaled so that both relu6 clamps (at 0 and at 6) are active
+    x = torch.randn(b, cin, h, w, generator=g) * 3.0
+    ws = [torch.randn(cin, ch, generator=g) * cin ** -0.5, torch.randn(ch, generator=g) * 0.5,
+          torch.randn(9, ch, generator=g) * 0.6, torch.randn(ch, generator=g) * 0.1,
+          torch.randn(ch, cout, generator=g) * ch ** -0.5, torch.randn(cout, generator=g) * 0.1]
+    args = [t.to(dev, dtype) if i % 2 == 0 else t.to(dev) for i, t in enumerate(ws)]
+    return x.to(dev, dtype), args
+
+
+def phase_k2(dev):
+    import torch
+
+    from openstereo_tpu_torch import ops
+
+    g = torch.Generator().manual_seed(2)
+    worst32 = worst16 = 0.0
+    for shape in K2_SHAPES:
+        cin, cout = shape[3], shape[5]
+        x, args = k2_inputs(shape, dev, torch.float32, g)
+        x16, args16 = x.bfloat16(), [a.bfloat16() if i % 2 == 0 else a for i, a in enumerate(args)]
+        for res in ((True, False) if cin == cout else (False,)):
+            ref = ops.mbconv_plain(x, *args, residual=res)
+            got = ops.fused_mbconv(x, *args, residual=res)
+            err32 = (got - ref).abs().max().item()
+            check(torch.allclose(got, ref, rtol=1e-4, atol=1e-4),
+                  f"K2 f32 {shape[:6]} residual={res}: max-abs {err32} beyond rtol 1e-4, atol 1e-4")
+            ref16 = ops.mbconv_plain(x16.float(), *[a.float() for a in args16], residual=res)
+            got16 = ops.fused_mbconv(x16, *args16, residual=res)
+            err16 = (got16.float() - ref16).abs().max().item()
+            check(bf16_close(got16, ref16),
+                  f"K2 bf16 {shape[:6]} residual={res}: max-abs {err16} beyond rtol 8e-3")
+            print(f"[K2] {shape[:6]} residual={res}: f32 max-abs {err32:.3g} "
+                  f"(tol 1e-4 + 1e-4·|ref|), bf16 max-abs {err16:.3g} (tol 8e-3·|ref| + 1e-3)")
+            worst32, worst16 = max(worst32, err32), max(worst16, err16)
+    return worst32, worst16
+
+
+def synthetic_pairs():
+    rng = np.random.RandomState(0)
+    for _ in range(N_PAIRS):
+        left = (rng.rand(H, W, 3) * 255).astype(np.uint8).astype(np.float32)
+        yield left, np.roll(left, -12, axis=1)
+
+
+def phase_slice(dev):
+    import torch
+
+    from openstereo_tpu_torch.config import load_config
+    from openstereo_tpu_torch.data.transforms import build_transforms
+    from openstereo_tpu_torch.models import build_model, set_kernels
+    from openstereo_tpu_torch.ops import kernels
+    from openstereo_tpu_torch.tools.infer import run_pair
+
+    cfg = load_config(str(CFG_FILE))
+    tf = build_transforms(cfg.DATA_CONFIG.DATA_TRANSFORM["EVALUATING"])
+    pairs = list(synthetic_pairs())
+    model = build_model(cfg.MODEL, dtype=torch.bfloat16, device=dev, seed=0)
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"[slice] LightStereo-S ({n_params} parameters), {H}x{W} b1 bf16, {N_PAIRS} pairs")
+
+    run_pair(model, tf, *pairs[0])  # warm-up: kernel build and cuDNN plans
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    wired = [run_pair(model, tf, *p) for p in pairs]  # the main path
+    torch.cuda.synchronize()
+    launches = dict(kernels.launch_counts)
+    shapes = {k: dict(v) for k, v in kernels.launch_shapes.items()}
+    print(f"[slice] launches over {N_PAIRS} frames: {launches}; per frame: "
+          f"{ {k: v / N_PAIRS for k, v in launches.items()} }")
+    check(launches["corr_volume"] == N_PAIRS, f"K1 launches {launches} != 1 per frame")
+    check(launches["fused_mbconv"] == 18 * N_PAIRS, f"K2 launches {launches} != 18 per frame")
+    per_frame = {}
+    for name, want in (("corr_volume", {K1_SHAPE: 1}), ("fused_mbconv", K2_SHAPES)):
+        check(all(n % N_PAIRS == 0 for n in shapes[name].values()),
+              f"{name} launch shapes {shapes[name]} differ between frames")
+        per_frame[name] = {k: n // N_PAIRS for k, n in shapes[name].items()}
+        check(per_frame[name] == want,
+              f"{name} launch shapes per frame {per_frame[name]} != expected {want}")
+        print(f"[slice] {name} launches per frame by shape: {per_frame[name]}")
+
+    set_kernels(model, False)
+    eager = [run_pair(model, tf, *p) for p in pairs]
+    mean16 = max(float(np.abs(a - b).mean()) for a, b in zip(wired, eager))
+    for d in wired + eager:
+        check(d.shape == (H, W) and np.isfinite(d).all(), "bf16 disparity not finite [H,W]")
+    check(mean16 <= 0.5, f"bf16 kernel vs eager mean-abs {mean16} px > 0.5")
+
+    model32 = build_model(cfg.MODEL, dtype=torch.float32, device=dev, seed=0)
+    errs32 = []
+    for p in pairs:
+        a = run_pair(set_kernels(model32, True), tf, *p)
+        b = run_pair(set_kernels(model32, False), tf, *p)
+        errs32.append(float(np.abs(a - b).max()))
+    max32 = max(errs32)
+    check(max32 <= 5e-3, f"f32 kernel vs eager max-abs {max32} px > 5e-3")
+    rng = [float(wired[0].min()), float(wired[0].max())]
+    print(f"[slice] f32 kernel vs eager: max-abs {max32:.3g} px (tol 5e-3); "
+          f"bf16 kernel vs eager: mean-abs {mean16:.3g} px (tol 0.5); "
+          f"bf16 disparity range {rng[0]:.2f}..{rng[1]:.2f}")
+    return model, launches, per_frame, max32, mean16
+
+
+def k1_work(shape, elem):
+    b, c, h, w, d = shape
+    nbytes = (2 * b * c * h * w + b * d * h * w) * elem
+    flops = 2 * b * c * h * sum(max(w - k, 0) for k in range(d))  # products with w - d >= 0
+    return nbytes, flops
+
+
+def k2_work(shape, elem):
+    b, h, w, cin, ch, cout, _ = shape
+    weights = (cin * ch + 9 * ch + ch * cout) * elem + (2 * ch + cout) * 4
+    nbytes = b * h * w * (cin + cout) * elem + weights
+    flops = 2 * b * h * w * (cin * ch + 9 * ch + ch * cout)
+    return nbytes, flops
+
+
+def bound(nbytes, flops, card):
+    t_bytes, t_ops = nbytes / card[0] * 1e3, flops / card[1] * 1e3  # ms, bf16 peak
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_timing(dev, model, card, per_frame):
+    import torch
+    import torch.nn.functional as F
+
+    from openstereo_tpu_torch import ops
+    from openstereo_tpu_torch.tools.bench import bench_eager_vs_kernels
+
+    res = bench_eager_vs_kernels(model, groups=8, reps=20)
+    for path in ("eager", "kernels"):
+        print(f"[time] LightStereo-S {path}: {res[path]['fps']:.2f} frames/s, "
+              f"{res[path]['ms_per_frame']:.3f} ms/frame (median of {len(res[path]['group_ms'])} "
+              f"groups of 20 chained frames)")
+
+    g = torch.Generator().manual_seed(3)
+    (k1_shape, k1_count), = per_frame["corr_volume"].items()
+    b, c, h, w, d = k1_shape
+    left, right = (torch.randn(b, c, h, w, generator=g).to(dev, torch.bfloat16) for _ in range(2))
+    t_k = time_ms(lambda: ops.corr_volume(left, right, d))
+    t_p = time_ms(lambda: ops.correlation_volume(left, right, d), iters=10)
+    t_b, by = bound(*k1_work(k1_shape, 2), card)
+    k1 = {"ms": k1_count * t_k, "plain_ms": k1_count * t_p, "yardstick_ms": None,
+          "bound_ms": k1_count * t_b, "bound_by": by, "launches_per_frame": k1_count,
+          "shapes": [{"shape": list(k1_shape), "launches_per_frame": k1_count, "ms": t_k,
+                      "plain_ms": t_p, "bound_ms": t_b, "bound_by": by}]}
+    print(f"[time] K1 {k1_shape} x{k1_count} bf16: kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
+          f"bound {t_b:.4f} ms ({by}); no single PyTorch call computes it")
+
+    k2 = {"ms": 0.0, "plain_ms": 0.0, "yardstick_ms": 0.0, "bound_ms": 0.0, "shapes": [],
+          "launches_per_frame": sum(per_frame["fused_mbconv"].values())}
+    t_bytes = t_ops = 0.0
+    for shape, count in sorted(per_frame["fused_mbconv"].items(), reverse=True):
+        res_ = shape[-1]
+        x, args = k2_inputs(shape, dev, torch.bfloat16, g)
+        w1, b1, dw, b2, w2, b3 = args
+        cin, ch = w1.shape
+        w1c, dwc, w2c = (w1.t().reshape(ch, cin, 1, 1).contiguous(),
+                         dw.t().reshape(ch, 1, 3, 3).contiguous(),
+                         w2.t().reshape(-1, ch, 1, 1).contiguous())
+        b1c, b2c, b3c = b1.bfloat16(), b2.bfloat16(), b3.bfloat16()
+
+        def cudnn_chain():
+            y = F.conv2d(x, w1c, b1c).clamp_(0, 6)
+            y = F.conv2d(y, dwc, b2c, padding=1, groups=ch).clamp_(0, 6)
+            y = F.conv2d(y, w2c, b3c)
+            return y + x if res_ else y
+
+        t_k = time_ms(lambda: ops.fused_mbconv(x, *args, residual=res_))
+        t_p = time_ms(lambda: ops.mbconv_plain(x, *args, residual=res_), iters=10)
+        t_y = time_ms(cudnn_chain)
+        nbytes, flops = k2_work(shape, 2)
+        t_b, by = bound(nbytes, flops, card)
+        t_bytes += count * nbytes / card[0] * 1e3
+        t_ops += count * flops / card[1] * 1e3
+        for key, t in (("ms", t_k), ("plain_ms", t_p), ("yardstick_ms", t_y), ("bound_ms", t_b)):
+            k2[key] += count * t
+        k2["shapes"].append({"shape": list(shape), "launches_per_frame": count, "ms": t_k,
+                             "plain_ms": t_p, "yardstick_ms": t_y, "bound_ms": t_b, "bound_by": by})
+        print(f"[time] K2 {shape} x{count} bf16: kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
+              f"cuDNN chain {t_y:.4f} ms, bound {t_b:.4f} ms ({by})")
+    k2["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    print(f"[time] K2 per frame ({k2['launches_per_frame']} launches): kernel {k2['ms']:.4f} ms, plain "
+          f"{k2['plain_ms']:.4f} ms, cuDNN chain {k2['yardstick_ms']:.4f} ms, "
+          f"bound {k2['bound_ms']:.4f} ms")
+    return res, k1, k2
+
+
+def main():
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: torch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
+        return 2
+    try:
+        import openstereo_tpu_torch  # noqa: F401
+    except ImportError as e:
+        print(f"chip_smoke: run from the repository root ({e})", file=sys.stderr)
+        return 2
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    try:
+        smi, name = phase_card()
+        card = peaks(name)
+        phase_build()
+        k1_err = phase_k1(dev)
+        k2_err = phase_k2(dev)
+        model, launches, per_frame, max32, mean16 = phase_slice(dev)
+        bench, k1, k2 = phase_timing(dev, model, card, per_frame)
+    except SmokeFailure as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+        return 1
+
+    entries = [
+        dict(name="corr_volume", route="cuda", source="openstereo_tpu_torch/csrc/corr_volume.cu",
+             replaces="openstereo_tpu/ops/pallas/corr_volume.py:34",
+             launches=launches["corr_volume"], max_abs_err=k1_err[1],
+             max_abs_err_f32=k1_err[0], library_ms=None, **k1),
+        dict(name="fused_mbconv", route="cuda", source="openstereo_tpu_torch/csrc/fused_mbconv.cu",
+             replaces="openstereo_tpu/ops/pallas/fused_mbconv.py:53",
+             launches=launches["fused_mbconv"], max_abs_err=k2_err[1],
+             max_abs_err_f32=k2_err[0], library_ms=None,
+             yardstick="eager cuDNN pw->dw->pw chain, folded BN", **k2),
+    ]
+    print(f"[slice] fps eager {bench['eager']['fps']:.2f}, kernels {bench['kernels']['fps']:.2f}; "
+          f"disparity f32 max-abs {max32:.3g}, bf16 mean-abs {mean16:.3g}; "
+          f"total {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"kernels": entries}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,233 @@
+"""Shared building blocks, NCHW (counterpart of `openstereo_tpu/models/layers.py`).
+
+Conventions, following flax's `dtype=` policy in the JAX package:
+- parameters and BatchNorm statistics are stored f32; a conv runs in its
+  input's dtype (bf16 on the main path) with its weight cast to that dtype,
+  and the cast is cached per weight version;
+- softmax/regression heads run in `head_dtype` (at least f32);
+- BatchNorm is the eval form (running statistics); training is ROADMAP
+  Slice B;
+- module attribute names follow the reference OpenStereo state_dict keys
+  that `openstereo_tpu/utils/torch_convert.py` reads (`block.0`, `pwconv.1`).
+
+The JAX package's 3D-conv lowering pins (`layers.py:31-104`) only choose an
+XLA lowering and have no counterpart here.
+"""
+
+from __future__ import annotations
+
+from functools import partial
+from typing import Callable, Optional
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ..ops.fused_mbconv import fold_mbconv, fused_mbconv
+
+
+def head_dtype(dtype: torch.dtype) -> torch.dtype:
+    """At least f32 for softmax/regression heads (`layers.py:107-111`)."""
+    return torch.promote_types(torch.float32, dtype)
+
+
+def relu6(x: torch.Tensor) -> torch.Tensor:
+    return x.clamp(0.0, 6.0)
+
+
+def leaky_relu(negative_slope: float = 0.01) -> Callable:
+    return partial(F.leaky_relu, negative_slope=negative_slope)
+
+
+def siamese(fn: Callable, left: torch.Tensor, right: torch.Tensor):
+    """Run a weight-shared tower over a stereo pair as one 2B batch and split
+    each output back into (left, right) (`layers.py:118-139`). `fn` returns
+    a tensor or a list of tensors."""
+    b = left.shape[0]
+    out = fn(torch.cat([left, right], dim=0))
+    if isinstance(out, torch.Tensor):
+        return out[:b], out[b:]
+    return [t[:b] for t in out], [t[b:] for t in out]
+
+
+def compute_weight(p: Optional[torch.Tensor], dtype: torch.dtype) -> Optional[torch.Tensor]:
+    """`p` cast to the compute dtype. Without autograd the cast is cached on
+    the parameter, keyed by its storage and version counter, so an in-place
+    update or `load_state_dict` invalidates it."""
+    if p is None or p.dtype == dtype:
+        return p
+    if torch.is_grad_enabled():
+        return p.to(dtype)
+    key = (p.device, p.data_ptr(), p._version, dtype)
+    cached = getattr(p, "_cast_cache", None)
+    if cached is None or cached[0] != key:
+        cached = (key, p.detach().to(dtype))
+        p._cast_cache = cached
+    return cached[1]
+
+
+def run_conv(x: torch.Tensor, conv: nn.Module) -> torch.Tensor:
+    """Apply an nn.Conv2d / nn.ConvTranspose2d in x's dtype."""
+    w, b = compute_weight(conv.weight, x.dtype), compute_weight(conv.bias, x.dtype)
+    if isinstance(conv, nn.ConvTranspose2d):
+        return F.conv_transpose2d(x, w, b, conv.stride, conv.padding, conv.output_padding,
+                                  conv.groups, conv.dilation)
+    return F.conv2d(x, w, b, conv.stride, conv.padding, conv.dilation, conv.groups)
+
+
+def apply_norm(x: torch.Tensor, norm: nn.Module) -> torch.Tensor:
+    """Eval-mode norm (`layers.py:266-291`): BatchNorm with running statistics
+    (f32 statistics on an x of any dtype); InstanceNorm non-affine, eps 1e-5,
+    with statistics in at least f32."""
+    if isinstance(norm, nn.BatchNorm2d):
+        if norm.training:
+            raise NotImplementedError("training-mode BatchNorm is ROADMAP Slice B")
+        return F.batch_norm(x, norm.running_mean, norm.running_var, norm.weight, norm.bias,
+                            False, 0.0, norm.eps)
+    if isinstance(norm, nn.InstanceNorm2d):
+        return F.instance_norm(x.to(head_dtype(x.dtype)), eps=norm.eps).to(x.dtype)
+    raise ValueError(f"unsupported norm {type(norm).__name__}")
+
+
+def conv_norm(x: torch.Tensor, seq: nn.Sequential) -> torch.Tensor:
+    """Sequential(conv[, norm]) → conv then norm."""
+    x = run_conv(x, seq[0])
+    return apply_norm(x, seq[1]) if len(seq) > 1 else x
+
+
+def _norm(norm: Optional[str], ch: int):
+    if norm is None:
+        return []
+    if norm == "batch":
+        return [nn.BatchNorm2d(ch)]
+    if norm == "instance":
+        return [nn.InstanceNorm2d(ch)]
+    raise ValueError(f"unknown norm {norm!r}")
+
+
+def deconv_bn(in_ch: int, out_ch: int, kernel_size: int = 4, norm: Optional[str] = None):
+    """The reference's two spatial-doubling deconvs (`layers.py:214-263`):
+    k4 s2 p1, and k3 s2 p1 with output_padding 1; bias-free."""
+    if kernel_size not in (3, 4):
+        raise ValueError(f"deconv kernel_size must be 3 or 4, got {kernel_size}")
+    deconv = nn.ConvTranspose2d(in_ch, out_ch, kernel_size, stride=2, padding=1,
+                                output_padding=1 if kernel_size == 3 else 0, bias=False)
+    return nn.Sequential(deconv, *_norm(norm, out_ch))
+
+
+class ConvBlock(nn.Module):
+    """Conv + optional norm + optional activation (`layers.py:150-211`).
+
+    Padding is torch's symmetric d·(k-1)/2; pad_mode "replicate" edge-pads
+    first and convolves unpadded. Keys: block.0 (conv), block.1 (norm).
+    """
+
+    def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 3, stride: int = 1,
+                 dilation: int = 1, groups: int = 1, bias: bool = False,
+                 norm: Optional[str] = None, act: Optional[Callable] = None,
+                 pad_mode: str = "zeros"):
+        super().__init__()
+        if pad_mode not in ("zeros", "replicate"):
+            raise ValueError(f"unknown pad_mode {pad_mode!r}")
+        self.pad = dilation * (kernel_size - 1) // 2
+        self.pad_mode = pad_mode
+        conv = nn.Conv2d(in_ch, out_ch, kernel_size, stride,
+                         padding=self.pad if pad_mode == "zeros" else 0,
+                         dilation=dilation, groups=groups, bias=bias)
+        self.block = nn.Sequential(conv, *_norm(norm, out_ch))
+        self.act = act
+
+    def forward(self, x):
+        if self.pad_mode == "replicate" and self.pad:
+            x = F.pad(x, (self.pad,) * 4, mode="replicate")
+        x = conv_norm(x, self.block)
+        return self.act(x) if self.act is not None else x
+
+
+class DeconvBlock(nn.Module):
+    """Transposed conv (k4 s2 p1 or k3 s2 p1 op1) + optional norm + act.
+    Keys: block.0 (deconv), block.1 (norm)."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 4,
+                 norm: Optional[str] = None, act: Optional[Callable] = None):
+        super().__init__()
+        self.block = deconv_bn(in_ch, out_ch, kernel_size, norm)
+        self.act = act
+
+    def forward(self, x):
+        x = conv_norm(x, self.block)
+        return self.act(x) if self.act is not None else x
+
+
+class FusableMBConv(nn.Module):
+    """Base of the inverted-residual blocks that the fused MBConv kernel runs.
+
+    Subclasses define `_mbconv_parts()` → (pw conv, bn, dw conv, bn, pwl
+    conv, bn) and `fusable` (stride 1, dilation 1, with an expand). In eval
+    with `use_kernels` on, forward goes to `ops.fused_mbconv` with the
+    BatchNorms folded once per weight version; otherwise it runs the eager
+    conv/BN chain.
+    """
+
+    use_kernels = True
+    fusable = False
+    use_res = False
+
+    def _mbconv_parts(self):
+        raise NotImplementedError
+
+    def folded(self, dtype: torch.dtype):
+        parts = self._mbconv_parts()
+        tensors = [t for m in parts for t in
+                   ([m] if isinstance(m, torch.Tensor) else list(m.parameters()) + list(m.buffers()))]
+        key = (dtype,) + tuple((t.device, t.data_ptr(), t._version) for t in tensors)
+        cached = getattr(self, "_fold_cache", None)
+        if cached is None or cached[0] != key:
+            cached = (key, fold_mbconv(*parts, dtype=dtype))
+            self._fold_cache = cached
+        return cached[1]
+
+    def forward_fused(self, x: torch.Tensor) -> Optional[torch.Tensor]:
+        if not (self.fusable and self.use_kernels and not self.training):
+            return None
+        return fused_mbconv(x.contiguous(), *self.folded(x.dtype), residual=self.use_res)
+
+
+class MobileV2Residual(FusableMBConv):
+    """Inverted residual pw-expand → dw3×3 → pw-linear, all BN
+    (`layers.py:350-373`). Keys: pwconv, dwconv, pwliner (each .0 conv, .1 BN)."""
+
+    def __init__(self, inp: int, oup: int, stride: int = 1, expanse_ratio: float = 4,
+                 dilation: int = 1):
+        super().__init__()
+        hidden = int(inp * expanse_ratio)
+        self.use_res = stride == 1 and inp == oup
+        self.fusable = stride == 1 and dilation == 1
+        self.pwconv = nn.Sequential(nn.Conv2d(inp, hidden, 1, bias=False), nn.BatchNorm2d(hidden))
+        self.dwconv = nn.Sequential(
+            nn.Conv2d(hidden, hidden, 3, stride, padding=dilation, dilation=dilation,
+                      groups=hidden, bias=False),
+            nn.BatchNorm2d(hidden))
+        self.pwliner = nn.Sequential(nn.Conv2d(hidden, oup, 1, bias=False), nn.BatchNorm2d(oup))
+
+    def _mbconv_parts(self):
+        return (self.pwconv[0].weight, self.pwconv[1], self.dwconv[0].weight, self.dwconv[1],
+                self.pwliner[0].weight, self.pwliner[1])
+
+    def forward(self, x):
+        y = self.forward_fused(x)
+        if y is not None:
+            return y
+        y = relu6(conv_norm(x, self.pwconv))
+        y = relu6(conv_norm(y, self.dwconv))
+        y = conv_norm(y, self.pwliner)
+        return x + y if self.use_res else y
+
+
+def set_kernels(model: nn.Module, enabled: bool) -> nn.Module:
+    """Route every kernel-capable module of `model` through its CUDA kernel
+    (True) or its eager PyTorch path (False)."""
+    for m in model.modules():
+        if hasattr(m, "use_kernels"):
+            m.use_kernels = enabled
+    return model

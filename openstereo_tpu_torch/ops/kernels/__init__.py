@@ -1,0 +1,39 @@
+"""Hand-written CUDA kernels: build/load helpers and launch counts.
+
+`launch_counts[name]` is raised by one by a kernel's wrapper right after
+it launched that kernel on the card, and nowhere else; a run reads it to
+show that its main path went through the kernels. `launch_shapes[name]`
+counts the same launches by the shape key the wrapper passes, so a run can
+also show at which shapes they ran.
+"""
+
+from __future__ import annotations
+
+from collections import Counter
+from typing import Dict, Tuple
+
+import torch
+
+launch_counts = {"corr_volume": 0, "fused_mbconv": 0}
+launch_shapes: Dict[str, Counter] = {k: Counter() for k in launch_counts}
+
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def reset_launch_counts() -> None:
+    for k in launch_counts:
+        launch_counts[k] = 0
+        launch_shapes[k].clear()
+
+
+def check_launch(name: str, err: int, shape: Tuple) -> None:
+    """Raise on a launcher's non-zero cudaError_t, else count the launch
+    (in total and under `shape`)."""
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err}")
+    launch_counts[name] += 1
+    launch_shapes[name][shape] += 1
+
+
+def stream_handle(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream

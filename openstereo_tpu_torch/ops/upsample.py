@@ -1,0 +1,34 @@
+"""Superpixel upsampling (counterpart of `openstereo_tpu/ops/upsample.py:17-45`)."""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+def unfold3x3(x: torch.Tensor) -> torch.Tensor:
+    """[B,H,W] → [B,9,H,W]: zero-padded 3×3 neighbourhood taps.
+
+    Tap k is (dy=k//3-1, dx=k%3-1), the order of `F.unfold`. The JAX
+    counterpart returns [B,H,W,9]; the port's taps are its transpose (0,3,1,2).
+    """
+    b, h, w = x.shape
+    return F.unfold(x[:, None], kernel_size=3, padding=1).reshape(b, 9, h, w)
+
+
+def upsample_nearest(x: torch.Tensor, scale: int, dims=(-2, -1)) -> torch.Tensor:
+    """Exact integer nearest-neighbour upsample by repetition."""
+    for d in dims:
+        x = torch.repeat_interleave(x, scale, dim=d)
+    return x
+
+
+def context_upsample(disp_low: torch.Tensor, up_weights: torch.Tensor,
+                     scale_factor: int = 4) -> torch.Tensor:
+    """disp_low [B,h,w], up_weights [B,9,s·h,s·w] → [B,s·h,s·w].
+
+    JAX counterpart takes up_weights as [B,s·h,s·w,9] (transpose (0,2,3,1)
+    of the port's).
+    """
+    taps = upsample_nearest(unfold3x3(disp_low), scale_factor)  # [B,9,sh,sw]
+    return (taps * up_weights).sum(dim=1)

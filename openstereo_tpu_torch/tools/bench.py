@@ -1,0 +1,130 @@
+"""LightStereo-S inference throughput on one CUDA card, eager path vs kernel path.
+
+    python -m openstereo_tpu_torch.tools.bench [--groups 9] [--reps 25]
+
+The protocol of the JAX `bench.py:41-84`: input [1,3,544,960], bf16, random
+weights from a seed; each timing group runs `reps` frames chained by a data
+dependency (frame i+1's left image adds 0·mean(frame i's disparity)), timed
+with CUDA events around the group; frames/s is the median over groups.
+The eager path (cuDNN and PyTorch ops) and the kernel path (the port's CUDA
+kernels wired in) run in turns, eager-kernel-kernel-eager, on one card.
+Prints one JSON line. It has no CPU mode: without a card it raises.
+`--profile DIR` adds a torch.profiler pass over each path: device busy time
+per frame, its idle share against the untraced ms/frame, and the top kernels.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+from typing import Dict
+
+import numpy as np
+import torch
+
+from ..config import Config
+from ..models import build_model, set_kernels
+
+H, W = 544, 960
+LIGHTSTEREO_S = Config.from_dict({"NAME": "LightStereo", "MAX_DISP": 192, "EXPANSE_RATIO": 4,
+                                  "AGGREGATION_BLOCKS": [1, 2, 4], "LEFT_ATT": True})
+
+
+def pair(device: torch.device) -> Dict[str, torch.Tensor]:
+    rng = np.random.RandomState(0)
+    return {k: torch.from_numpy(rng.rand(1, 3, H, W).astype(np.float32)).to(device)
+            for k in ("left", "right")}
+
+
+def time_frames(model: torch.nn.Module, data: Dict[str, torch.Tensor], groups: int,
+                reps: int, warmup: int = 3) -> np.ndarray:
+    """Per-group ms/frame of `reps` chained frames, timed with CUDA events."""
+    def chain(n):
+        carry = torch.zeros((), device=data["left"].device)
+        for _ in range(n):
+            out = model({"left": data["left"] + carry, "right": data["right"]})["disp_pred"]
+            carry = out.mean() * 0.0
+        return carry
+
+    times = []
+    with torch.inference_mode():
+        chain(warmup)
+        torch.cuda.synchronize()
+        for _ in range(groups):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            chain(reps)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end) / reps)
+    return np.asarray(times)
+
+
+def bench_eager_vs_kernels(model: torch.nn.Module, groups: int, reps: int) -> Dict[str, dict]:
+    """Run eager, kernels, kernels, eager (half the groups each time); return
+    the median ms/frame and frames/s of each path."""
+    data = pair(next(model.parameters()).device)
+    runs = {"eager": [], "kernels": []}
+    for path in ("eager", "kernels", "kernels", "eager"):
+        set_kernels(model, path == "kernels")
+        runs[path].append(time_frames(model, data, max(1, groups // 2), reps))
+    set_kernels(model, True)
+    out = {}
+    for path, ts in runs.items():
+        ms = float(np.median(np.concatenate(ts)))
+        out[path] = {"ms_per_frame": ms, "fps": 1000.0 / ms,
+                     "group_ms": [float(t) for t in np.concatenate(ts)]}
+    return out
+
+
+def profile_paths(model: torch.nn.Module, frames: int, out_dir: str) -> Dict[str, dict]:
+    """torch.profiler over `frames` chained frames of each path: device time
+    per frame summed over kernels (one stream, so the sum is the busy time),
+    the top kernels, and the full table in `out_dir/profile_<path>.txt`."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    data = pair(next(model.parameters()).device)
+    os.makedirs(out_dir, exist_ok=True)
+    out = {}
+    for path in ("eager", "kernels"):
+        set_kernels(model, path == "kernels")
+        time_frames(model, data, groups=1, reps=frames)  # warm-up outside the trace
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            traced_ms = time_frames(model, data, groups=1, reps=frames, warmup=0)[0]
+        # kernel rows only: an op's row repeats the device time of the kernels it launched
+        events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        events.sort(key=lambda e: -e.self_device_time_total)
+        busy = sum(e.self_device_time_total for e in events) / 1e3 / frames
+        with open(os.path.join(out_dir, f"profile_{path}.txt"), "w") as f:
+            f.write(prof.key_averages().table(sort_by="self_device_time_total", row_limit=40))
+        out[path] = {"device_busy_ms_per_frame": busy, "traced_ms_per_frame": float(traced_ms),
+                     "top": [{"kernel": e.key[:90], "ms_per_frame": e.self_device_time_total / 1e3 / frames,
+                              "calls_per_frame": e.count / frames} for e in events[:12]]}
+    set_kernels(model, True)
+    return out
+
+
+def main():
+    p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    p.add_argument("--groups", type=int, default=9)
+    p.add_argument("--reps", type=int, default=25)
+    p.add_argument("--profile", default=None,
+                   help="directory for torch.profiler tables of both paths (off by default)")
+    args = p.parse_args()
+    model = build_model(LIGHTSTEREO_S, dtype=torch.bfloat16)
+    res = bench_eager_vs_kernels(model, args.groups, args.reps)
+    line = {"metric": "lightstereo_s_fps_544x960_b1_bf16", "device": torch.cuda.get_device_name(0),
+            "eager": res["eager"], "kernels": res["kernels"],
+            "kernels_over_eager": res["kernels"]["fps"] / res["eager"]["fps"]}
+    if args.profile:
+        prof = profile_paths(model, args.reps, args.profile)
+        for path, r in prof.items():
+            r["idle_share"] = 1.0 - r["device_busy_ms_per_frame"] / res[path]["ms_per_frame"]
+        line["profile"] = prof
+    print(json.dumps(line))
+
+
+if __name__ == "__main__":
+    main()

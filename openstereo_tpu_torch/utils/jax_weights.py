@@ -1,0 +1,179 @@
+"""JAX → port weights: flax LightStereo variables → the port's state_dict.
+
+The port's own inverse of `openstereo_tpu/utils/torch_convert.py`
+(`conv_kernel`, `deconv_kernel`, `TreeBuilder`, `convert_lightstereo`);
+it copies none of that code by import. Layout rules, inverted:
+
+- conv kernel (kh,kw,in,out) → weight (out,in,kh,kw);
+- deconv kernel: un-mirror spatially, then (in,out,kh,kw);
+- bn/scale, bn/bias + batch_stats bn/mean, bn/var → weight, bias,
+  running_mean, running_var (and num_batches_tracked = 0);
+- raw convs (the attention module's) keep their bias.
+
+Inputs are nested dicts of arrays (numpy or anything `np.asarray` takes).
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+
+def _conv_weight(k: np.ndarray) -> np.ndarray:
+    return k.transpose(3, 2, 0, 1)
+
+
+def _deconv_weight(k: np.ndarray) -> np.ndarray:
+    return k[::-1, ::-1].transpose(2, 3, 0, 1)
+
+
+def _leaves(tree, prefix=""):
+    for k, v in tree.items():
+        path = f"{prefix}/{k}" if prefix else k
+        if isinstance(v, dict) or hasattr(v, "items"):
+            yield from _leaves(v, path)
+        else:
+            yield path
+
+
+def _join(*parts: str, sep: str = "/") -> str:
+    return sep.join(p for p in parts if p)
+
+
+class FlaxToTorch:
+    """Walks flax variables, writing torch state_dict entries; every flax
+    leaf must be consumed (`finish`). Paths are '/'-joined flax module paths
+    ('' for the root), keys dotted torch module paths."""
+
+    def __init__(self, variables):
+        self.trees = {"params": variables["params"],
+                      "batch_stats": variables.get("batch_stats", {})}
+        self.used = set()
+        self.sd: Dict[str, torch.Tensor] = {}
+
+    def has(self, collection: str, path: str) -> bool:
+        tree = self.trees[collection]
+        for part in path.split("/"):
+            if part not in tree:
+                return False
+            tree = tree[part]
+        return True
+
+    def take(self, collection: str, path: str) -> np.ndarray:
+        tree = self.trees[collection]
+        for part in path.split("/"):
+            tree = tree[part]
+        self.used.add(f"{collection}/{path}")
+        return np.asarray(tree)
+
+    def put(self, key: str, value: np.ndarray):
+        if key in self.sd:
+            raise ValueError(f"duplicate target {key}")
+        self.sd[key] = torch.from_numpy(np.ascontiguousarray(value))
+
+    def conv(self, fpath: str, tkey: str, deconv: bool = False, raw: bool = False):
+        """fpath/{conv|deconv}/kernel[,bias] (or fpath/kernel[,bias] when raw)."""
+        base = fpath if raw else _join(fpath, "deconv" if deconv else "conv")
+        k = self.take("params", _join(base, "kernel"))
+        self.put(f"{tkey}.weight", _deconv_weight(k) if deconv else _conv_weight(k))
+        if self.has("params", _join(base, "bias")):
+            self.put(f"{tkey}.bias", self.take("params", _join(base, "bias")))
+
+    def bn(self, fpath: str, tkey: str):
+        self.put(f"{tkey}.weight", self.take("params", _join(fpath, "bn/scale")))
+        self.put(f"{tkey}.bias", self.take("params", _join(fpath, "bn/bias")))
+        self.put(f"{tkey}.running_mean", self.take("batch_stats", _join(fpath, "bn/mean")))
+        self.put(f"{tkey}.running_var", self.take("batch_stats", _join(fpath, "bn/var")))
+        self.sd[f"{tkey}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
+
+    def convbn(self, fpath: str, tprefix: str, deconv: bool = False):
+        """ConvBlock/DeconvBlock at fpath → Sequential(conv, bn) at tprefix."""
+        self.conv(fpath, f"{tprefix}.0", deconv=deconv)
+        self.bn(fpath, f"{tprefix}.1")
+
+    def finish(self) -> Dict[str, torch.Tensor]:
+        unused = [f"{c}/{p}" for c, tree in self.trees.items() for p in _leaves(tree)
+                  if f"{c}/{p}" not in self.used]
+        if unused:
+            raise ValueError(f"{len(unused)} flax variables not consumed, e.g. {unused[:8]}")
+        return self.sd
+
+
+def _trunk(b: FlaxToTorch, fpre: str, tpre: str):
+    b.conv(f"{fpre}/stem", f"{tpre}.conv_stem")
+    b.bn(f"{fpre}/stem", f"{tpre}.bn1")
+    ds = f"{tpre}.block0.0"
+    b.conv(f"{fpre}/stage0_block0/dw", f"{ds}.conv_dw")
+    b.bn(f"{fpre}/stage0_block0/dw", f"{ds}.bn1")
+    b.conv(f"{fpre}/stage0_block0/pw_linear", f"{ds}.conv_pw")
+    b.bn(f"{fpre}/stage0_block0/pw_linear", f"{ds}.bn2")
+    layout = {"block1": [(1, 2)], "block2": [(2, 3)],
+              "block3": [(3, 4), (4, 3)], "block4": [(5, 3)]}
+    for blk, stages in layout.items():
+        for si, n in stages:
+            mid = f".{si}" if blk == "block3" else ""
+            for bi in range(n):
+                f, t = f"{fpre}/stage{si}_block{bi}", f"{tpre}.{blk}{mid}.{bi}"
+                for sub, conv, bn in (("pw", "conv_pw", "bn1"), ("dw", "conv_dw", "bn2"),
+                                      ("pw_linear", "conv_pwl", "bn3")):
+                    b.conv(f"{f}/{sub}", f"{t}.{conv}")
+                    b.bn(f"{f}/{sub}", f"{t}.{bn}")
+
+
+def mv2_residual(b: FlaxToTorch, fpre: str, tpre: str):
+    """flax MobileV2Residual at fpre → port MobileV2Residual keys at tpre."""
+    b.convbn(_join(fpre, "pw"), _join(tpre, "pwconv", sep="."))
+    b.convbn(_join(fpre, "dw"), _join(tpre, "dwconv", sep="."))
+    b.convbn(_join(fpre, "pw_linear"), _join(tpre, "pwliner", sep="."))
+
+
+def _fpn(b: FlaxToTorch, fpre: str, tpre: str):
+    b.convbn(f"{fpre}/deconv", f"{tpre}.deconv.block", deconv=True)
+    b.convbn(f"{fpre}/conv", f"{tpre}.conv.block")
+
+
+def lightstereo_state_dict_from_jax(variables) -> Dict[str, torch.Tensor]:
+    """flax LightStereo (S/M/L) {"params", "batch_stats"} → port state_dict.
+
+    Block counts are read from the variables, so one function covers every
+    aggregation depth. Raises if a flax variable is left unconsumed.
+    """
+    b = FlaxToTorch(variables)
+    _trunk(b, "backbone/trunk", "backbone")
+    for f, t in (("fpn4", "fpn_layer4"), ("fpn3", "fpn_layer3"), ("fpn2", "fpn_layer2")):
+        _fpn(b, f"backbone/{f}", f"backbone.{t}")
+    b.conv("backbone/out_conv", "backbone.out_conv.block.0")
+
+    agg = b.trees["params"]["cost_agg"]
+    count = lambda name: sum(1 for k in agg if k.startswith(f"{name}_"))  # noqa: E731
+    for i in range(count("conv0")):
+        mv2_residual(b, f"cost_agg/conv0_{i}", f"cost_agg.conv0.{i}")
+    mv2_residual(b, "cost_agg/down1", "cost_agg.conv1")
+    for i in range(count("conv2")):
+        mv2_residual(b, f"cost_agg/conv2_{i}", f"cost_agg.conv2.{i}")
+    mv2_residual(b, "cost_agg/down3", "cost_agg.conv3")
+    for i in range(count("conv4")):
+        mv2_residual(b, f"cost_agg/conv4_{i}", f"cost_agg.conv4.{i}")
+    for att in ("att0", "att2", "att4"):
+        if att not in agg:
+            continue
+        f, t = f"cost_agg/{att}", f"cost_agg.{att}"
+        b.conv(f"{f}/proj", f"{t}.conv0", raw=True)
+        for i, strip in enumerate(("strip7", "strip11", "strip21")):
+            b.conv(f"{f}/{strip}_h", f"{t}.conv{i}_1", raw=True)
+            b.conv(f"{f}/{strip}_v", f"{t}.conv{i}_2", raw=True)
+        b.conv(f"{f}/out", f"{t}.conv3", raw=True)
+    b.convbn("cost_agg/up5", "cost_agg.conv5", deconv=True)
+    b.convbn("cost_agg/up6", "cost_agg.conv6", deconv=True)
+    mv2_residual(b, "cost_agg/redir1", "cost_agg.redir1")
+    mv2_residual(b, "cost_agg/redir2", "cost_agg.redir2")
+
+    b.conv("refine1a", "refine_1.0.block.0")
+    b.conv("refine1b", "refine_1.1.block.0")
+    b.convbn("stem2a", "stem_2.0.block")
+    b.convbn("stem2b", "stem_2.1.block")
+    _fpn(b, "refine2", "refine_2")
+    b.conv("refine3", "refine_3.block.0", deconv=True)
+    return b.finish()

@@ -1,0 +1,188 @@
+"""Port ops vs the JAX package's ops and Pallas kernels (interpret mode), on the CPU.
+
+Inputs are made with numpy from a seed and handed to both packages; the
+port is NCHW, the JAX package NHWC, and `to_nhwc`/`to_nchw` below are the
+one place the tests transpose between them. f32 on both sides; the
+tolerance is the one `tests/test_pallas_kernels.py` uses for the Pallas
+kernels against their jnp references (rtol 1e-5, atol 1e-5) unless a test
+says otherwise. On the CPU the kernel wrappers run their plain versions.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from openstereo_tpu import ops as jops
+from openstereo_tpu.ops.pallas import correlation_volume_pallas
+from openstereo_tpu.ops.pallas import fused_mbconv as jfm
+
+from openstereo_tpu_torch import ops
+from openstereo_tpu_torch.ops import kernels
+from openstereo_tpu_torch.ops.fused_mbconv import fold_mbconv
+
+TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+def to_nhwc(a):
+    """Port layout → JAX layout: channel axis 1 → last (numpy or torch)."""
+    a = a.detach().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+    return np.moveaxis(a, 1, -1)
+
+
+def to_nchw(a):
+    """JAX layout → port layout: last axis → 1, as a torch tensor."""
+    return torch.from_numpy(np.ascontiguousarray(np.moveaxis(np.asarray(a), -1, 1)))
+
+
+@pytest.mark.parametrize("b,h,w,c,d", [
+    (2, 3, 40, 24, 12),   # plain
+    (1, 3, 130, 8, 8),    # W ragged against the Pallas tile (128)
+    (1, 2, 6, 4, 10),     # planes with d >= W are zero
+])
+def test_corr_volume_plain_matches_jax_and_pallas(b, h, w, c, d):
+    rng = np.random.RandomState(b * 100 + w)
+    l = rng.randn(b, h, w, c).astype(np.float32)
+    r = rng.randn(b, h, w, c).astype(np.float32)
+    ref = np.asarray(jops.correlation_volume(jnp.asarray(l), jnp.asarray(r), d))
+    pallas = np.asarray(correlation_volume_pallas(jnp.asarray(l), jnp.asarray(r), d,
+                                                  tile_w=128, interpret=True))
+    got = ops.corr_volume(to_nchw(l), to_nchw(r), d)
+    assert got.shape == (b, d, h, w) and got.dtype == torch.float32
+    np.testing.assert_allclose(to_nhwc(got), ref, **TOL)
+    np.testing.assert_allclose(to_nhwc(got), pallas, **TOL)
+    if d > w:
+        assert not got[:, w:].any()
+
+
+def test_corr_volume_bf16_accumulates_in_f32():
+    rng = np.random.RandomState(3)
+    l, r = (torch.from_numpy(rng.randn(1, 24, 4, 32).astype(np.float32)).bfloat16()
+            for _ in range(2))
+    got = ops.corr_volume(l, r, 8)
+    assert got.dtype == torch.bfloat16
+    ref = ops.correlation_volume(l.float(), r.float(), 8)
+    # one bf16 rounding of the f32 result
+    np.testing.assert_allclose(got.float().numpy(), ref.numpy(), rtol=8e-3, atol=1e-6)
+
+
+def _mbconv_case(seed, b, h, w, cin, ch, cout):
+    """Torch-layout convs + eval BatchNorms from numpy, and the same weights
+    in the JAX kernel's layouts, folded by each package's own fold_bn."""
+    rng = np.random.RandomState(seed)
+    # scaled so that both relu6 clamps (at 0 and at 6) are active
+    x = (rng.randn(b, h, w, cin) * 3).astype(np.float32)
+    convs = [rng.randn(ch, cin, 1, 1) * 0.4, rng.randn(ch, 1, 3, 3) * 0.6,
+             rng.randn(cout, ch, 1, 1) * 0.2]
+    bns, jax_args = [], []
+    for wt in convs:
+        n = wt.shape[0]
+        bn = torch.nn.BatchNorm2d(n).eval()
+        stats = [rng.rand(n) + 0.5, rng.randn(n) * 0.2, rng.randn(n) * 0.2, rng.rand(n) + 0.5]
+        with torch.no_grad():
+            for t, v in zip((bn.weight, bn.bias, bn.running_mean, bn.running_var), stats):
+                t.copy_(torch.from_numpy(v))
+        bns.append(bn)
+        # JAX kernel layout: Cout last, spatial taps flattened tap-major
+        k = wt.reshape(n, -1).T.astype(np.float32)  # [Cin or 9, Cout]
+        jax_args += list(jfm.fold_bn(k, *[np.float32(s) for s in stats]))
+    port_args = fold_mbconv(torch.from_numpy(convs[0]).float(), bns[0],
+                            torch.from_numpy(convs[1]).float(), bns[1],
+                            torch.from_numpy(convs[2]).float(), bns[2], dtype=torch.float32)
+    return x, port_args, [jnp.asarray(a, jnp.float32) for a in jax_args]
+
+
+@pytest.mark.parametrize("residual", [True, False])
+def test_fused_mbconv_plain_matches_jax_and_pallas(residual):
+    cout = 8 if residual else 12
+    x, port_args, jax_args = _mbconv_case(0, 1, 10, 20, 8, 32, cout)
+    ref = np.asarray(jfm.mbconv_reference(jnp.asarray(x), *jax_args, residual=residual))
+    pallas = np.asarray(jfm.fused_mbconv(jnp.asarray(x), *jax_args, tile_h=8, tile_w=128,
+                                         residual=residual, interpret=True))
+    for a, j in zip(port_args, jax_args):  # port fold_bn + layout == JAX fold_bn
+        np.testing.assert_allclose(a.numpy(), np.asarray(j), rtol=1e-6, atol=1e-6)
+    plain = ops.mbconv_plain(to_nchw(x), *port_args, residual=residual)
+    got = ops.fused_mbconv(to_nchw(x), *port_args, residual=residual)
+    assert got.shape == (1, cout, 10, 20)
+    np.testing.assert_array_equal(got.numpy(), plain.numpy())
+    np.testing.assert_allclose(to_nhwc(got), ref, rtol=1e-5, atol=1e-4)
+    np.testing.assert_allclose(to_nhwc(got), pallas, rtol=1e-5, atol=1e-4)
+
+
+def test_fused_mbconv_checks_inputs():
+    x, args, _ = _mbconv_case(1, 1, 4, 4, 8, 16, 12)
+    with pytest.raises(ValueError, match="residual"):
+        ops.fused_mbconv(to_nchw(x), *args, residual=True)
+    with pytest.raises(TypeError):
+        ops.fused_mbconv(to_nchw(x).double(), *args, residual=False)
+    with pytest.raises(ValueError, match="w1"):
+        ops.fused_mbconv(to_nchw(x), args[0][:4], *args[1:], residual=False)
+    with pytest.raises(TypeError, match="b1"):
+        ops.fused_mbconv(to_nchw(x), args[0], args[1].bfloat16(), *args[2:], residual=False)
+
+
+def test_corr_volume_checks_inputs():
+    a = torch.zeros(1, 4, 2, 8)
+    with pytest.raises(ValueError):
+        ops.corr_volume(a, torch.zeros(1, 4, 2, 9), 4)
+    with pytest.raises(TypeError):
+        ops.corr_volume(a.double(), a.double(), 4)
+
+
+def test_cpu_wrappers_launch_nothing():
+    kernels.reset_launch_counts()
+    a = torch.randn(1, 4, 2, 8)
+    ops.corr_volume(a, a, 4)
+    assert kernels.launch_counts == {"corr_volume": 0, "fused_mbconv": 0}
+    assert not any(kernels.launch_shapes.values())
+
+
+def test_check_launch_counts_by_shape():
+    kernels.reset_launch_counts()
+    for shape in ((1, 4, 2, 8, 4), (1, 4, 2, 8, 4), (2, 4, 2, 8, 4)):
+        kernels.check_launch("corr_volume", 0, shape)
+    assert kernels.launch_counts["corr_volume"] == 3
+    assert kernels.launch_shapes["corr_volume"] == {(1, 4, 2, 8, 4): 2, (2, 4, 2, 8, 4): 1}
+    with pytest.raises(RuntimeError, match="cudaError_t 2"):
+        kernels.check_launch("fused_mbconv", 2, (1, 1, 1, 1, 1, 1, True))
+    assert kernels.launch_counts["fused_mbconv"] == 0
+    kernels.reset_launch_counts()
+    assert kernels.launch_counts == {"corr_volume": 0, "fused_mbconv": 0}
+    assert not any(kernels.launch_shapes.values())
+
+
+def test_fold_bn_matches_jax():
+    rng = np.random.RandomState(1)
+    k = rng.randn(16, 8, 3, 3).astype(np.float32)
+    stats = [rng.rand(16) + 0.5, rng.randn(16), rng.randn(16), rng.rand(16) + 0.1]
+    kf, bf = ops.fold_bn(torch.from_numpy(k), *[torch.from_numpy(s) for s in stats])
+    jk, jb = jfm.fold_bn(k.transpose(2, 3, 1, 0), *stats)
+    np.testing.assert_allclose(kf.numpy().transpose(2, 3, 1, 0), jk, rtol=1e-6)
+    np.testing.assert_allclose(bf.numpy(), jb, rtol=1e-6, atol=1e-6)
+
+
+def test_disparity_regression_matches_jax():
+    rng = np.random.RandomState(2)
+    logits = rng.randn(2, 5, 7, 12).astype(np.float32)
+    prob = np.asarray(jnp.exp(logits) / jnp.exp(logits).sum(-1, keepdims=True))
+    ref = np.asarray(jops.disparity_regression(jnp.asarray(prob), 12))
+    got = ops.disparity_regression(to_nchw(prob), 12)
+    np.testing.assert_allclose(got.numpy(), ref, **TOL)
+
+
+def test_unfold3x3_matches_jax():
+    x = np.random.RandomState(3).randn(2, 5, 6).astype(np.float32)
+    ref = np.asarray(jops.unfold3x3(jnp.asarray(x)))
+    np.testing.assert_array_equal(to_nhwc(ops.unfold3x3(torch.from_numpy(x))), ref)
+
+
+def test_context_upsample_matches_jax():
+    rng = np.random.RandomState(4)
+    disp = (rng.rand(2, 4, 6) * 10).astype(np.float32)
+    w = rng.rand(2, 16, 24, 9).astype(np.float32)
+    w /= w.sum(-1, keepdims=True)
+    ref = np.asarray(jops.context_upsample(jnp.asarray(disp), jnp.asarray(w)))
+    got = ops.context_upsample(torch.from_numpy(disp), to_nchw(w))
+    assert got.shape == (2, 16, 24)
+    np.testing.assert_allclose(got.numpy(), ref, **TOL)
