@@ -14,16 +14,26 @@ without the repository around it). Phases, each of which fails the run:
 4. K2 (fused_mbconv) against its plain version at the 9 distinct main-path
    shapes, f32 (TF32 off) and bf16, with and without the residual where
    Cin == Cout;
-5. the main path: LightStereo-S at 544x960, b1, bf16, random weights from a
-   seed, through the port's infer entry (`tools/infer.py:run_pair`) on a few
-   synthetic pairs (a random image and the same image rolled by 12 px), with
-   the launch counts, and the shapes the kernels were launched at, read
-   around it and held against the expected ones, and the kernel path held
-   against the eager path in f32 and bf16;
-6. timing with CUDA events: frames/s eager vs kernels (the `bench.py`
-   protocol), and per kernel at each shape the main path launched it at
-   its time, its plain version's, a yardstick and its bound, summed per
-   frame with the launch counts recorded in phase 5.
+5. K4 (rel_attention) against its plain version at the 3 STTR main-path
+   shapes and at edge cases (W ragged against the row tile, W = 416, W = 1,
+   masked with raw at a small W, every supported head width), f32 (TF32
+   off) and bf16;
+6. the LightStereo path: LightStereo-S at 544x960, b1, bf16, random weights
+   from a seed, through the port's infer entry (`tools/infer.py:run_pair`)
+   on a few synthetic pairs (a random image and the same image rolled by
+   12 px), with the launch counts, and the shapes the kernels were launched
+   at, read around it and held against the expected ones, and the kernel
+   path held against the eager path in f32 and bf16;
+7. the STTR path: STTR at 540x960 (`cfgs/sttr/sttr_flyingthings3d.yaml`),
+   b1, bf16, the same way, with 18 K4 launches per frame at 3 shapes; the
+   kernel path against the eager path in f32 (last-layer raw attention and
+   disparity) and bf16 (share of pixels within 3 px);
+8. timing with CUDA events: frames/s eager vs kernels of both models (the
+   `bench.py` protocol), and per kernel at each shape its path launched it
+   at its time, its plain version's, a yardstick and its bound, summed per
+   frame with the launch counts recorded in phases 6 and 7; and a
+   torch.profiler pass over STTR frames of both paths (tables under
+   `chiprun_out/sttr_profile/`).
 
 The line before the card line is a JSON object with one entry per kernel;
 the last line is {"ok": true, "device": {...}}.
@@ -39,7 +49,10 @@ import numpy as np
 
 H, W = 544, 960
 N_PAIRS = 3
-CFG_FILE = Path(__file__).resolve().parent / "cfgs/lightstereo/lightstereo_s_sceneflow.yaml"
+ROOT = Path(__file__).resolve().parent
+CFG_FILE = ROOT / "cfgs/lightstereo/lightstereo_s_sceneflow.yaml"
+STTR_CFG = ROOT / "cfgs/sttr/sttr_flyingthings3d.yaml"
+STTR_HW = (540, 960)
 
 # expected K2 launches per LightStereo-S frame: (batch, H, W, Cin, Ch, Cout, residual) → count
 K2_SHAPES = {
@@ -54,6 +67,22 @@ K2_SHAPES = {
     (1, 34, 60, 192, 768, 192, True): 3,
 }
 K1_SHAPE = (1, 24, 136, 240, 48)  # B, C, H/4, W/4, D
+
+# expected K4 launches per STTR frame: (lines, W', E, nheads, masked, need_raw) → count.
+# 6 self layers on left+right (2·180 lines), 12 cross calls on 180 lines, the
+# last of them masked and with the raw attention
+K4_SHAPES = {
+    (360, 320, 128, 8, False, False): 6,
+    (180, 320, 128, 8, False, False): 11,
+    (180, 320, 128, 8, True, True): 1,
+}
+# K4 edge cases: (B, W, E, nheads, masked, need_raw, what)
+K4_EDGES = [
+    (4, 37, 64, 2, True, True, "W ragged against the 32-row tile, hd 32"),
+    (2, 416, 128, 2, False, True, "W of a 1248-wide frame, hd 64"),
+    (3, 1, 32, 4, True, True, "W = 1, hd 8"),
+    (2, 50, 128, 8, True, True, "masked with raw, small W"),
+]
 
 # dense peaks: (memory bytes/s, bf16 tensor flop/s), NVIDIA data sheets
 CARDS = {"H100 PCIe": (2.0e12, 756e12), "H100 NVL": (3.9e12, 835e12), "H100": (3.35e12, 989e12)}
@@ -185,10 +214,73 @@ def phase_k2(dev):
     return worst32, worst16
 
 
-def synthetic_pairs():
+def k4_inputs(shape, dev, g):
+    """q, k, v [B,W,E] and ke, qe [2W-1,E], f32; q and qe scaled by hd^-1/2
+    as the model scales them, so the logits have the model's spread."""
+    import torch
+
+    b, w, e, nh = shape[:4]
+    scale = (e // nh) ** -0.5
+    q, k, v = (torch.randn(b, w, e, generator=g) for _ in range(3))
+    ke, qe = (torch.randn(2 * w - 1, e, generator=g) * 0.5 for _ in range(2))
+    return [t.to(dev) for t in (q * scale, k, v, ke, qe * scale)]
+
+
+def k4_errors(args, nh, masked, need_raw):
+    """K4 against its plain version: (out max-abs, raw max-abs on finite
+    entries), raising beyond the tolerances (f32: 1e-4 as
+    tests/test_rel_attention.py; bf16: one bf16 rounding of out, raw at
+    rtol 1e-3 against the plain version on f32 copies of the bf16 inputs)."""
+    import torch
+
+    from openstereo_tpu_torch import ops
+
+    bf16 = args[0].dtype == torch.bfloat16
+    ref, ref_raw = ops.rel_attention_plain(*[a.float() for a in args], nh, masked, need_raw)
+    got, raw = ops.rel_attention(*args, nh, masked, need_raw)
+    err = (got.float() - ref).abs().max().item()
+    if bf16:
+        check(bf16_close(got, ref), f"out max-abs {err} beyond 8e-3·|ref| + 1e-3")
+    else:
+        check(bool(((got - ref).abs() <= 1e-4 + 1e-4 * ref.abs()).all()),
+              f"out max-abs {err} beyond rtol 1e-4, atol 1e-4")
+    if not need_raw:
+        check(raw is None, "raw returned without need_raw")
+        return err, None
+    fin = ref_raw.abs() < 1e20
+    check(bool((raw[~fin] < -1e29).all()), "masked raw entries are not ~-1e30 per head")
+    rtol, atol = (1e-3, 1e-4) if bf16 else (1e-4, 1e-4)
+    rerr = (raw[fin] - ref_raw[fin]).abs()
+    check(bool((rerr <= atol + rtol * ref_raw[fin].abs()).all()),
+          f"raw max-abs {rerr.max().item()} beyond rtol {rtol}, atol {atol}")
+    return err, rerr.max().item()
+
+
+def phase_k4(dev):
+    import torch
+
+    g = torch.Generator().manual_seed(4)
+    worst = {"f32": 0.0, "bf16": 0.0}
+    cases = [(*key, "main path") for key in K4_SHAPES] + K4_EDGES
+    for b, w, e, nh, masked, need_raw, what in cases:
+        args = k4_inputs((b, w, e, nh), dev, g)
+        for tag, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            try:
+                err, rerr = k4_errors([a.to(dtype) for a in args], nh, masked, need_raw)
+            except SmokeFailure as exc:
+                raise SmokeFailure(f"K4 {tag} {(b, w, e, nh, masked, need_raw)} ({what}): {exc}")
+            worst[tag] = max(worst[tag], err)
+            print(f"[K4] {tag} B={b} W={w} E={e} heads={nh} masked={masked} raw={need_raw} "
+                  f"({what}): out max-abs {err:.3g}, raw max-abs "
+                  f"{'-' if rerr is None else f'{rerr:.3g}'}")
+    torch.cuda.synchronize()
+    return worst["f32"], worst["bf16"]
+
+
+def synthetic_pairs(size=(H, W)):
     rng = np.random.RandomState(0)
     for _ in range(N_PAIRS):
-        left = (rng.rand(H, W, 3) * 255).astype(np.uint8).astype(np.float32)
+        left = (rng.rand(*size, 3) * 255).astype(np.uint8).astype(np.float32)
         yield left, np.roll(left, -12, axis=1)
 
 
@@ -248,6 +340,94 @@ def phase_slice(dev):
           f"bf16 kernel vs eager: mean-abs {mean16:.3g} px (tol 0.5); "
           f"bf16 disparity range {rng[0]:.2f}..{rng[1]:.2f}")
     return model, launches, per_frame, max32, mean16
+
+
+def record_launches(name, want, run):
+    """Zero the launch counts, `run()` the path, and hold the record of kernel
+    `name` against `want` (shape key → launches per frame)."""
+    import torch
+
+    from openstereo_tpu_torch.ops import kernels
+
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    out = run()
+    torch.cuda.synchronize()
+    launches = dict(kernels.launch_counts)
+    shapes = dict(kernels.launch_shapes[name])
+    check(launches[name] == sum(want.values()) * N_PAIRS,
+          f"{name} launches {launches} != {sum(want.values())} per frame")
+    check(all(n % N_PAIRS == 0 for n in shapes.values()),
+          f"{name} launch shapes {shapes} differ between frames")
+    per_frame = {k: n // N_PAIRS for k, n in shapes.items()}
+    check(per_frame == want, f"{name} launch shapes per frame {per_frame} != expected {want}")
+    print(f"[record] {name} launches over {N_PAIRS} frames: {launches[name]}; per frame by "
+          f"shape: {per_frame}")
+    return out, launches[name], per_frame
+
+
+def phase_sttr(dev):
+    import torch
+
+    from openstereo_tpu_torch.config import load_config
+    from openstereo_tpu_torch.data.transforms import build_transforms
+    from openstereo_tpu_torch.models import build_model, set_kernels
+    from openstereo_tpu_torch.tools.infer import run_pair
+
+    cfg = load_config(str(STTR_CFG))
+    tf = build_transforms(cfg.DATA_CONFIG.DATA_TRANSFORM["EVALUATING"])
+    pairs = list(synthetic_pairs(STTR_HW))
+    model = build_model(cfg.MODEL, dtype=torch.bfloat16, device=dev, seed=0)
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"[sttr] STTR ({n_params} parameters), {STTR_HW[0]}x{STTR_HW[1]} b1 bf16, "
+          f"{N_PAIRS} pairs")
+    run_pair(model, tf, *pairs[0])  # warm-up: kernel build and cuDNN plans
+    wired, launches, per_frame = record_launches(
+        "rel_attention", K4_SHAPES, lambda: [run_pair(model, tf, *p) for p in pairs])
+
+    set_kernels(model, False)
+    eager = [run_pair(model, tf, *p) for p in pairs]
+    set_kernels(model, True)
+    for d in wired + eager:
+        check(d.shape == STTR_HW and np.isfinite(d).all(), "bf16 disparity not finite [540,960]")
+    diffs = [np.abs(a - b) for a, b in zip(wired, eager)]
+    mean16 = max(float(d.mean()) for d in diffs)
+    share16 = min(float((d <= 3.0).mean()) for d in diffs)
+    print(f"[sttr] bf16 kernel vs eager: mean-abs {mean16:.4g} px, share within 3 px "
+          f"{share16:.5f} (worst pair; tol >= 0.9); disparity range "
+          f"{wired[0].min():.2f}..{wired[0].max():.2f}")
+    check(share16 >= 0.9, f"bf16 kernel vs eager: only {share16:.4f} of pixels within 3 px")
+
+    model32 = build_model(cfg.MODEL, dtype=torch.float32, device=dev, seed=0)
+    captured = []
+    hook = model32.transformer.register_forward_hook(
+        lambda mod, inp, out: captured.append(out.float()))
+    raw_err = 0.0
+    share32, max32 = 1.0, 0.0
+    try:
+        for p in pairs:
+            outs, raws = {}, {}
+            for path in ("kernels", "eager"):
+                set_kernels(model32, path == "kernels")
+                outs[path] = run_pair(model32, tf, *p)
+                raws[path] = captured.pop()
+            ref = raws["eager"]
+            fin = torch.isfinite(ref)
+            err = (raws["kernels"][fin] - ref[fin]).abs().max().item()
+            raw_err = max(raw_err, err / ref[fin].abs().max().item())
+            check(bool((raws["kernels"][~fin] < -1e29).all()), "masked raw entries are finite")
+            d = np.abs(outs["kernels"] - outs["eager"])
+            share32, max32 = min(share32, float((d <= 5e-3).mean())), max(max32, float(d.max()))
+    finally:
+        hook.remove()
+    print(f"[sttr] f32 kernel vs eager: last-layer raw attention max-abs {raw_err:.3g}·max|raw| "
+          f"(tol 1e-4), disparity max-abs {max32:.4g} px, share within 5e-3 px {share32:.6f} "
+          f"(tol >= 0.999)")
+    check(raw_err <= 1e-4, f"f32 raw attention max-abs {raw_err}·max|raw| > 1e-4")
+    check(share32 >= 0.999, f"f32 kernel vs eager: only {share32} of pixels within 5e-3 px")
+    del model32
+    torch.cuda.empty_cache()
+    return model, launches, per_frame, (raw_err, max32, share32, mean16, share16)
 
 
 def k1_work(shape, elem):
@@ -336,6 +516,66 @@ def phase_timing(dev, model, card, per_frame):
     return res, k1, k2
 
 
+def k4_work(shape, elem):
+    """Bytes (q, k, v, out and both tables once, raw f32 when asked), flops
+    (8·W²·E per line: three score products and p·v) and exponentials."""
+    b, w, e, nh, masked, need_raw = shape
+    nbytes = (4 * b * w * e + 2 * (2 * w - 1) * e) * elem + (b * w * w * 4 if need_raw else 0)
+    return nbytes, 8 * b * w * w * e, b * nh * w * w
+
+
+def phase_timing_sttr(dev, model, card, per_frame):
+    import torch
+
+    from openstereo_tpu_torch import ops
+    from openstereo_tpu_torch.models.sttr.transformer import rel_attention_eager
+    from openstereo_tpu_torch.tools.bench import bench_eager_vs_kernels, profile_paths
+
+    res = bench_eager_vs_kernels(model, groups=4, reps=3, size=STTR_HW)
+    for path in ("eager", "kernels"):
+        print(f"[time] STTR {path}: {res[path]['fps']:.3f} frames/s, "
+              f"{res[path]['ms_per_frame']:.3f} ms/frame (median of {len(res[path]['group_ms'])} "
+              f"groups of 3 chained frames)")
+    prof = profile_paths(model, 2, str(ROOT / "chiprun_out" / "sttr_profile"), size=STTR_HW)
+    for path, r in prof.items():
+        r["idle_share"] = 1.0 - r["device_busy_ms_per_frame"] / res[path]["ms_per_frame"]
+        top = "; ".join(f"{t['kernel'][:60]} {t['ms_per_frame']:.3f} ms x{t['calls_per_frame']:g}"
+                        for t in r["top"][:6])
+        print(f"[profile] STTR {path}: device busy {r['device_busy_ms_per_frame']:.3f} ms/frame, "
+              f"idle share {r['idle_share']:.4f} (against {res[path]['ms_per_frame']:.3f} "
+              f"ms/frame untraced); top: {top}")
+
+    g = torch.Generator().manual_seed(5)
+    k4 = {"ms": 0.0, "plain_ms": 0.0, "yardstick_ms": 0.0, "bound_ms": 0.0, "exp_count": 0,
+          "shapes": [], "launches_per_frame": sum(per_frame.values())}
+    t_bytes = t_ops = 0.0
+    for shape, count in sorted(per_frame.items(), reverse=True):
+        b, w, e, nh, masked, need_raw = shape
+        args = [a.bfloat16() for a in k4_inputs(shape, dev, g)]
+        t_k = time_ms(lambda: ops.rel_attention(*args, nh, masked, need_raw), iters=20, warmup=2)
+        t_p = time_ms(lambda: ops.rel_attention_plain(*args, nh, masked, need_raw), iters=3,
+                      warmup=1)
+        t_y = time_ms(lambda: rel_attention_eager(*args, nh, masked), iters=10, warmup=2)
+        nbytes, flops, exps = k4_work(shape, 2)
+        t_b, by = bound(nbytes, flops, card)
+        t_bytes += count * nbytes / card[0] * 1e3
+        t_ops += count * flops / card[1] * 1e3
+        k4["exp_count"] += count * exps
+        for key, t in (("ms", t_k), ("plain_ms", t_p), ("yardstick_ms", t_y), ("bound_ms", t_b)):
+            k4[key] += count * t
+        k4["shapes"].append({"shape": list(shape), "launches_per_frame": count, "ms": t_k,
+                             "plain_ms": t_p, "yardstick_ms": t_y, "bound_ms": t_b, "bound_by": by,
+                             "bytes": nbytes, "flops": flops, "exps": exps})
+        print(f"[time] K4 {shape} x{count} bf16: kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
+              f"eager einsum chain {t_y:.4f} ms, bound {t_b:.4f} ms ({by}; {nbytes} B, "
+              f"{flops} flop, {exps} exp)")
+    k4["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    print(f"[time] K4 per frame ({k4['launches_per_frame']} launches): kernel {k4['ms']:.4f} ms, "
+          f"plain {k4['plain_ms']:.4f} ms, eager einsum chain {k4['yardstick_ms']:.4f} ms, "
+          f"bound {k4['bound_ms']:.4f} ms ({k4['bound_by']}), {k4['exp_count']} exponentials")
+    return res, prof, k4
+
+
 def main():
     try:
         import torch
@@ -361,8 +601,11 @@ def main():
         phase_build()
         k1_err = phase_k1(dev)
         k2_err = phase_k2(dev)
+        k4_err = phase_k4(dev)
         model, launches, per_frame, max32, mean16 = phase_slice(dev)
+        sttr, k4_launches, k4_per_frame, sttr_agree = phase_sttr(dev)
         bench, k1, k2 = phase_timing(dev, model, card, per_frame)
+        sttr_bench, sttr_prof, k4 = phase_timing_sttr(dev, sttr, card, k4_per_frame)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -377,10 +620,24 @@ def main():
              launches=launches["fused_mbconv"], max_abs_err=k2_err[1],
              max_abs_err_f32=k2_err[0], library_ms=None,
              yardstick="eager cuDNN pw->dw->pw chain, folded BN", **k2),
+        dict(name="rel_attention", route="cuda", source="openstereo_tpu_torch/csrc/rel_attention.cu",
+             replaces="openstereo_tpu/ops/pallas/rel_attention.py:49",
+             launches=k4_launches, max_abs_err=k4_err[1], max_abs_err_f32=k4_err[0],
+             library_ms=None,
+             yardstick="the port's eager einsum chain (gathered [W,W,E] tables, einsums, "
+                       "softmax, p.v); a chain, not one call",
+             **k4),
     ]
     print(f"[slice] fps eager {bench['eager']['fps']:.2f}, kernels {bench['kernels']['fps']:.2f}; "
           f"disparity f32 max-abs {max32:.3g}, bf16 mean-abs {mean16:.3g}; "
           f"total {time.perf_counter() - t0:.1f} s")
+    raw_err, smax32, sshare32, smean16, sshare16 = sttr_agree
+    print(f"[sttr] fps eager {sttr_bench['eager']['fps']:.3f}, kernels "
+          f"{sttr_bench['kernels']['fps']:.3f}; f32 raw {raw_err:.3g}·max|raw|, disparity "
+          f"max-abs {smax32:.4g} px ({sshare32:.6f} within 5e-3); bf16 mean-abs {smean16:.4g} px "
+          f"({sshare16:.5f} within 3 px); device busy "
+          f"{sttr_prof['kernels']['device_busy_ms_per_frame']:.3f} ms/frame (kernels), "
+          f"{sttr_prof['eager']['device_busy_ms_per_frame']:.3f} (eager)")
     print(json.dumps({"kernels": entries}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

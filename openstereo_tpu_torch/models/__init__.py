@@ -1,6 +1,6 @@
 """Model registry and `build_model` (counterpart of `openstereo_tpu/models/__init__.py:32`).
 
-Only LightStereo is ported; the other names of the JAX zoo raise
+LightStereo and STTR are ported; the other names of the JAX zoo raise
 NotImplementedError naming the ROADMAP item that brings them.
 """
 
@@ -15,8 +15,12 @@ from ..config import Config, get_valid_kwargs
 from ..device import resolve_device
 from .layers import set_kernels  # noqa: F401
 from .lightstereo import LightStereo
+from .sttr import STTR
+from .sttr.blocks import WNConv
+from .sttr.sttr import RegressionHead
+from .sttr.transformer import MultiheadAttentionRelative
 
-MODELS = {"LightStereo": LightStereo}
+MODELS = {"LightStereo": LightStereo, "STTR": STTR}
 
 # JAX-zoo names still to be ported → the ROADMAP item (queue 1) that ports them
 NOT_PORTED = {
@@ -29,29 +33,59 @@ NOT_PORTED = {
     "StereoBase": "Slice E, item 14", "IGEVPP": "Slice E, item 14",
     "FoundationStereo": "Slice E, item 15", "FastFoundationStereo": "Slice E, item 15",
     "MonSter": "Slice E, item 15",
-    "STTR": "Slice F, item 16", "AANet": "Slice F, item 17", "NMRF": "Slice F, item 18",
+    "AANet": "Slice F, item 17", "NMRF": "Slice F, item 18",
     "IINet": "Slice F, item 19",
 }
 
 
 def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
-    """Seeded random weights, drawn from `generator` in module order: convs
-    uniform ±1/sqrt(fan_in) (PyTorch's default bound), BatchNorm affine and
-    running statistics near identity but not equal to it, so a folded BN is
-    exercised."""
+    """Seeded random weights, drawn from `generator` in module order.
+
+    Convs, linear layers, the packed attention projections and weight-normed
+    convs' directions are uniform ±1/sqrt(fan_in) (PyTorch's default bound),
+    with their biases. BatchNorm affine and running statistics, LayerNorm
+    affine and weight-norm gains are near identity but not equal to it, so
+    a folded BN or a LayerNorm's affine is exercised. STTR's dustbin cost
+    `phi` is uniform ±0.5. Raises if a parameter or buffer is left undrawn.
+    """
+    drawn = set()
+
+    def draw(t: torch.Tensor, lo: float, hi: float):
+        t.uniform_(lo, hi, generator=generator)
+        drawn.add(id(t))
+
     with torch.no_grad():
         for m in model.modules():
-            if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
+            if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
                 bound = m.weight[0].numel() ** -0.5
-                m.weight.uniform_(-bound, bound, generator=generator)
+                draw(m.weight, -bound, bound)
                 if m.bias is not None:
-                    m.bias.uniform_(-bound, bound, generator=generator)
+                    draw(m.bias, -bound, bound)
             elif isinstance(m, nn.BatchNorm2d):
-                m.weight.uniform_(0.5, 1.5, generator=generator)
-                m.bias.uniform_(-0.1, 0.1, generator=generator)
-                m.running_mean.uniform_(-0.1, 0.1, generator=generator)
-                m.running_var.uniform_(0.5, 1.5, generator=generator)
+                draw(m.weight, 0.5, 1.5)
+                draw(m.bias, -0.1, 0.1)
+                draw(m.running_mean, -0.1, 0.1)
+                draw(m.running_var, 0.5, 1.5)
                 m.num_batches_tracked.zero_()
+                drawn.add(id(m.num_batches_tracked))
+            elif isinstance(m, nn.LayerNorm):
+                draw(m.weight, 0.5, 1.5)
+                draw(m.bias, -0.1, 0.1)
+            elif isinstance(m, WNConv):
+                bound = m.weight_v[0].numel() ** -0.5
+                draw(m.weight_v, -bound, bound)
+                draw(m.weight_g, 0.3, 0.9)  # the norm of a default-drawn filter is ~0.58
+                draw(m.bias, -bound, bound)
+            elif isinstance(m, MultiheadAttentionRelative):
+                bound = m.embed_dim ** -0.5
+                draw(m.in_proj_weight, -bound, bound)
+                draw(m.in_proj_bias, -bound, bound)
+            elif isinstance(m, RegressionHead):
+                draw(m.phi, -0.5, 0.5)
+    missed = [k for k, t in list(model.named_parameters()) + list(model.named_buffers())
+              if id(t) not in drawn]
+    if missed:
+        raise RuntimeError(f"init_weights drew no values for {missed[:8]}")
     return model
 
 

@@ -4,4 +4,5 @@ from .cost_volume import correlation_volume  # noqa: F401
 from .corr_volume import corr_volume  # noqa: F401
 from .disp_regression import disparity_regression  # noqa: F401
 from .fused_mbconv import fold_bn, fused_mbconv, mbconv_plain  # noqa: F401
-from .upsample import context_upsample, unfold3x3, upsample_nearest  # noqa: F401
+from .rel_attention import rel_attention, rel_attention_plain  # noqa: F401
+from .upsample import context_upsample, resize_bilinear, unfold3x3, upsample_nearest  # noqa: F401

@@ -23,7 +23,7 @@ from typing import Dict, List
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("corr_volume", "fused_mbconv")
+SOURCES = ("corr_volume", "fused_mbconv", "rel_attention")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
@@ -95,4 +95,8 @@ def _declare(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
         lib.fused_mbconv_launch.argtypes = [p, p, p, p, p, p, p, p,
                                             i, i, i, i, i, i, i, i, p]
         lib.fused_mbconv_launch.restype = i
+    elif name == "rel_attention":
+        # q, k, v, ke, qe, out, raw (or None), B, W, E, nheads, masked, dtype, stream
+        lib.rel_attention_launch.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, p]
+        lib.rel_attention_launch.restype = i
     return lib

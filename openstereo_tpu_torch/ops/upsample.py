@@ -1,4 +1,4 @@
-"""Superpixel upsampling (counterpart of `openstereo_tpu/ops/upsample.py:17-45`)."""
+"""Upsampling (counterpart of `openstereo_tpu/ops/upsample.py:17-53`)."""
 
 from __future__ import annotations
 
@@ -32,3 +32,19 @@ def context_upsample(disp_low: torch.Tensor, up_weights: torch.Tensor,
     """
     taps = upsample_nearest(unfold3x3(disp_low), scale_factor)  # [B,9,sh,sw]
     return (taps * up_weights).sum(dim=1)
+
+
+def resize_bilinear(x: torch.Tensor, size) -> torch.Tensor:
+    """[B,C,h,w] → [B,C,*size], bilinear with half-pixel centres
+    (counterpart of `openstereo_tpu/ops/upsample.py:48-53`).
+
+    `jax.image.resize` equals `F.interpolate(align_corners=False)` only when
+    it does not shrink an axis (it antialiases when it downsamples), so a
+    downsampling call raises rather than quietly differ.
+    """
+    size = tuple(size)
+    if size[0] < x.shape[-2] or size[1] < x.shape[-1]:
+        raise ValueError(f"resize_bilinear only upsamples: {tuple(x.shape[-2:])} → {size}")
+    if size == tuple(x.shape[-2:]):
+        return x
+    return F.interpolate(x, size=size, mode="bilinear", align_corners=False)

@@ -18,7 +18,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
-from typing import Dict
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -31,9 +31,10 @@ LIGHTSTEREO_S = Config.from_dict({"NAME": "LightStereo", "MAX_DISP": 192, "EXPAN
                                   "AGGREGATION_BLOCKS": [1, 2, 4], "LEFT_ATT": True})
 
 
-def pair(device: torch.device) -> Dict[str, torch.Tensor]:
+def pair(device: torch.device, size: Tuple[int, int] = (H, W)) -> Dict[str, torch.Tensor]:
+    """A random [1,3,h,w] pair from seed 0, at the caller's size."""
     rng = np.random.RandomState(0)
-    return {k: torch.from_numpy(rng.rand(1, 3, H, W).astype(np.float32)).to(device)
+    return {k: torch.from_numpy(rng.rand(1, 3, *size).astype(np.float32)).to(device)
             for k in ("left", "right")}
 
 
@@ -61,10 +62,11 @@ def time_frames(model: torch.nn.Module, data: Dict[str, torch.Tensor], groups: i
     return np.asarray(times)
 
 
-def bench_eager_vs_kernels(model: torch.nn.Module, groups: int, reps: int) -> Dict[str, dict]:
-    """Run eager, kernels, kernels, eager (half the groups each time); return
-    the median ms/frame and frames/s of each path."""
-    data = pair(next(model.parameters()).device)
+def bench_eager_vs_kernels(model: torch.nn.Module, groups: int, reps: int,
+                           size: Tuple[int, int] = (H, W)) -> Dict[str, dict]:
+    """Run eager, kernels, kernels, eager (half the groups each time) on a
+    random pair of `size`; return the median ms/frame and frames/s of each path."""
+    data = pair(next(model.parameters()).device, size)
     runs = {"eager": [], "kernels": []}
     for path in ("eager", "kernels", "kernels", "eager"):
         set_kernels(model, path == "kernels")
@@ -78,14 +80,15 @@ def bench_eager_vs_kernels(model: torch.nn.Module, groups: int, reps: int) -> Di
     return out
 
 
-def profile_paths(model: torch.nn.Module, frames: int, out_dir: str) -> Dict[str, dict]:
+def profile_paths(model: torch.nn.Module, frames: int, out_dir: str,
+                  size: Tuple[int, int] = (H, W)) -> Dict[str, dict]:
     """torch.profiler over `frames` chained frames of each path: device time
     per frame summed over kernels (one stream, so the sum is the busy time),
     the top kernels, and the full table in `out_dir/profile_<path>.txt`."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    data = pair(next(model.parameters()).device)
+    data = pair(next(model.parameters()).device, size)
     os.makedirs(out_dir, exist_ok=True)
     out = {}
     for path in ("eager", "kernels"):

@@ -1,14 +1,19 @@
-"""JAX → port weights: flax LightStereo variables → the port's state_dict.
+"""JAX → port weights: flax LightStereo and STTR variables → the port's state_dict.
 
 The port's own inverse of `openstereo_tpu/utils/torch_convert.py`
-(`conv_kernel`, `deconv_kernel`, `TreeBuilder`, `convert_lightstereo`);
-it copies none of that code by import. Layout rules, inverted:
+(`conv_kernel`, `deconv_kernel`, `TreeBuilder`, `convert_lightstereo`,
+`convert_sttr`); it copies none of that code by import. Layout rules, inverted:
 
 - conv kernel (kh,kw,in,out) → weight (out,in,kh,kw);
 - deconv kernel: un-mirror spatially, then (in,out,kh,kw);
 - bn/scale, bn/bias + batch_stats bn/mean, bn/var → weight, bias,
   running_mean, running_var (and num_batches_tracked = 0);
-- raw convs (the attention module's) keep their bias.
+- raw convs (the attention module's) keep their bias;
+- Dense kernel (in,out) → weight (out,in); the q/k/v Dense layers of an
+  attention module pack into in_proj_weight [3C,C] and in_proj_bias [3C];
+- LayerNorm scale/bias → weight/bias;
+- weight-normed conv g [O], v (kh,kw,in,out), b → weight_g [O,1,1,1],
+  weight_v (out,in,kh,kw), bias.
 
 Inputs are nested dicts of arrays (numpy or anything `np.asarray` takes).
 """
@@ -80,6 +85,14 @@ class FlaxToTorch:
         self.put(f"{tkey}.weight", _deconv_weight(k) if deconv else _conv_weight(k))
         if self.has("params", _join(base, "bias")):
             self.put(f"{tkey}.bias", self.take("params", _join(base, "bias")))
+
+    def dense(self, fpath: str, tkey: str):
+        self.put(f"{tkey}.weight", self.take("params", _join(fpath, "kernel")).T)
+        self.put(f"{tkey}.bias", self.take("params", _join(fpath, "bias")))
+
+    def layer_norm(self, fpath: str, tkey: str):
+        self.put(f"{tkey}.weight", self.take("params", _join(fpath, "scale")))
+        self.put(f"{tkey}.bias", self.take("params", _join(fpath, "bias")))
 
     def bn(self, fpath: str, tkey: str):
         self.put(f"{tkey}.weight", self.take("params", _join(fpath, "bn/scale")))
@@ -176,4 +189,102 @@ def lightstereo_state_dict_from_jax(variables) -> Dict[str, torch.Tensor]:
     b.convbn("stem2b", "stem_2.1.block")
     _fpn(b, "refine2", "refine_2")
     b.conv("refine3", "refine_3.block.0", deconv=True)
+    return b.finish()
+
+
+
+def _mha_relative(b: FlaxToTorch, fpath: str, tkey: str):
+    """flax q/k/v/out Dense layers → packed in_proj_weight/bias and out_proj."""
+    names = ("q_proj", "k_proj", "v_proj")
+    b.put(_join(tkey, "in_proj_weight", sep="."), np.concatenate(
+        [b.take("params", _join(fpath, n, "kernel")).T for n in names]))
+    b.put(_join(tkey, "in_proj_bias", sep="."), np.concatenate(
+        [b.take("params", _join(fpath, n, "bias")) for n in names]))
+    b.dense(_join(fpath, "out_proj"), _join(tkey, "out_proj", sep="."))
+
+
+def _wn_conv(b: FlaxToTorch, fpath: str, tkey: str):
+    b.put(f"{tkey}.weight_g", b.take("params", f"{fpath}/g").reshape(-1, 1, 1, 1))
+    b.put(f"{tkey}.weight_v", _conv_weight(b.take("params", f"{fpath}/v")))
+    b.put(f"{tkey}.bias", b.take("params", f"{fpath}/b"))
+
+
+def _count(tree, test) -> int:
+    return sum(1 for key in tree if test(key))
+
+
+def sttr_backbone(b: FlaxToTorch, fpre: str, tpre: str):
+    """flax SppBackboneIN at fpre → port SppBackboneIN keys at tpre."""
+    f, t = (lambda *p: _join(fpre, *p)), (lambda *p: _join(tpre, *p, sep="."))  # noqa: E731
+    for ti, fi in ((0, 0), (3, 1), (6, 2)):
+        b.conv(f(f"in_conv{fi}"), t("in_conv", str(ti)))
+    for blk, name in (("resblock_1", "res1"), ("resblock_2", "res2")):
+        for i in range(3):
+            for c in ("conv1", "conv2"):
+                b.conv(f(f"{name}_{i}", c), t(blk, str(i), c))
+        b.conv(f(f"{name}_0", "downsample"), t(blk, "0", "downsample", "0"))
+    for k in range(4):
+        b.conv(f(f"branch{k}"), t(f"branch{k + 1}", "1"))
+
+
+def sttr_tokenizer(b: FlaxToTorch, fpre: str, tpre: str):
+    """flax Tokenizer at fpre → port Tokenizer keys at tpre."""
+    f, t = (lambda *p: _join(fpre, *p)), (lambda *p: _join(tpre, *p, sep="."))  # noqa: E731
+    tree = b.trees["params"][fpre] if fpre else b.trees["params"]
+    for name, blk in (("bottleneck", "bottle_neck"), ("dense0", "dense_block.0"),
+                      ("dense1", "dense_block.1")):
+        for li in range(_count(tree[name], lambda k: k.startswith("conv1_"))):
+            for ci in (1, 2):
+                b.conv(f(name, f"conv{ci}_{li}"), t(blk, f"denselayer{li + 1}", f"conv{ci}"),
+                       raw=True)
+    b.conv(f("up0", "up1"), t("up.0.convTrans"), deconv=True, raw=True)
+    b.conv(f("up1", "up1"), t("up.1.convTrans"), deconv=True, raw=True)
+    b.conv(f("up2", "up1"), t("up.2.convTrans.0"), deconv=True, raw=True)
+    b.conv(f("up2", "up2"), t("up.2.convTrans.2"), deconv=True, raw=True)
+    b.conv(f("final0"), t("dense_block.2.double_conv.0"))
+    b.conv(f("final1"), t("dense_block.2.double_conv.3"))
+
+
+def sttr_transformer(b: FlaxToTorch, fpre: str, tpre: str):
+    """flax Transformer at fpre → port Transformer keys at tpre, with the
+    reference's unused final `norm` set to ones and zeros."""
+    f, t = (lambda *p: _join(fpre, *p)), (lambda *p: _join(tpre, *p, sep="."))  # noqa: E731
+    tree = b.trees["params"][fpre] if fpre else b.trees["params"]
+    for i in range(_count(tree, lambda k: k.startswith("self_"))):
+        b.layer_norm(f(f"self_{i}", "norm1"), t(f"self_attn_layers.{i}.norm1"))
+        _mha_relative(b, f(f"self_{i}", "self_attn"), t(f"self_attn_layers.{i}.self_attn"))
+        for norm in ("norm1", "norm2"):
+            b.layer_norm(f(f"cross_{i}", norm), t(f"cross_attn_layers.{i}.{norm}"))
+        _mha_relative(b, f(f"cross_{i}", "cross_attn"), t(f"cross_attn_layers.{i}.cross_attn"))
+    c = b.sd[t("self_attn_layers.0.norm1.weight")].shape[0]
+    b.put(t("norm.weight"), np.ones(c, np.float32))
+    b.put(t("norm.bias"), np.zeros(c, np.float32))
+
+
+def sttr_cal(b: FlaxToTorch, fpre: str, tpre: str):
+    """flax ContextAdjustmentLayer at fpre → port keys at tpre."""
+    f, t = (lambda *p: _join(fpre, *p)), (lambda *p: _join(tpre, *p, sep="."))  # noqa: E731
+    tree = b.trees["params"][fpre] if fpre else b.trees["params"]
+    b.conv(f("in_conv"), t("in_conv"), raw=True)
+    b.conv(f("out_conv"), t("out_conv"), raw=True)
+    for i in range(_count(tree, lambda k: k.endswith("_a"))):
+        _wn_conv(b, f(f"res{i}_a"), t(f"layers.{i}.module.0"))
+        _wn_conv(b, f(f"res{i}_b"), t(f"layers.{i}.module.2"))
+    for ti, fi in ((0, 0), (1, 1), (3, 2), (4, 3)):
+        _wn_conv(b, f(f"occ{fi}"), t(f"occ_head.{ti}"))
+    b.conv(f("occ4"), t("occ_head.6"), raw=True)
+
+
+def sttr_state_dict_from_jax(variables) -> Dict[str, torch.Tensor]:
+    """flax STTR {"params"} → port state_dict (the reference's key names).
+
+    The attention depth, the dense-block depths and the CAL block count are
+    read from the variables. Raises if a flax variable is left unconsumed.
+    """
+    b = FlaxToTorch(variables)
+    sttr_backbone(b, "backbone", "backbone")
+    sttr_tokenizer(b, "tokenizer", "tokenizer")
+    sttr_transformer(b, "transformer", "transformer")
+    b.put("regression_head.phi", np.asarray(b.take("params", "phi"), np.float32).reshape(()))
+    sttr_cal(b, "cal", "regression_head.cal")
     return b.finish()

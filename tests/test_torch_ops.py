@@ -17,6 +17,7 @@ import jax.numpy as jnp
 from openstereo_tpu import ops as jops
 from openstereo_tpu.ops.pallas import correlation_volume_pallas
 from openstereo_tpu.ops.pallas import fused_mbconv as jfm
+from openstereo_tpu.ops.pallas import rel_attention as jra
 
 from openstereo_tpu_torch import ops
 from openstereo_tpu_torch.ops import kernels
@@ -134,7 +135,9 @@ def test_cpu_wrappers_launch_nothing():
     kernels.reset_launch_counts()
     a = torch.randn(1, 4, 2, 8)
     ops.corr_volume(a, a, 4)
-    assert kernels.launch_counts == {"corr_volume": 0, "fused_mbconv": 0}
+    x = torch.randn(1, 6, 8)
+    ops.rel_attention(x, x, x, torch.randn(11, 8), torch.randn(11, 8), 2)
+    assert kernels.launch_counts == {"corr_volume": 0, "fused_mbconv": 0, "rel_attention": 0}
     assert not any(kernels.launch_shapes.values())
 
 
@@ -148,7 +151,7 @@ def test_check_launch_counts_by_shape():
         kernels.check_launch("fused_mbconv", 2, (1, 1, 1, 1, 1, 1, True))
     assert kernels.launch_counts["fused_mbconv"] == 0
     kernels.reset_launch_counts()
-    assert kernels.launch_counts == {"corr_volume": 0, "fused_mbconv": 0}
+    assert kernels.launch_counts == {"corr_volume": 0, "fused_mbconv": 0, "rel_attention": 0}
     assert not any(kernels.launch_shapes.values())
 
 
@@ -186,3 +189,66 @@ def test_context_upsample_matches_jax():
     got = ops.context_upsample(torch.from_numpy(disp), to_nchw(w))
     assert got.shape == (2, 16, 24)
     np.testing.assert_allclose(got.numpy(), ref, **TOL)
+
+
+def _rel_attention_case(seed, b, w, e):
+    """q, k, v [B,W,E] and the [2W-1,E] tables, scaled as `tests/test_rel_attention.py`."""
+    rng = np.random.RandomState(seed)
+    return [(rng.randn(*shape) * 0.2).astype(np.float32)
+            for shape in [(b, w, e)] * 3 + [(2 * w - 1, e)] * 2]
+
+
+@pytest.mark.parametrize("w,masked,need_raw", [
+    (24, False, True), (40, True, True),
+    (37, True, True), (37, False, False),  # W ragged against the kernel's 32-row tile
+])
+def test_rel_attention_plain_matches_jax_and_pallas(w, masked, need_raw):
+    """K4's plain version (the wrapper on the CPU) vs `rel_attention_reference`
+    and the Pallas kernel in interpret mode, at the tolerances of
+    `tests/test_rel_attention.py` (out 1e-5, raw 1e-4 on finite entries)."""
+    args = _rel_attention_case(w, 2, w, 16)
+    ref, ref_raw = jra.rel_attention_reference(*map(jnp.asarray, args), 4, masked=masked)
+    pallas, pallas_raw = jra.rel_attention(*map(jnp.asarray, args), nheads=4, masked=masked,
+                                           need_raw=need_raw, interpret=True)
+    got, raw = ops.rel_attention(*map(torch.from_numpy, args), 4, masked, need_raw)
+    assert got.shape == (2, w, 16) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
+    np.testing.assert_allclose(got.numpy(), np.asarray(pallas), **TOL)
+    if not need_raw:
+        assert raw is None and pallas_raw is None
+        return
+    fin = np.abs(np.asarray(ref_raw)) < 1e20
+    assert fin.all() != masked and (raw.numpy()[~fin] < -1e29).all()
+    for r in (ref_raw, pallas_raw):
+        np.testing.assert_allclose(raw.numpy()[fin], np.asarray(r)[fin], rtol=1e-4, atol=1e-4)
+
+
+def test_rel_attention_bf16_accumulates_in_f32():
+    args = [torch.from_numpy(a).bfloat16() for a in _rel_attention_case(5, 2, 20, 32)]
+    got, raw = ops.rel_attention(*args, 2, masked=True)
+    assert got.dtype == torch.bfloat16 and raw.dtype == torch.float32
+    ref, ref_raw = ops.rel_attention_plain(*[a.float() for a in args], 2, masked=True)
+    np.testing.assert_allclose(got.float().numpy(), ref.numpy(), rtol=8e-3, atol=1e-6)
+    np.testing.assert_array_equal(raw.numpy(), ref_raw.numpy())
+
+
+def test_rel_attention_checks_inputs():
+    q, k, v, ke, qe = map(torch.from_numpy, _rel_attention_case(6, 1, 8, 16))
+    with pytest.raises(ValueError, match="2W-1"):
+        ops.rel_attention(q, k, v, ke[:-1], qe, 2)
+    with pytest.raises(ValueError, match="divisible"):
+        ops.rel_attention(q, k, v, ke, qe, 3)
+    with pytest.raises(TypeError):
+        ops.rel_attention(q, k.bfloat16(), v, ke, qe, 2)
+    with pytest.raises(ValueError, match="equal"):
+        ops.rel_attention(q, k[:, :4], v, ke, qe, 2)
+
+
+def test_rel_attention_kernel_limits():
+    """What the CUDA kernel takes: head widths 8..64, and W up to where its
+    score tile fills a block's shared memory (>= 416, a 1248-wide frame)."""
+    from openstereo_tpu_torch.ops.rel_attention import HEAD_DIMS, SMEM_LIMIT, smem_bytes
+
+    for hd in HEAD_DIMS:
+        assert smem_bytes(416, hd, need_raw=True) <= SMEM_LIMIT
+    assert smem_bytes(2048, 16, need_raw=True) > SMEM_LIMIT
