@@ -34,6 +34,21 @@ without the repository around it). Phases, each of which fails the run:
    frame with the launch counts recorded in phases 6 and 7; and a
    torch.profiler pass over STTR frames of both paths (tables under
    `chiprun_out/sttr_profile/`).
+9. K3 (gwc_volume) against its plain version at the GwcNet main-path shape
+   and at edge cases (the JAX test's shape, W ragged against the tile,
+   D over three disparity bands, d >= W, cg = 1, cg = 12), f32 (TF32 off)
+   and bf16, and with G = 1 against K1;
+10. the GwcNet path: GwcNet at 544x960 (`cfgs/gwcnet/gwcnet_sceneflow.yaml`),
+   b1, bf16, through `run_pair` on the synthetic pairs, with 1 K3 launch
+   per frame at the main shape and no other kernel; the kernel path against
+   the eager path in f32 (max-abs) and bf16 (mean-abs);
+11. the PSMNet path: PSMNet at 544x960 (`cfgs/psmnet/psmnet_sceneflow.yaml`),
+   b1, bf16, through `run_pair`; no kernel of the port lies on it, and the
+   phase checks that none launched;
+12. timing: GwcNet frames/s eager vs kernels, PSMNet frames/s, K3 at the
+   main shape beside its plain version and its bound, and torch.profiler
+   passes over GwcNet frames of both paths and over PSMNet frames (tables
+   in `gwcnet_profile/` and `psmnet_profile/` beside STTR's).
 
 The line before the card line is a JSON object with one entry per kernel;
 the last line is {"ok": true, "device": {...}}.
@@ -50,9 +65,12 @@ import numpy as np
 H, W = 544, 960
 N_PAIRS = 3
 ROOT = Path(__file__).resolve().parent
+OUT_DIR = ROOT / "chiprun_out"  # git-ignored: profiler tables
 CFG_FILE = ROOT / "cfgs/lightstereo/lightstereo_s_sceneflow.yaml"
 STTR_CFG = ROOT / "cfgs/sttr/sttr_flyingthings3d.yaml"
 STTR_HW = (540, 960)
+GWC_CFG = ROOT / "cfgs/gwcnet/gwcnet_sceneflow.yaml"
+PSM_CFG = ROOT / "cfgs/psmnet/psmnet_sceneflow.yaml"
 
 # expected K2 launches per LightStereo-S frame: (batch, H, W, Cin, Ch, Cout, residual) → count
 K2_SHAPES = {
@@ -82,6 +100,17 @@ K4_EDGES = [
     (2, 416, 128, 2, False, True, "W of a 1248-wide frame, hd 64"),
     (3, 1, 32, 4, True, True, "W = 1, hd 8"),
     (2, 50, 128, 8, True, True, "masked with raw, small W"),
+]
+
+K3_SHAPE = (1, 320, 136, 240, 48, 40)  # B, C, H/4, W/4, D, G of GwcNet at 544x960
+# K3 edge cases: ((B, C, H, W, D, G), what)
+K3_EDGES = [
+    ((1, 16, 4, 260, 12, 4), "the JAX test's shape"),
+    ((1, 32, 3, 37, 12, 4), "W ragged against the 64-column tile"),
+    ((2, 64, 3, 130, 100, 8), "D = 100, three disparity bands"),
+    ((1, 8, 2, 6, 10, 2), "d >= W"),
+    ((1, 16, 3, 50, 20, 16), "cg = 1"),
+    ((1, 96, 5, 70, 24, 8), "cg = 12 (C 96, G 8)"),
 ]
 
 # dense peaks: (memory bytes/s, bf16 tensor flop/s), NVIDIA data sheets
@@ -536,7 +565,7 @@ def phase_timing_sttr(dev, model, card, per_frame):
         print(f"[time] STTR {path}: {res[path]['fps']:.3f} frames/s, "
               f"{res[path]['ms_per_frame']:.3f} ms/frame (median of {len(res[path]['group_ms'])} "
               f"groups of 3 chained frames)")
-    prof = profile_paths(model, 2, str(ROOT / "chiprun_out" / "sttr_profile"), size=STTR_HW)
+    prof = profile_paths(model, 2, str(OUT_DIR / "sttr_profile"), size=STTR_HW)
     for path, r in prof.items():
         r["idle_share"] = 1.0 - r["device_busy_ms_per_frame"] / res[path]["ms_per_frame"]
         top = "; ".join(f"{t['kernel'][:60]} {t['ms_per_frame']:.3f} ms x{t['calls_per_frame']:g}"
@@ -576,6 +605,169 @@ def phase_timing_sttr(dev, model, card, per_frame):
     return res, prof, k4
 
 
+def phase_k3(dev):
+    import torch
+
+    from openstereo_tpu_torch import ops
+
+    g = torch.Generator().manual_seed(6)
+    errs = {}
+    for (b, c, h, w, d, gr), tag in [(K3_SHAPE, "main path")] + K3_EDGES:
+        left, right = (torch.randn(b, c, h, w, generator=g).to(dev) for _ in range(2))
+        ref = ops.build_gwc_volume(left, right, d, gr)
+        got = ops.gwc_volume(left, right, d, gr)
+        check(got.shape == (b, gr, d, h, w), f"K3 {tag}: shape {tuple(got.shape)}")
+        err32 = (got - ref).abs().max().item()
+        check(err32 <= 1e-5, f"K3 f32 {tag} {(b, c, h, w, d, gr)}: max-abs {err32} > 1e-5")
+        lb, rb = left.bfloat16(), right.bfloat16()
+        ref16 = ops.build_gwc_volume(lb.float(), rb.float(), d, gr)
+        got16 = ops.gwc_volume(lb, rb, d, gr)
+        err16 = (got16.float() - ref16).abs().max().item()
+        check(bf16_close(got16, ref16), f"K3 bf16 {tag}: max-abs {err16} beyond rtol 8e-3")
+        if w < d:
+            check(not got[:, :, w:].any() and not got16[:, :, w:].any(),
+                  "K3: planes with d >= W are not zero")
+        print(f"[K3] {tag} {(b, c, h, w, d, gr)}: f32 max-abs {err32:.3g} (tol 1e-5), "
+              f"bf16 max-abs {err16:.3g} (tol 8e-3·|ref| + 1e-3)")
+        errs[tag] = (err32, err16)
+    # G = 1 is K1's function: the two kernels against each other
+    left, right = (torch.randn(1, 24, 136, 240, generator=g).to(dev) for _ in range(2))
+    err1 = (ops.gwc_volume(left, right, 48, 1)[:, 0] - ops.corr_volume(left, right, 48))
+    err1 = err1.abs().max().item()
+    check(err1 <= 1e-6, f"K3 with G = 1 vs K1: max-abs {err1} > 1e-6")
+    print(f"[K3] G = 1 vs K1 at (1, 24, 136, 240, D 48), f32: max-abs {err1:.3g} (tol 1e-6)")
+    torch.cuda.synchronize()
+    return errs["main path"]
+
+
+def phase_gwcnet(dev):
+    import torch
+
+    from openstereo_tpu_torch.config import load_config
+    from openstereo_tpu_torch.data.transforms import build_transforms
+    from openstereo_tpu_torch.models import build_model, set_kernels
+    from openstereo_tpu_torch.ops import kernels
+    from openstereo_tpu_torch.tools.infer import run_pair
+
+    cfg = load_config(str(GWC_CFG))
+    tf = build_transforms(cfg.DATA_CONFIG.DATA_TRANSFORM["EVALUATING"])
+    pairs = list(synthetic_pairs())
+    model = build_model(cfg.MODEL, dtype=torch.bfloat16, device=dev, seed=0)
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"[gwcnet] GwcNet ({n_params} parameters), {H}x{W} b1 bf16, {N_PAIRS} pairs")
+    run_pair(model, tf, *pairs[0])  # warm-up: kernel build and cuDNN plans
+    wired, launches, per_frame = record_launches(
+        "gwc_volume", {K3_SHAPE: 1}, lambda: [run_pair(model, tf, *p) for p in pairs])
+    others = {k: n for k, n in kernels.launch_counts.items() if k != "gwc_volume" and n}
+    check(not others, f"GwcNet launched other kernels: {others}")
+
+    set_kernels(model, False)
+    eager = [run_pair(model, tf, *p) for p in pairs]
+    set_kernels(model, True)
+    for d in wired + eager:
+        check(d.shape == (H, W) and np.isfinite(d).all(), "bf16 disparity not finite [H,W]")
+    mean16 = max(float(np.abs(a - b).mean()) for a, b in zip(wired, eager))
+    check(mean16 <= 0.5, f"GwcNet bf16 kernel vs eager mean-abs {mean16} px > 0.5")
+
+    model32 = build_model(cfg.MODEL, dtype=torch.float32, device=dev, seed=0)
+    max32 = 0.0
+    for p in pairs:
+        a = run_pair(set_kernels(model32, True), tf, *p)
+        b = run_pair(set_kernels(model32, False), tf, *p)
+        max32 = max(max32, float(np.abs(a - b).max()))
+    del model32
+    torch.cuda.empty_cache()
+    print(f"[gwcnet] f32 kernel vs eager: max-abs {max32:.3g} px (tol 5e-3); bf16 kernel vs "
+          f"eager: mean-abs {mean16:.3g} px (tol 0.5); bf16 disparity range "
+          f"{wired[0].min():.2f}..{wired[0].max():.2f}")
+    check(max32 <= 5e-3, f"GwcNet f32 kernel vs eager max-abs {max32} px > 5e-3")
+    return model, launches, per_frame, (max32, mean16)
+
+
+def phase_psmnet(dev):
+    import torch
+
+    from openstereo_tpu_torch.config import load_config
+    from openstereo_tpu_torch.data.transforms import build_transforms
+    from openstereo_tpu_torch.models import build_model
+    from openstereo_tpu_torch.ops import kernels
+    from openstereo_tpu_torch.tools.infer import run_pair
+
+    cfg = load_config(str(PSM_CFG))
+    tf = build_transforms(cfg.DATA_CONFIG.DATA_TRANSFORM["EVALUATING"])
+    pairs = list(synthetic_pairs())
+    model = build_model(cfg.MODEL, dtype=torch.bfloat16, device=dev, seed=0)
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"[psmnet] PSMNet ({n_params} parameters), {H}x{W} b1 bf16, {N_PAIRS} pairs")
+    run_pair(model, tf, *pairs[0])  # warm-up: cuDNN plans
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    disps = [run_pair(model, tf, *p) for p in pairs]
+    torch.cuda.synchronize()
+    launched = {k: n for k, n in kernels.launch_counts.items() if n}
+    check(not launched, f"PSMNet launched kernels of the port: {launched}")
+    for d in disps:
+        check(d.shape == (H, W) and np.isfinite(d).all(), "PSMNet bf16 disparity not finite [H,W]")
+    print(f"[psmnet] launches over {N_PAIRS} frames: {dict(kernels.launch_counts)} (no Pallas "
+          f"kernel lies on the JAX PSMNet path, so none of the port's either); bf16 disparity "
+          f"finite, {H}x{W}, range {disps[0].min():.2f}..{disps[0].max():.2f}")
+    return model
+
+
+def k3_work(shape, elem):
+    b, c, h, w, d, g = shape
+    nbytes = (2 * b * c * h * w + b * g * d * h * w) * elem
+    flops = 2 * b * c * h * sum(max(w - k, 0) for k in range(d))  # products with w - d >= 0
+    return nbytes, flops
+
+
+def phase_timing_3d(dev, gwcnet, psmnet, card, per_frame):
+    import torch
+
+    from openstereo_tpu_torch import ops
+    from openstereo_tpu_torch.tools.bench import (bench_eager_vs_kernels, pair, profile_paths,
+                                                  time_frames)
+
+    res = bench_eager_vs_kernels(gwcnet, groups=4, reps=3)
+    for path in ("eager", "kernels"):
+        print(f"[time] GwcNet {path}: {res[path]['fps']:.3f} frames/s, "
+              f"{res[path]['ms_per_frame']:.3f} ms/frame (median of {len(res[path]['group_ms'])} "
+              f"groups of 3 chained frames)")
+    psm_ms = time_frames(psmnet, pair(dev), groups=4, reps=3)
+    psm = {"ms_per_frame": float(np.median(psm_ms)), "group_ms": [float(t) for t in psm_ms]}
+    psm["fps"] = 1000.0 / psm["ms_per_frame"]
+    print(f"[time] PSMNet: {psm['fps']:.3f} frames/s, {psm['ms_per_frame']:.3f} ms/frame "
+          f"(median of 4 groups of 3 chained frames)")
+    prof = profile_paths(gwcnet, 2, str(OUT_DIR / "gwcnet_profile"))
+    psm_prof = profile_paths(psmnet, 2, str(OUT_DIR / "psmnet_profile"), paths=("eager",))
+    rows = [("GwcNet", path, r, res[path]["ms_per_frame"]) for path, r in prof.items()]
+    rows.append(("PSMNet", "eager", psm_prof["eager"], psm["ms_per_frame"]))
+    for name, path, r, ms in rows:
+        r["idle_share"] = 1.0 - r["device_busy_ms_per_frame"] / ms
+        top = "; ".join(f"{t['kernel'][:60]} {t['ms_per_frame']:.3f} ms x{t['calls_per_frame']:g}"
+                        for t in r["top"][:8])
+        print(f"[profile] {name} {path}: device busy {r['device_busy_ms_per_frame']:.3f} "
+              f"ms/frame, idle share {r['idle_share']:.4f} (against {ms:.3f} ms/frame "
+              f"untraced); top: {top}")
+
+    g = torch.Generator().manual_seed(7)
+    (shape, count), = per_frame.items()
+    b, c, h, w, d, gr = shape
+    left, right = (torch.randn(b, c, h, w, generator=g).to(dev, torch.bfloat16) for _ in range(2))
+    t_k = time_ms(lambda: ops.gwc_volume(left, right, d, gr))
+    t_p = time_ms(lambda: ops.build_gwc_volume(left, right, d, gr), iters=10)
+    nbytes, flops = k3_work(shape, 2)
+    t_b, by = bound(nbytes, flops, card)
+    k3 = {"ms": count * t_k, "plain_ms": count * t_p, "yardstick_ms": None,
+          "bound_ms": count * t_b, "bound_by": by, "launches_per_frame": count,
+          "shapes": [{"shape": list(shape), "launches_per_frame": count, "ms": t_k,
+                      "plain_ms": t_p, "bound_ms": t_b, "bound_by": by, "bytes": nbytes,
+                      "flops": flops}]}
+    print(f"[time] K3 {shape} x{count} bf16: kernel {t_k:.4f} ms, plain {t_p:.4f} ms, bound "
+          f"{t_b:.4f} ms ({by}; {nbytes} B, {flops} flop); no single PyTorch call computes it")
+    return res, psm, prof, k3
+
+
 def main():
     try:
         import torch
@@ -606,6 +798,13 @@ def main():
         sttr, k4_launches, k4_per_frame, sttr_agree = phase_sttr(dev)
         bench, k1, k2 = phase_timing(dev, model, card, per_frame)
         sttr_bench, sttr_prof, k4 = phase_timing_sttr(dev, sttr, card, k4_per_frame)
+        del model, sttr
+        torch.cuda.empty_cache()
+        k3_err = phase_k3(dev)
+        gwcnet, k3_launches, k3_per_frame, gwc_agree = phase_gwcnet(dev)
+        psmnet = phase_psmnet(dev)
+        gwc_bench, psm_bench, gwc_prof, k3 = phase_timing_3d(dev, gwcnet, psmnet, card,
+                                                             k3_per_frame)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -627,6 +826,10 @@ def main():
              yardstick="the port's eager einsum chain (gathered [W,W,E] tables, einsums, "
                        "softmax, p.v); a chain, not one call",
              **k4),
+        dict(name="gwc_volume", route="cuda", source="openstereo_tpu_torch/csrc/gwc_volume.cu",
+             replaces="openstereo_tpu/ops/pallas/corr_volume.py:103",
+             launches=k3_launches, max_abs_err=k3_err[1], max_abs_err_f32=k3_err[0],
+             library_ms=None, **k3),
     ]
     print(f"[slice] fps eager {bench['eager']['fps']:.2f}, kernels {bench['kernels']['fps']:.2f}; "
           f"disparity f32 max-abs {max32:.3g}, bf16 mean-abs {mean16:.3g}; "
@@ -638,6 +841,12 @@ def main():
           f"({sshare16:.5f} within 3 px); device busy "
           f"{sttr_prof['kernels']['device_busy_ms_per_frame']:.3f} ms/frame (kernels), "
           f"{sttr_prof['eager']['device_busy_ms_per_frame']:.3f} (eager)")
+    print(f"[gwcnet] fps eager {gwc_bench['eager']['fps']:.3f}, kernels "
+          f"{gwc_bench['kernels']['fps']:.3f}; f32 max-abs {gwc_agree[0]:.3g} px, bf16 mean-abs "
+          f"{gwc_agree[1]:.3g} px; device busy "
+          f"{gwc_prof['kernels']['device_busy_ms_per_frame']:.3f} ms/frame (kernels), "
+          f"{gwc_prof['eager']['device_busy_ms_per_frame']:.3f} (eager); PSMNet fps "
+          f"{psm_bench['fps']:.3f}; total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": entries}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -1,7 +1,7 @@
 """Model registry and `build_model` (counterpart of `openstereo_tpu/models/__init__.py:32`).
 
-LightStereo and STTR are ported; the other names of the JAX zoo raise
-NotImplementedError naming the ROADMAP item that brings them.
+LightStereo, STTR, GwcNet and PSMNet are ported; the other names of the
+JAX zoo raise NotImplementedError naming the ROADMAP item that brings them.
 """
 
 from __future__ import annotations
@@ -13,19 +13,20 @@ import torch.nn as nn
 
 from ..config import Config, get_valid_kwargs
 from ..device import resolve_device
+from .gwcnet import GwcNet
 from .layers import set_kernels  # noqa: F401
 from .lightstereo import LightStereo
+from .psmnet import PSMNet
 from .sttr import STTR
 from .sttr.blocks import WNConv
 from .sttr.sttr import RegressionHead
 from .sttr.transformer import MultiheadAttentionRelative
 
-MODELS = {"LightStereo": LightStereo, "STTR": STTR}
+MODELS = {"LightStereo": LightStereo, "STTR": STTR, "GwcNet": GwcNet, "PSMNet": PSMNet}
 
 # JAX-zoo names still to be ported → the ROADMAP item (queue 1) that ports them
 NOT_PORTED = {
-    "PSMNet": "Slice C, item 10",
-    "GwcNet": "Slice D, item 11", "CoExNet": "Slice D, item 11",
+    "CoExNet": "Slice D, item 11",
     "MSNet2D": "Slice D, item 11", "MSNet3D": "Slice D, item 11",
     "CasPSMNet": "Slice D, item 12", "CasGwcNet": "Slice D, item 12",
     "CFNet": "Slice D, item 12", "FADNet": "Slice D, item 12",
@@ -56,12 +57,13 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
 
     with torch.no_grad():
         for m in model.modules():
-            if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
+            if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Conv3d, nn.ConvTranspose3d,
+                              nn.Linear)):
                 bound = m.weight[0].numel() ** -0.5
                 draw(m.weight, -bound, bound)
                 if m.bias is not None:
                     draw(m.bias, -bound, bound)
-            elif isinstance(m, nn.BatchNorm2d):
+            elif isinstance(m, (nn.BatchNorm2d, nn.BatchNorm3d)):
                 draw(m.weight, 0.5, 1.5)
                 draw(m.bias, -0.1, 0.1)
                 draw(m.running_mean, -0.1, 0.1)

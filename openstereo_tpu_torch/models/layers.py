@@ -10,8 +10,10 @@ Conventions, following flax's `dtype=` policy in the JAX package:
 - module attribute names follow the reference OpenStereo state_dict keys
   that `openstereo_tpu/utils/torch_convert.py` reads (`block.0`, `pwconv.1`).
 
-The JAX package's 3D-conv lowering pins (`layers.py:31-104`) only choose an
-XLA lowering and have no counterpart here.
+`ConvBlock`, `DeconvBlock` and `convbn` take `ndim=3` for the cost-volume
+family (NCDHW, nn.Conv3d / nn.ConvTranspose3d / nn.BatchNorm3d). The JAX
+package's 3D-conv lowering pins (`layers.py:31-104`) only choose an XLA
+lowering and have no counterpart here.
 """
 
 from __future__ import annotations
@@ -42,11 +44,13 @@ def leaky_relu(negative_slope: float = 0.01) -> Callable:
 def siamese(fn: Callable, left: torch.Tensor, right: torch.Tensor):
     """Run a weight-shared tower over a stereo pair as one 2B batch and split
     each output back into (left, right) (`layers.py:118-139`). `fn` returns
-    a tensor or a list of tensors."""
+    a tensor, a list of tensors or a dict of tensors."""
     b = left.shape[0]
     out = fn(torch.cat([left, right], dim=0))
     if isinstance(out, torch.Tensor):
         return out[:b], out[b:]
+    if isinstance(out, dict):
+        return {k: t[:b] for k, t in out.items()}, {k: t[b:] for k, t in out.items()}
     return [t[:b] for t in out], [t[b:] for t in out]
 
 
@@ -66,20 +70,24 @@ def compute_weight(p: Optional[torch.Tensor], dtype: torch.dtype) -> Optional[to
     return cached[1]
 
 
+CONVS = {nn.Conv2d: F.conv2d, nn.Conv3d: F.conv3d}
+DECONVS = {nn.ConvTranspose2d: F.conv_transpose2d, nn.ConvTranspose3d: F.conv_transpose3d}
+
+
 def run_conv(x: torch.Tensor, conv: nn.Module) -> torch.Tensor:
-    """Apply an nn.Conv2d / nn.ConvTranspose2d in x's dtype."""
+    """Apply an nn.Conv2d/3d or nn.ConvTranspose2d/3d in x's dtype."""
     w, b = compute_weight(conv.weight, x.dtype), compute_weight(conv.bias, x.dtype)
-    if isinstance(conv, nn.ConvTranspose2d):
-        return F.conv_transpose2d(x, w, b, conv.stride, conv.padding, conv.output_padding,
-                                  conv.groups, conv.dilation)
-    return F.conv2d(x, w, b, conv.stride, conv.padding, conv.dilation, conv.groups)
+    if type(conv) in DECONVS:
+        return DECONVS[type(conv)](x, w, b, conv.stride, conv.padding, conv.output_padding,
+                                   conv.groups, conv.dilation)
+    return CONVS[type(conv)](x, w, b, conv.stride, conv.padding, conv.dilation, conv.groups)
 
 
 def apply_norm(x: torch.Tensor, norm: nn.Module) -> torch.Tensor:
-    """Eval-mode norm (`layers.py:266-291`): BatchNorm with running statistics
-    (f32 statistics on an x of any dtype); InstanceNorm non-affine, eps 1e-5,
-    with statistics in at least f32."""
-    if isinstance(norm, nn.BatchNorm2d):
+    """Eval-mode norm (`layers.py:266-291`): BatchNorm (2d or 3d) with running
+    statistics (f32 statistics on an x of any dtype); InstanceNorm non-affine,
+    eps 1e-5, with statistics in at least f32."""
+    if isinstance(norm, (nn.BatchNorm2d, nn.BatchNorm3d)):
         if norm.training:
             raise NotImplementedError("training-mode BatchNorm is ROADMAP Slice B")
         return F.batch_norm(x, norm.running_mean, norm.running_var, norm.weight, norm.bias,
@@ -89,34 +97,57 @@ def apply_norm(x: torch.Tensor, norm: nn.Module) -> torch.Tensor:
     raise ValueError(f"unsupported norm {type(norm).__name__}")
 
 
-def conv_norm(x: torch.Tensor, seq: nn.Sequential) -> torch.Tensor:
-    """Sequential(conv[, norm]) → conv then norm."""
-    x = run_conv(x, seq[0])
-    return apply_norm(x, seq[1]) if len(seq) > 1 else x
+def run_seq(x: torch.Tensor, seq: nn.Sequential) -> torch.Tensor:
+    """Eval walk of a reference-style Sequential of convs, norms, ReLUs and
+    nested Sequentials, each conv in x's dtype."""
+    for m in seq:
+        if isinstance(m, nn.Sequential):
+            x = run_seq(x, m)
+        elif isinstance(m, nn.ReLU):
+            x = F.relu(x)
+        elif type(m) in CONVS or type(m) in DECONVS:
+            x = run_conv(x, m)
+        else:
+            x = apply_norm(x, m)
+    return x
 
 
-def _norm(norm: Optional[str], ch: int):
+def _norm(norm: Optional[str], ch: int, ndim: int = 2):
     if norm is None:
         return []
     if norm == "batch":
-        return [nn.BatchNorm2d(ch)]
-    if norm == "instance":
+        return [(nn.BatchNorm2d if ndim == 2 else nn.BatchNorm3d)(ch)]
+    if norm == "instance" and ndim == 2:
         return [nn.InstanceNorm2d(ch)]
-    raise ValueError(f"unknown norm {norm!r}")
+    raise ValueError(f"unknown norm {norm!r} for ndim {ndim}")
 
 
-def deconv_bn(in_ch: int, out_ch: int, kernel_size: int = 4, norm: Optional[str] = None):
+def convbn(in_ch: int, out_ch: int, kernel_size: int = 3, stride: int = 1, dilation: int = 1,
+           ndim: int = 2) -> nn.Sequential:
+    """The reference's bias-free conv + BatchNorm, Sequential(conv, bn), with
+    torch's symmetric padding d·(k-1)/2 (flax ConvBlock's "SAME" in the JAX
+    package)."""
+    conv = (nn.Conv2d if ndim == 2 else nn.Conv3d)(
+        in_ch, out_ch, kernel_size, stride, padding=dilation * (kernel_size - 1) // 2,
+        dilation=dilation, bias=False)
+    return nn.Sequential(conv, *_norm("batch", out_ch, ndim))
+
+
+def deconv_bn(in_ch: int, out_ch: int, kernel_size: int = 4, norm: Optional[str] = None,
+              ndim: int = 2):
     """The reference's two spatial-doubling deconvs (`layers.py:214-263`):
     k4 s2 p1, and k3 s2 p1 with output_padding 1; bias-free."""
     if kernel_size not in (3, 4):
         raise ValueError(f"deconv kernel_size must be 3 or 4, got {kernel_size}")
-    deconv = nn.ConvTranspose2d(in_ch, out_ch, kernel_size, stride=2, padding=1,
-                                output_padding=1 if kernel_size == 3 else 0, bias=False)
-    return nn.Sequential(deconv, *_norm(norm, out_ch))
+    deconv = (nn.ConvTranspose2d if ndim == 2 else nn.ConvTranspose3d)(
+        in_ch, out_ch, kernel_size, stride=2, padding=1,
+        output_padding=1 if kernel_size == 3 else 0, bias=False)
+    return nn.Sequential(deconv, *_norm(norm, out_ch, ndim))
 
 
 class ConvBlock(nn.Module):
-    """Conv + optional norm + optional activation (`layers.py:150-211`).
+    """Conv + optional norm + optional activation (`layers.py:150-211`), 2D
+    (NCHW) or, with ndim=3, 3D (NCDHW).
 
     Padding is torch's symmetric d·(k-1)/2; pad_mode "replicate" edge-pads
     first and convolves unpadded. Keys: block.0 (conv), block.1 (norm).
@@ -125,37 +156,37 @@ class ConvBlock(nn.Module):
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 3, stride: int = 1,
                  dilation: int = 1, groups: int = 1, bias: bool = False,
                  norm: Optional[str] = None, act: Optional[Callable] = None,
-                 pad_mode: str = "zeros"):
+                 pad_mode: str = "zeros", ndim: int = 2):
         super().__init__()
         if pad_mode not in ("zeros", "replicate"):
             raise ValueError(f"unknown pad_mode {pad_mode!r}")
         self.pad = dilation * (kernel_size - 1) // 2
         self.pad_mode = pad_mode
-        conv = nn.Conv2d(in_ch, out_ch, kernel_size, stride,
-                         padding=self.pad if pad_mode == "zeros" else 0,
-                         dilation=dilation, groups=groups, bias=bias)
-        self.block = nn.Sequential(conv, *_norm(norm, out_ch))
+        conv = (nn.Conv2d if ndim == 2 else nn.Conv3d)(
+            in_ch, out_ch, kernel_size, stride, padding=self.pad if pad_mode == "zeros" else 0,
+            dilation=dilation, groups=groups, bias=bias)
+        self.block = nn.Sequential(conv, *_norm(norm, out_ch, ndim))
         self.act = act
 
     def forward(self, x):
         if self.pad_mode == "replicate" and self.pad:
-            x = F.pad(x, (self.pad,) * 4, mode="replicate")
-        x = conv_norm(x, self.block)
+            x = F.pad(x, (self.pad,) * (2 * (x.dim() - 2)), mode="replicate")
+        x = run_seq(x, self.block)
         return self.act(x) if self.act is not None else x
 
 
 class DeconvBlock(nn.Module):
-    """Transposed conv (k4 s2 p1 or k3 s2 p1 op1) + optional norm + act.
-    Keys: block.0 (deconv), block.1 (norm)."""
+    """Transposed conv (k4 s2 p1 or k3 s2 p1 op1) + optional norm + act, 2D or,
+    with ndim=3, 3D. Keys: block.0 (deconv), block.1 (norm)."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 4,
-                 norm: Optional[str] = None, act: Optional[Callable] = None):
+                 norm: Optional[str] = None, act: Optional[Callable] = None, ndim: int = 2):
         super().__init__()
-        self.block = deconv_bn(in_ch, out_ch, kernel_size, norm)
+        self.block = deconv_bn(in_ch, out_ch, kernel_size, norm, ndim)
         self.act = act
 
     def forward(self, x):
-        x = conv_norm(x, self.block)
+        x = run_seq(x, self.block)
         return self.act(x) if self.act is not None else x
 
 
@@ -218,9 +249,9 @@ class MobileV2Residual(FusableMBConv):
         y = self.forward_fused(x)
         if y is not None:
             return y
-        y = relu6(conv_norm(x, self.pwconv))
-        y = relu6(conv_norm(y, self.dwconv))
-        y = conv_norm(y, self.pwliner)
+        y = relu6(run_seq(x, self.pwconv))
+        y = relu6(run_seq(y, self.dwconv))
+        y = run_seq(y, self.pwliner)
         return x + y if self.use_res else y
 
 

@@ -24,8 +24,8 @@ import torch.nn.functional as F
 
 from ...ops import context_upsample, corr_volume, correlation_volume, disparity_regression
 from ..backbones import MobileNetV2Features
-from ..layers import (ConvBlock, DeconvBlock, MobileV2Residual, conv_norm, deconv_bn,
-                      head_dtype, leaky_relu, run_conv, siamese)
+from ..layers import (ConvBlock, DeconvBlock, MobileV2Residual, deconv_bn, head_dtype,
+                      leaky_relu, run_conv, run_seq, siamese)
 
 
 class FPNLayer(nn.Module):
@@ -123,8 +123,8 @@ class Aggregation(nn.Module):
         conv4 = self.conv4(self.conv3(conv2))
         if self.left_att:
             conv4 = self.att4(conv4, features_left[2])
-        conv5 = F.relu(conv_norm(conv4, self.conv5) + self.redir2(conv2))
-        return F.relu(conv_norm(conv5, self.conv6) + self.redir1(x))
+        conv5 = F.relu(run_seq(conv4, self.conv5) + self.redir2(conv2))
+        return F.relu(run_seq(conv5, self.conv6) + self.redir1(x))
 
 
 class LightStereo(nn.Module):

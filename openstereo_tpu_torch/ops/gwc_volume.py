@@ -1,0 +1,52 @@
+"""Group-wise correlation volume through the hand-written CUDA kernel (`csrc/gwc_volume.cu`).
+
+Port of the TPU kernel `openstereo_tpu/ops/pallas/corr_volume.py:
+build_gwc_volume_pallas` (the `correlation_volume_pallas` call with
+num_groups > 1). The plain version is `ops.cost_volume.build_gwc_volume`,
+which the wrapper runs for a tensor on the CPU; a CUDA tensor launches the
+kernel or raises.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import kernels
+from .cost_volume import build_gwc_volume as gwc_volume_plain
+from .kernels import build
+
+__all__ = ["gwc_volume", "gwc_volume_plain"]
+
+
+def gwc_volume(left: torch.Tensor, right: torch.Tensor, max_disp: int,
+               num_groups: int) -> torch.Tensor:
+    """[B,C,H,W] ×2 (f32 or bf16) → [B,G,D,H,W] in the input dtype, D = max_disp,
+    G = num_groups dividing C; any C/G.
+
+    JAX counterpart: `build_gwc_volume_pallas(l, r, D, G)` on the NHWC
+    transposes, whose [B,D,H,W,G] result is this one's transpose (0,2,3,4,1).
+    """
+    if left.shape != right.shape or left.dim() != 4:
+        raise ValueError(f"left/right must be equal [B,C,H,W], got {left.shape}, {right.shape}")
+    if left.dtype != right.dtype or left.dtype not in kernels.DTYPE_CODES:
+        raise TypeError(f"gwc_volume takes float32 or bfloat16, got {left.dtype}, {right.dtype}")
+    if left.device != right.device:
+        raise ValueError("left and right lie on different devices")
+    if max_disp <= 0 or num_groups <= 0 or left.shape[1] % num_groups:
+        raise ValueError(f"need max_disp > 0 and num_groups dividing C={left.shape[1]}, "
+                         f"got {max_disp}, {num_groups}")
+    if left.device.type == "cpu":
+        return gwc_volume_plain(left, right, max_disp, num_groups)
+    if left.device.type != "cuda":
+        raise RuntimeError(f"gwc_volume has no kernel for device {left.device}")
+    if not (left.is_contiguous() and right.is_contiguous()):
+        raise ValueError("gwc_volume needs contiguous NCHW inputs")
+    b, c, h, w = left.shape
+    out = torch.empty((b, num_groups, max_disp, h, w), dtype=left.dtype, device=left.device)
+    lib = build.load("gwc_volume")
+    err = lib.gwc_volume_launch(left.data_ptr(), right.data_ptr(), out.data_ptr(),
+                                b, c, h, w, max_disp, num_groups,
+                                kernels.DTYPE_CODES[left.dtype],
+                                kernels.stream_handle(left.device))
+    kernels.check_launch("gwc_volume", err, (b, c, h, w, max_disp, num_groups))
+    return out

@@ -14,7 +14,7 @@ from typing import Dict, Tuple
 
 import torch
 
-launch_counts = {"corr_volume": 0, "fused_mbconv": 0, "rel_attention": 0}
+launch_counts = {"corr_volume": 0, "fused_mbconv": 0, "rel_attention": 0, "gwc_volume": 0}
 launch_shapes: Dict[str, Counter] = {k: Counter() for k in launch_counts}
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}

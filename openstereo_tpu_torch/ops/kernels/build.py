@@ -23,7 +23,7 @@ from typing import Dict, List
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("corr_volume", "fused_mbconv", "rel_attention")
+SOURCES = ("corr_volume", "fused_mbconv", "rel_attention", "gwc_volume")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
@@ -99,4 +99,8 @@ def _declare(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
         # q, k, v, ke, qe, out, raw (or None), B, W, E, nheads, masked, dtype, stream
         lib.rel_attention_launch.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, p]
         lib.rel_attention_launch.restype = i
+    elif name == "gwc_volume":
+        # left, right, out, B, C, H, W, D, G, dtype, stream
+        lib.gwc_volume_launch.argtypes = [p, p, p, i, i, i, i, i, i, i, p]
+        lib.gwc_volume_launch.restype = i
     return lib

@@ -1,4 +1,4 @@
-"""Upsampling (counterpart of `openstereo_tpu/ops/upsample.py:17-53`)."""
+"""Upsampling and linear resizes (counterpart of `openstereo_tpu/ops/upsample.py`)."""
 
 from __future__ import annotations
 
@@ -48,3 +48,31 @@ def resize_bilinear(x: torch.Tensor, size) -> torch.Tensor:
     if size == tuple(x.shape[-2:]):
         return x
     return F.interpolate(x, size=size, mode="bilinear", align_corners=False)
+
+
+def resize_trilinear(x: torch.Tensor, size) -> torch.Tensor:
+    """[B,C,d,h,w] → [B,C,*size], trilinear with half-pixel centres
+    (counterpart of `resize_linear_torch` at `openstereo_tpu/ops/upsample.py:98`
+    and of `jax.image.resize(..., "trilinear")`, which agree when no axis
+    shrinks). Like `resize_bilinear`, it refuses a downsample, where
+    `jax.image.resize` would antialias."""
+    size = tuple(size)
+    if any(n < m for n, m in zip(size, x.shape[-3:])):
+        raise ValueError(f"resize_trilinear only upsamples: {tuple(x.shape[-3:])} → {size}")
+    if size == tuple(x.shape[-3:]):
+        return x
+    return F.interpolate(x, size=size, mode="trilinear", align_corners=False)
+
+
+def resize_linear_align_corners(x: torch.Tensor, size) -> torch.Tensor:
+    """[B,C,*spatial] → [B,C,*size], bi- or trilinear with align_corners=True
+    over the 2 or 3 trailing axes (counterpart of
+    `openstereo_tpu/ops/upsample.py:111`, `resize_linear_align_corners`). An
+    axis of length 1 is broadcast, as the JAX interpolation matrix does."""
+    size = tuple(size)
+    mode = {2: "bilinear", 3: "trilinear"}[len(size)]
+    if x.dim() != len(size) + 2:
+        raise ValueError(f"{mode} resize of a {x.dim()}-d tensor to {size}")
+    if size == tuple(x.shape[2:]):
+        return x
+    return F.interpolate(x, size=size, mode=mode, align_corners=True)

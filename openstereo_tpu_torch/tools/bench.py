@@ -81,17 +81,19 @@ def bench_eager_vs_kernels(model: torch.nn.Module, groups: int, reps: int,
 
 
 def profile_paths(model: torch.nn.Module, frames: int, out_dir: str,
-                  size: Tuple[int, int] = (H, W)) -> Dict[str, dict]:
-    """torch.profiler over `frames` chained frames of each path: device time
-    per frame summed over kernels (one stream, so the sum is the busy time),
-    the top kernels, and the full table in `out_dir/profile_<path>.txt`."""
+                  size: Tuple[int, int] = (H, W),
+                  paths: Tuple[str, ...] = ("eager", "kernels")) -> Dict[str, dict]:
+    """torch.profiler over `frames` chained frames of each of `paths`: device
+    time per frame summed over kernels (one stream, so the sum is the busy
+    time), the top kernels, and the full table in `out_dir/profile_<path>.txt`.
+    A model without kernels of the port is profiled with paths=("eager",)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     data = pair(next(model.parameters()).device, size)
     os.makedirs(out_dir, exist_ok=True)
     out = {}
-    for path in ("eager", "kernels"):
+    for path in paths:
         set_kernels(model, path == "kernels")
         time_frames(model, data, groups=1, reps=frames)  # warm-up outside the trace
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:

@@ -1,11 +1,14 @@
-"""JAX → port weights: flax LightStereo and STTR variables → the port's state_dict.
+"""JAX → port weights: flax variables of the ported models → the port's state_dict.
 
 The port's own inverse of `openstereo_tpu/utils/torch_convert.py`
 (`conv_kernel`, `deconv_kernel`, `TreeBuilder`, `convert_lightstereo`,
-`convert_sttr`); it copies none of that code by import. Layout rules, inverted:
+`convert_sttr`, `convert_gwcnet`, `convert_psmnet`); it copies none of that
+code by import. Layout rules, inverted:
 
-- conv kernel (kh,kw,in,out) → weight (out,in,kh,kw);
-- deconv kernel: un-mirror spatially, then (in,out,kh,kw);
+- conv kernel (kh,kw,in,out) → weight (out,in,kh,kw); 3D (kd,kh,kw,in,out)
+  → (out,in,kd,kh,kw);
+- deconv kernel: un-mirror on every spatial axis, then (in,out,kh,kw) or
+  (in,out,kd,kh,kw);
 - bn/scale, bn/bias + batch_stats bn/mean, bn/var → weight, bias,
   running_mean, running_var (and num_batches_tracked = 0);
 - raw convs (the attention module's) keep their bias;
@@ -27,10 +30,14 @@ import torch
 
 
 def _conv_weight(k: np.ndarray) -> np.ndarray:
+    if k.ndim == 5:
+        return k.transpose(4, 3, 0, 1, 2)
     return k.transpose(3, 2, 0, 1)
 
 
 def _deconv_weight(k: np.ndarray) -> np.ndarray:
+    if k.ndim == 5:
+        return k[::-1, ::-1, ::-1].transpose(3, 4, 0, 1, 2)
     return k[::-1, ::-1].transpose(2, 3, 0, 1)
 
 
@@ -287,4 +294,99 @@ def sttr_state_dict_from_jax(variables) -> Dict[str, torch.Tensor]:
     sttr_transformer(b, "transformer", "transformer")
     b.put("regression_head.phi", np.asarray(b.take("params", "phi"), np.float32).reshape(()))
     sttr_cal(b, "cal", "regression_head.cal")
+    return b.finish()
+
+
+def res_block(b: FlaxToTorch, fpre: str, tpre: str, nested: bool = False):
+    """flax ResBlock at fpre → port ResBlock keys at tpre (conv1.{0,1}, or
+    conv1.0.{0,1} when `nested`, as GwcNet's reference)."""
+    f, t = (lambda *p: _join(fpre, *p)), (lambda *p: _join(tpre, *p, sep="."))  # noqa: E731
+    b.convbn(f("conv1"), t("conv1.0") if nested else t("conv1"))
+    b.convbn(f("conv2"), t("conv2"))
+    if b.has("params", f("downsample")):
+        b.convbn(f("downsample"), t("downsample"))
+
+
+def _res_layers(b: FlaxToTorch, fpre: str, tpre: str, nested: bool):
+    for layer, n in (("layer1", 3), ("layer2", 16), ("layer3", 3), ("layer4", 3)):
+        for i in range(n):
+            res_block(b, _join(fpre, f"{layer}_{i}"), _join(tpre, f"{layer}.{i}", sep="."),
+                      nested)
+
+
+def gwc_backbone(b: FlaxToTorch, fpre: str, tpre: str):
+    """flax GwcBackbone at fpre → port GwcBackbone keys at tpre."""
+    for i in range(3):
+        b.convbn(_join(fpre, f"firstconv{i}"), _join(tpre, f"firstconv.{2 * i}", sep="."))
+    _res_layers(b, fpre, tpre, nested=True)
+    if b.has("params", _join(fpre, "lastconv0")):
+        b.convbn(_join(fpre, "lastconv0"), _join(tpre, "lastconv.0", sep="."))
+        b.conv(_join(fpre, "lastconv1"), _join(tpre, "lastconv.2", sep="."))
+
+
+def gwc_hourglass(b: FlaxToTorch, fpre: str, tpre: str):
+    """flax GwcHourglass at fpre → port GwcHourglass keys at tpre."""
+    f, t = (lambda *p: _join(fpre, *p)), (lambda *p: _join(tpre, *p, sep="."))  # noqa: E731
+    for i in (1, 2, 3, 4):
+        b.convbn(f(f"conv{i}"), t(f"conv{i}.0"))
+    for i in (5, 6):
+        b.convbn(f(f"conv{i}"), t(f"conv{i}"), deconv=True)
+    for r in ("redir1", "redir2"):
+        b.convbn(f(r), t(r))
+
+
+def gwcnet_state_dict_from_jax(variables) -> Dict[str, torch.Tensor]:
+    """flax GwcNet {"params", "batch_stats"}, drawn with the training heads
+    (classif0-classif3), → port state_dict (the reference's key names, as
+    `torch_convert.convert_gwcnet` reads them). Raises if a flax variable is
+    left unconsumed."""
+    b = FlaxToTorch(variables)
+    gwc_backbone(b, "backbone", "Backbone.feature_extraction")
+    dp = "DispProcessor"
+    for f, t in (("dres0a", "dres0.0"), ("dres0b", "dres0.2"),
+                 ("dres1a", "dres1.0"), ("dres1b", "dres1.2")):
+        b.convbn(f, f"{dp}.{t}")
+    for hg in ("dres2", "dres3", "dres4"):
+        gwc_hourglass(b, hg, f"{dp}.{hg}")
+    for j in range(4):
+        b.convbn(f"classif{j}a", f"{dp}.classif{j}.0")
+        b.conv(f"classif{j}b", f"{dp}.classif{j}.2")
+    return b.finish()
+
+
+def spp_backbone(b: FlaxToTorch, fpre: str, tpre: str):
+    """flax SPPBackbone at fpre → port SPPBackbone keys at tpre."""
+    f, t = (lambda *p: _join(fpre, *p)), (lambda *p: _join(tpre, *p, sep="."))  # noqa: E731
+    for i in range(3):
+        b.convbn(f(f"firstconv{i}"), t(f"firstconv.{i}"))
+    _res_layers(b, fpre, tpre, nested=False)
+    for k in range(1, 5):  # flax branch0..3 pool 64..8 = reference branch1..4
+        b.convbn(f(f"branch{k - 1}"), t(f"branch{k}.1"))
+    b.convbn(f("lastconv0"), t("lastconv.0"))
+    b.conv(f("lastconv1"), t("lastconv.1"))
+
+
+def psm_hourglass(b: FlaxToTorch, fpre: str, tpre: str):
+    """flax Hourglass3D at fpre → port Hourglass3D keys at tpre."""
+    for i in (1, 2, 3, 4):
+        b.convbn(_join(fpre, f"conv{i}"), _join(tpre, f"conv{i}", sep="."))
+    for i in (5, 6):
+        b.convbn(_join(fpre, f"conv{i}"), _join(tpre, f"conv{i}", sep="."), deconv=True)
+
+
+def psmnet_state_dict_from_jax(variables) -> Dict[str, torch.Tensor]:
+    """flax PSMNet {"params", "batch_stats"} → port state_dict (the reference's
+    key names, as `torch_convert.convert_psmnet` reads them). Raises if a flax
+    variable is left unconsumed."""
+    b = FlaxToTorch(variables)
+    spp_backbone(b, "backbone", "Backbone")
+    agg = "CostProcessor.aggregator"
+    for f, t in (("dres0a", "dres0.0"), ("dres0b", "dres0.1"),
+                 ("dres1a", "dres1.0"), ("dres1b", "dres1.1")):
+        b.convbn(f, f"{agg}.{t}")
+    for hg in ("dres2", "dres3", "dres4"):
+        psm_hourglass(b, hg, f"{agg}.{hg}")
+    for j in (1, 2, 3):
+        b.convbn(f"classif{j}a", f"{agg}.classif{j}.0")
+        b.conv(f"classif{j}b", f"{agg}.classif{j}.1")
     return b.finish()

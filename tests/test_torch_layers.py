@@ -23,10 +23,12 @@ from test_torch_ops import to_nchw, to_nhwc
 TOL = dict(rtol=1e-4, atol=1e-5)
 
 
-def _random_variables(module, x, seed):
+def _random_variables(module, x, seed, train=False):
     """flax variables of `module` at input x, every leaf drawn from numpy:
-    kernels ~ N(0, 1/fan_in), BN scale/var around 1, biases/means small."""
-    shapes = jax.eval_shape(lambda a: module.init(jax.random.key(0), a, train=False), x)
+    kernels ~ N(0, 1/fan_in), BN scale/var around 1, biases/means small.
+    `train=True` draws the variables of the training graph (GwcNet's
+    training heads)."""
+    shapes = jax.eval_shape(lambda a: module.init(jax.random.key(0), a, train=train), x)
     rng = np.random.RandomState(seed)
 
     def fill(path, s):
@@ -85,6 +87,49 @@ def test_deconvblock_matches_flax(k):
         got = tm(to_nchw(x))
     assert got.shape == (1, 4, 10, 14)
     _assert_matches_flax(got, fm, v, x)
+
+
+@pytest.mark.parametrize("stride,dilation,k,act", [(1, 1, 3, True), (2, 1, 3, True),
+                                                    (1, 2, 3, False), (1, 1, 1, False)])
+def test_convblock3d_matches_flax(stride, dilation, k, act):
+    """3D ConvBlock (NCDHW) vs flax's (NDHWC, tap-merged on the CPU)."""
+    x = np.random.RandomState(6).randn(1, 6, 8, 10, 5).astype(np.float32)
+    fm = jl.ConvBlock(7, k, strides=stride, dilation=dilation, norm="batch",
+                      act=jax.nn.relu if act else None, ndim=3)
+    v = _random_variables(fm, jnp.asarray(x), 7)
+    b = FlaxToTorch(v)
+    b.convbn("", "block")
+    tm = _load(tl.ConvBlock(5, 7, k, stride=stride, dilation=dilation, norm="batch",
+                            act=torch.relu if act else None, ndim=3), b.finish())
+    with torch.no_grad():
+        got = tm(to_nchw(x))
+    _assert_matches_flax(got, fm, v, x)
+
+
+@pytest.mark.parametrize("k", [3, 4])
+def test_deconvblock3d_matches_flax(k):
+    """3D DeconvBlock: k3 s2 p1 op1 (the hourglasses') and k4 s2 p1."""
+    x = np.random.RandomState(8).randn(1, 3, 4, 5, 6).astype(np.float32)
+    fm = jl.DeconvBlock(4, k, 2, norm="batch", ndim=3)
+    v = _random_variables(fm, jnp.asarray(x), 9)
+    b = FlaxToTorch(v)
+    b.convbn("", "block", deconv=True)
+    tm = _load(tl.DeconvBlock(6, 4, k, norm="batch", ndim=3), b.finish())
+    with torch.no_grad():
+        got = tm(to_nchw(x))
+    assert got.shape == (1, 4, 6, 8, 10)
+    _assert_matches_flax(got, fm, v, x)
+
+
+def test_run_seq_walks_reference_sequentials():
+    torch.manual_seed(1)
+    seq = torch.nn.Sequential(tl.convbn(3, 4, ndim=3), torch.nn.ReLU(),
+                              torch.nn.Sequential(tl.convbn(4, 2, 1, ndim=3))).eval()
+    x = torch.randn(1, 3, 4, 5, 6)
+    with torch.no_grad():
+        np.testing.assert_allclose(tl.run_seq(x, seq).numpy(), seq(x).numpy(), rtol=1e-6,
+                                   atol=1e-6)
+        assert tl.run_seq(x.bfloat16(), seq).dtype == torch.bfloat16
 
 
 @pytest.mark.parametrize("inp,oup,stride,kernels", [

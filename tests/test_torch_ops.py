@@ -12,10 +12,11 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from openstereo_tpu import ops as jops
-from openstereo_tpu.ops.pallas import correlation_volume_pallas
+from openstereo_tpu.ops.pallas import build_gwc_volume_pallas, correlation_volume_pallas
 from openstereo_tpu.ops.pallas import fused_mbconv as jfm
 from openstereo_tpu.ops.pallas import rel_attention as jra
 
@@ -66,6 +67,87 @@ def test_corr_volume_bf16_accumulates_in_f32():
     ref = ops.correlation_volume(l.float(), r.float(), 8)
     # one bf16 rounding of the f32 result
     np.testing.assert_allclose(got.float().numpy(), ref.numpy(), rtol=8e-3, atol=1e-6)
+
+
+@pytest.mark.parametrize("b,h,w,c,d,g", [
+    (1, 4, 260, 16, 12, 4),   # the shape of tests/test_pallas_kernels.py
+    (2, 3, 37, 24, 20, 2),    # cg = 12, W ragged against the CUDA tile (64)
+    (1, 2, 6, 6, 10, 6),      # cg = 1; planes with d >= W are zero
+])
+def test_gwc_volume_plain_matches_jax_and_pallas(b, h, w, c, d, g):
+    """K3's plain version (the wrapper on the CPU) vs `build_gwc_volume` and
+    `build_gwc_volume_pallas(..., interpret=True)`, rtol/atol 1e-5."""
+    rng = np.random.RandomState(w + c)
+    l = rng.randn(b, h, w, c).astype(np.float32)
+    r = rng.randn(b, h, w, c).astype(np.float32)
+    ref = np.asarray(jops.build_gwc_volume(jnp.asarray(l), jnp.asarray(r), d, g))
+    pallas = np.asarray(build_gwc_volume_pallas(jnp.asarray(l), jnp.asarray(r), d, g,
+                                                tile_w=128, interpret=True))
+    plain = ops.build_gwc_volume(to_nchw(l), to_nchw(r), d, g)
+    got = ops.gwc_volume(to_nchw(l), to_nchw(r), d, g)
+    assert got.shape == (b, g, d, h, w) and got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), plain.numpy())
+    np.testing.assert_allclose(to_nhwc(got), ref, **TOL)
+    np.testing.assert_allclose(to_nhwc(got), pallas, **TOL)
+    if d > w:
+        assert not got[:, :, w:].any()
+
+
+def test_gwc_volume_bf16_accumulates_in_f32_and_g1_is_corr():
+    rng = np.random.RandomState(7)
+    l, r = (torch.from_numpy(rng.randn(1, 24, 4, 32).astype(np.float32)).bfloat16()
+            for _ in range(2))
+    got = ops.gwc_volume(l, r, 8, 3)
+    assert got.dtype == torch.bfloat16
+    ref = ops.build_gwc_volume(l.float(), r.float(), 8, 3)
+    # one bf16 rounding of the f32 result
+    np.testing.assert_allclose(got.float().numpy(), ref.numpy(), rtol=8e-3, atol=1e-6)
+    one = ops.gwc_volume(l.float(), r.float(), 8, 1)[:, 0]
+    np.testing.assert_allclose(one.numpy(), ops.corr_volume(l.float(), r.float(), 8).numpy(),
+                               **TOL)
+
+
+def test_gwc_volume_checks_inputs():
+    a = torch.zeros(1, 6, 2, 8)
+    with pytest.raises(ValueError, match="num_groups"):
+        ops.gwc_volume(a, a, 4, 4)
+    with pytest.raises(ValueError):
+        ops.gwc_volume(a, torch.zeros(1, 6, 2, 9), 4, 2)
+    with pytest.raises(TypeError):
+        ops.gwc_volume(a.double(), a.double(), 4, 2)
+
+
+def test_concat_volume_matches_jax():
+    """Where D <= W: the JAX builder has no d >= W branch (ROADMAP §3)."""
+    rng = np.random.RandomState(8)
+    l, r = (rng.randn(2, 3, 10, 5).astype(np.float32) for _ in range(2))
+    ref = np.asarray(jops.build_concat_volume(jnp.asarray(l), jnp.asarray(r), 10))
+    got = ops.build_concat_volume(to_nchw(l), to_nchw(r), 10)
+    assert got.shape == (2, 10, 10, 3, 10)
+    np.testing.assert_array_equal(to_nhwc(got), ref)
+    wide = ops.build_concat_volume(to_nchw(l), to_nchw(r), 14)
+    assert torch.equal(wide[:, :, :10], got) and not wide[:, :, 10:].any()
+
+
+@pytest.mark.parametrize("src,dst", [((3, 4, 5), (12, 16, 20)), ((2, 1, 3), (8, 4, 7))])
+def test_resize_trilinear_matches_jax(src, dst):
+    x = np.random.RandomState(9).randn(2, 1, *src).astype(np.float32)
+    ref = np.asarray(jax.image.resize(jnp.asarray(x[:, 0]), (2, *dst), method="trilinear"))
+    ref_t = np.asarray(jops.resize_linear_torch(jnp.asarray(x[:, 0]), dst, axes=(1, 2, 3)))
+    got = ops.resize_trilinear(torch.from_numpy(x), dst)[:, 0].numpy()
+    np.testing.assert_allclose(got, ref, **TOL)
+    np.testing.assert_allclose(got, ref_t, **TOL)
+    with pytest.raises(ValueError, match="only upsamples"):
+        ops.resize_trilinear(torch.from_numpy(x), (src[0], src[1], src[2] - 1))
+
+
+@pytest.mark.parametrize("src,dst", [((3, 4, 5), (12, 16, 20)), ((1, 2), (8, 6)), ((4, 6), (7, 9))])
+def test_resize_align_corners_matches_jax(src, dst):
+    x = np.random.RandomState(10).randn(2, 3, *src).astype(np.float32)
+    axes = tuple(range(2, 2 + len(src)))
+    ref = np.asarray(jops.resize_linear_align_corners(jnp.asarray(x), dst, axes=axes))
+    got = ops.resize_linear_align_corners(torch.from_numpy(x), dst)
+    np.testing.assert_allclose(got.numpy(), ref, **TOL)
 
 
 def _mbconv_case(seed, b, h, w, cin, ch, cout):
@@ -131,13 +213,17 @@ def test_corr_volume_checks_inputs():
         ops.corr_volume(a.double(), a.double(), 4)
 
 
+ZERO_COUNTS = {"corr_volume": 0, "fused_mbconv": 0, "rel_attention": 0, "gwc_volume": 0}
+
+
 def test_cpu_wrappers_launch_nothing():
     kernels.reset_launch_counts()
     a = torch.randn(1, 4, 2, 8)
     ops.corr_volume(a, a, 4)
+    ops.gwc_volume(a, a, 4, 2)
     x = torch.randn(1, 6, 8)
     ops.rel_attention(x, x, x, torch.randn(11, 8), torch.randn(11, 8), 2)
-    assert kernels.launch_counts == {"corr_volume": 0, "fused_mbconv": 0, "rel_attention": 0}
+    assert kernels.launch_counts == ZERO_COUNTS
     assert not any(kernels.launch_shapes.values())
 
 
@@ -151,7 +237,7 @@ def test_check_launch_counts_by_shape():
         kernels.check_launch("fused_mbconv", 2, (1, 1, 1, 1, 1, 1, True))
     assert kernels.launch_counts["fused_mbconv"] == 0
     kernels.reset_launch_counts()
-    assert kernels.launch_counts == {"corr_volume": 0, "fused_mbconv": 0, "rel_attention": 0}
+    assert kernels.launch_counts == ZERO_COUNTS
     assert not any(kernels.launch_shapes.values())
 
 
