@@ -8,16 +8,24 @@ without the repository around it). Phases, each of which fails the run:
 
 1. the card: `nvidia-smi` name and power limit, torch and CUDA versions;
 2. build every CUDA kernel of the main path from `openstereo_tpu_torch/csrc`
-   (one nvcc per source, in parallel);
+   (one nvcc per source, in parallel), and print ptxas's registers, spills
+   and shared memory for the tensor-core kernels of K4 and K2;
 3. K1 (corr_volume) against its plain version at the main-path shape, f32
    (TF32 off) and bf16, plus a ragged-width and a d >= W case;
 4. K2 (fused_mbconv) against its plain version at the 9 distinct main-path
    shapes, f32 (TF32 off) and bf16, with and without the residual where
-   Cin == Cout;
+   Cin == Cout, with the launcher's split count at each shape, and in bf16
+   at forced hidden-channel split counts through the launcher itself;
 5. K4 (rel_attention) against its plain version at the 3 STTR main-path
    shapes and at edge cases (W ragged against the row tile, W = 416, W = 1,
-   masked with raw at a small W, every supported head width), f32 (TF32
-   off) and bf16;
+   masked with raw at a small W, W = 640 without raw, raw at its W limit,
+   every supported head width), f32 (TF32 off) and bf16, and that W = 2048
+   with raw is refused. The bf16 plain versions of K2 and K4 take the same
+   bf16 inputs and round h, d and p to bf16 where the TPU kernels do
+   (`bf16_close_flips` says how the two may differ); at the main-path
+   shapes, controls that round in the wrong place (K2: h or d left in f32;
+   K4: p left in f32, or exp(s - m) rounded before the division by l) must
+   fail the same check;
 6. the LightStereo path: LightStereo-S at 544x960, b1, bf16, random weights
    from a seed, through the port's infer entry (`tools/infer.py:run_pair`)
    on a few synthetic pairs (a random image and the same image rolled by
@@ -84,7 +92,18 @@ K2_SHAPES = {
     (1, 68, 120, 96, 384, 96, True): 2,
     (1, 34, 60, 192, 768, 192, True): 3,
 }
+# the launcher's hidden-channel split count at each main-path shape (B, H, W, Ch) on a
+# card with 132 SMs (H100 SXM); tests/test_torch_kernel_plans.py walks the same rule
+K2_SPLITS_132 = {(2, 136, 240, 144): 1, (2, 68, 120, 192): 2, (2, 34, 60, 384): 6,
+                 (2, 34, 60, 576): 6, (2, 17, 30, 960): 15, (1, 136, 240, 192): 2,
+                 (1, 68, 120, 384): 4, (1, 34, 60, 768): 12}
 K1_SHAPE = (1, 24, 136, 240, 48)  # B, C, H/4, W/4, D
+# K2 at forced split counts, through the launcher itself: (shape as K2_SHAPES,
+# residual, splits)
+K2_SPLIT_CASES = [
+    ((1, 9, 21, 24, 80, 24, True), True, (1, 2, 3)),
+    ((2, 17, 30, 160, 960, 160, True), True, (1, 30)),
+]
 
 # expected K4 launches per STTR frame: (lines, W', E, nheads, masked, need_raw) → count.
 # 6 self layers on left+right (2·180 lines), 12 cross calls on 180 lines, the
@@ -100,6 +119,8 @@ K4_EDGES = [
     (2, 416, 128, 2, False, True, "W of a 1248-wide frame, hd 64"),
     (3, 1, 32, 4, True, True, "W = 1, hd 8"),
     (2, 50, 128, 8, True, True, "masked with raw, small W"),
+    (2, 640, 128, 8, False, False, "W of a 1920-wide frame, no raw"),
+    (1, 448, 128, 2, True, True, "masked with raw at the bf16 raw tile's limit, hd 64"),
 ]
 
 K3_SHAPE = (1, 320, 136, 240, 48, 40)  # B, C, H/4, W/4, D, G of GwcNet at 544x960
@@ -112,6 +133,13 @@ K3_EDGES = [
     ((1, 16, 3, 50, 20, 16), "cg = 1"),
     ((1, 96, 5, 70, 24, 8), "cg = 12 (C 96, G 8)"),
 ]
+
+# The bf16 K2 and K4 checks (`bf16_close_flips`): the share of output elements that
+# may miss `bf16_close`, each within its flip allowance. Set between what a correct
+# kernel reads at the main-path shapes and what the misrounded controls read there
+# (PERF.md, agreement): K2 at most 5.1e-5 against >= 3.9e-2, K4 at most 2.7e-7
+# against >= 3.6e-6.
+K2_FLIP_SHARE, K4_FLIP_SHARE = 1e-4, 1e-6
 
 # dense peaks: (memory bytes/s, bf16 tensor flop/s), NVIDIA data sheets
 CARDS = {"H100 PCIe": (2.0e12, 756e12), "H100 NVL": (3.9e12, 835e12), "H100": (3.35e12, 989e12)}
@@ -152,6 +180,153 @@ def bf16_close(got, ref, rtol=8e-3, atol=1e-3):
     return bool(((got.float() - ref).abs() <= rtol * ref.abs() + atol).all())
 
 
+def bf16_close_flips(got, ref, allowance, share, what):
+    """`bf16_close` for all but at most `share` of the elements (at least one),
+    which may miss it by no more than `allowance`: where the plain version and
+    the kernel each round an intermediate to bf16 (as the TPU kernel does),
+    sums taken in two f32 orders may round one of them to two neighbours.
+    Returns (elements beyond `bf16_close`, elements beyond it and the allowance)."""
+    err = (got.float() - ref.float()).abs()
+    tol = 8e-3 * ref.float().abs() + 1e-3
+    beyond = int((err > tol).sum())
+    over = err - tol - allowance
+    n_over = int((over > 0).sum())
+    check(n_over == 0, f"{what}: max-abs {err.max().item()} beyond 8e-3·|ref| + 1e-3 and the "
+                       f"flip allowance at {n_over} elements (by up to {over.max().item()})")
+    check(beyond <= max(1, share * err.numel()),
+          f"{what}: {beyond} of {err.numel()} elements beyond 8e-3·|ref| + 1e-3 (share cap "
+          f"{share})")
+    return beyond, n_over
+
+
+def rejected(got, ref, allowance, share):
+    """For a control that rounds in the wrong place: whether `bf16_close_flips`
+    rejects it, with (elements beyond `bf16_close`, beyond it and the allowance)."""
+    try:
+        bf16_close_flips(got, ref, allowance, share, "control")
+    except SmokeFailure:
+        pass
+    else:
+        return False, None
+    err = (got.float() - ref.float()).abs()
+    tol = 8e-3 * ref.float().abs() + 1e-3
+    return True, (int((err > tol).sum()), int((err > tol + allowance).sum()))
+
+
+def bf16_flip(u, err):
+    """Where an f32 value u >= 0, rounded to bf16, lies within `err` of the
+    midpoint between its rounding r and r's neighbour on u's side: the
+    distance to that neighbour (another sum order may round u there), else 0."""
+    import torch
+
+    r = u.bfloat16()
+    step = torch.sign(u - r.float()).to(torch.int16)
+    other = (r.view(torch.int16) + step).view(torch.bfloat16).float()
+    amb = (step != 0) & ((u - (r.float() + other) / 2).abs() <= err)
+    return torch.where(amb, (other - r.float()).abs(), torch.zeros_like(u))
+
+
+def k2_flip_allowance(x, args):
+    """Per output element of K2's bf16 plain version: the most that rounding
+    h or d to bf16 the other way can move it, where their f32 pre-rounding
+    value lies within the error bound of two f32 sum orders ((n + 2)·2^-23
+    of the sum of |terms| over n terms) of a rounding midpoint; 0 elsewhere.
+    Relu6 is 1-Lipschitz, so the bound propagates linearly."""
+    import torch
+    import torch.nn.functional as F
+
+    w1, b1, dw, b2, w2, _ = (a.float() for a in args)
+    xf, ch, eps = x.float(), w1.shape[1], 2.0 ** -23
+    pre = torch.einsum("bchw,cd->bdhw", xf, w1) + b1[:, None, None]
+    mag = torch.einsum("bchw,cd->bdhw", xf.abs(), w1.abs()) + b1.abs()[:, None, None]
+    u_h = pre.clamp(0.0, 6.0)
+    flip_h = bf16_flip(u_h, (xf.shape[1] + 2) * eps * mag)
+    h = u_h.bfloat16().float()
+    k = dw.t().reshape(ch, 1, 3, 3)
+    pre_d = F.conv2d(h, k, b2, padding=1, groups=ch)
+    mag_d = F.conv2d(h.abs(), k.abs(), b2.abs(), padding=1, groups=ch)
+    shift = F.conv2d(flip_h, k.abs(), padding=1, groups=ch)  # what h's flips move pre_d by
+    flip_d = bf16_flip(pre_d.clamp(0.0, 6.0), 11 * eps * mag_d + shift)
+    return torch.einsum("bchw,cd->bdhw", flip_d + shift, w2.abs())
+
+
+def k4_flip_allowance(args, nh, masked):
+    """Per output element of K4's bf16 plain version: the most that rounding
+    p to bf16 the other way can move it, where p's f32 value lies within the
+    error bound of two implementations of its f32 arithmetic of a rounding
+    midpoint: each score within (hd + 2)·2^-23 of its sum of |terms|, the row
+    max and sum within the row's worst score error, exp and the W-term sum
+    within (W + 16)·2^-23; 0 elsewhere."""
+    import torch
+
+    from openstereo_tpu_torch.ops.rel_attention import rel_index
+
+    q, k, v, ke, qe = (a.float() for a in args)
+    b, w, e = q.shape
+    hd, eps = e // nh, 2.0 ** -23
+    idx = rel_index(w, q.device)
+    qh, kh, vh = (t.reshape(b, w, nh, hd) for t in (q, k, v))
+    k_r, q_r = (t[idx].reshape(w, w, nh, hd) for t in (ke, qe))
+    s = (torch.einsum("bihc,bjhc->bhij", qh, kh) + torch.einsum("bihc,ijhc->bhij", qh, k_r)
+         + torch.einsum("bjhc,ijhc->bhij", kh, q_r))
+    ds = (torch.einsum("bihc,bjhc->bhij", qh.abs(), kh.abs())
+          + torch.einsum("bihc,ijhc->bhij", qh.abs(), k_r.abs())
+          + torch.einsum("bjhc,ijhc->bhij", kh.abs(), q_r.abs())) * ((hd + 2) * eps)
+    if masked:
+        above = torch.triu(torch.ones(w, w, dtype=torch.bool, device=q.device), 1)
+        s, ds = s.masked_fill(above, -1e30), ds.masked_fill(above, 0.0)
+    p = torch.softmax(s, dim=-1)
+    dm = ds.amax(dim=-1, keepdim=True)
+    rel = ds + 2 * dm + (p * ds).sum(dim=-1, keepdim=True) + (w + 16) * eps
+    flip = bf16_flip(p, p * rel)
+    return torch.einsum("bhij,bjhc->bihc", flip, vh.abs()).reshape(b, w, e)
+
+
+def k2_misrounded(x, args, residual, round_h, round_d):
+    """A control for the K2 check: the plain version's arithmetic with h or d
+    left in f32 where the TPU kernel rounds it to bf16."""
+    import torch
+    import torch.nn.functional as F
+
+    w1, b1, dw, b2, w2, b3 = (a.float() for a in args)
+    xf, ch = x.float(), w1.shape[1]
+    h = (torch.einsum("bchw,cd->bdhw", xf, w1) + b1[:, None, None]).clamp(0.0, 6.0)
+    h = h.bfloat16().float() if round_h else h
+    d = F.conv2d(h, dw.t().reshape(ch, 1, 3, 3), b2, padding=1, groups=ch).clamp(0.0, 6.0)
+    d = d.bfloat16().float() if round_d else d
+    y = torch.einsum("bchw,cd->bdhw", d, w2) + b3[:, None, None]
+    return (y + xf if residual else y).to(x.dtype)
+
+
+def k4_misrounded(args, nh, masked, mode):
+    """A control for the K4 check: the plain version's arithmetic with p left
+    in f32 (mode "p f32"), or with exp(s - m) rounded to bf16 before the
+    division by the row sum l (mode "exp before /l", as a flash-attention
+    style kernel rounds), where the TPU kernel rounds p = exp(s - m) / l."""
+    import torch
+
+    from openstereo_tpu_torch.ops.rel_attention import rel_index
+
+    q, k, v, ke, qe = (a.float() for a in args)
+    b, w, e = q.shape
+    hd = e // nh
+    idx = rel_index(w, q.device)
+    qh, kh, vh = (t.reshape(b, w, nh, hd) for t in (q, k, v))
+    k_r, q_r = (t[idx].reshape(w, w, nh, hd) for t in (ke, qe))
+    s = (torch.einsum("bihc,bjhc->bhij", qh, kh) + torch.einsum("bihc,ijhc->bhij", qh, k_r)
+         + torch.einsum("bjhc,ijhc->bhij", kh, q_r))
+    if masked:
+        s = s.masked_fill(torch.triu(torch.ones(w, w, dtype=torch.bool, device=q.device), 1),
+                          -1e30)
+    if mode == "p f32":
+        out = torch.einsum("bhij,bjhc->bihc", torch.softmax(s, dim=-1), vh)
+    else:
+        ex = torch.exp(s - s.amax(dim=-1, keepdim=True))
+        out = (torch.einsum("bhij,bjhc->bihc", ex.bfloat16().float(), vh)
+               / ex.sum(dim=-1).transpose(1, 2)[..., None])
+    return out.reshape(b, w, e).to(args[2].dtype)
+
+
 def phase_card():
     import torch
 
@@ -172,6 +347,16 @@ def phase_build():
     print(f"[build] {len(paths)} kernel libraries in {time.perf_counter() - t0:.1f} s")
     for name, path in paths.items():
         print(f"[build]   {name}: {path}")
+    # ptxas's figures for the tensor-core kernels (namespace tc) of K4 and K2
+    ptxas = {}
+    for name in ("rel_attention", "fused_mbconv"):
+        ptxas[name] = [e for e in build.ptxas_info(name) if "2tc" in e["entry"]]
+        check(ptxas[name], f"no ptxas figures for {name}'s tensor-core kernels")
+        for e in ptxas[name]:
+            print(f"[ptxas] {name} {e['entry'][:48]}: {e['registers']} registers, spill "
+                  f"stores {e['spill_stores']} B, spill loads {e['spill_loads']} B, static "
+                  f"shared memory {e['smem']} B")
+    return ptxas
 
 
 def phase_k1(dev):
@@ -219,11 +404,23 @@ def phase_k2(dev):
     import torch
 
     from openstereo_tpu_torch import ops
+    from openstereo_tpu_torch.ops.kernels import build
 
     g = torch.Generator().manual_seed(2)
+    lib = build.load("fused_mbconv")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     worst32 = worst16 = 0.0
+    controls = {}
     for shape in K2_SHAPES:
-        cin, cout = shape[3], shape[5]
+        b, h, w, cin, ch, cout = shape[:6]
+        splits = lib.fused_mbconv_splits(b, h, w, ch, 1)
+        chunks = -(-ch // 32)
+        check(splits >= 1 and (splits - 1) * -(-chunks // splits) < chunks,
+              f"K2 {shape[:6]}: the launcher picks {splits} splits of {chunks} chunks")
+        if sms == 132:
+            check(splits == K2_SPLITS_132[(b, h, w, ch)],
+                  f"K2 {shape[:6]}: the launcher picks S = {splits}, the plan says "
+                  f"{K2_SPLITS_132[(b, h, w, ch)]}")
         x, args = k2_inputs(shape, dev, torch.float32, g)
         x16, args16 = x.bfloat16(), [a.bfloat16() if i % 2 == 0 else a for i, a in enumerate(args)]
         for res in ((True, False) if cin == cout else (False,)):
@@ -232,15 +429,64 @@ def phase_k2(dev):
             err32 = (got - ref).abs().max().item()
             check(torch.allclose(got, ref, rtol=1e-4, atol=1e-4),
                   f"K2 f32 {shape[:6]} residual={res}: max-abs {err32} beyond rtol 1e-4, atol 1e-4")
-            ref16 = ops.mbconv_plain(x16.float(), *[a.float() for a in args16], residual=res)
+            ref16 = ops.mbconv_plain(x16, *args16, residual=res)
+            allowance = k2_flip_allowance(x16, args16)
             got16 = ops.fused_mbconv(x16, *args16, residual=res)
-            err16 = (got16.float() - ref16).abs().max().item()
-            check(bf16_close(got16, ref16),
-                  f"K2 bf16 {shape[:6]} residual={res}: max-abs {err16} beyond rtol 8e-3")
-            print(f"[K2] {shape[:6]} residual={res}: f32 max-abs {err32:.3g} "
-                  f"(tol 1e-4 + 1e-4·|ref|), bf16 max-abs {err16:.3g} (tol 8e-3·|ref| + 1e-3)")
+            err16, beyond = k2_bf16_error(got16, ref16, allowance, f"{shape[:6]} residual={res}")
+            # the controls: h or d left in f32 must not pass the same check
+            for name, rh, rd in (("h f32", False, True), ("d f32", True, False)):
+                bad = k2_misrounded(x16, args16, res, rh, rd)
+                no, counts = rejected(bad, ref16, allowance, K2_FLIP_SHARE)
+                check(no, f"K2 bf16 {shape[:6]} residual={res}: the control with {name} "
+                          f"passes the check")
+                controls[(shape[:6], res, name)] = counts
+            print(f"[K2] {shape[:6]} residual={res}, S={splits}: f32 max-abs {err32:.3g} "
+                  f"(tol 1e-4 + 1e-4·|ref|), bf16 max-abs {err16:.3g} (tol 8e-3·|ref| + 1e-3; "
+                  f"{beyond} of {got16.numel()} beyond it, within the flip allowance); "
+                  f"controls rejected, beyond / over the allowance: h f32 "
+                  f"{controls[(shape[:6], res, 'h f32')]}, d f32 "
+                  f"{controls[(shape[:6], res, 'd f32')]}")
             worst32, worst16 = max(worst32, err32), max(worst16, err16)
-    return worst32, worst16
+    # the bf16 kernel at split counts other than the launcher's, through the launcher:
+    # every S of a ragged 3-chunk case (Cin 24 padded), and the 30-chunk 17x30 shape
+    # unsplit and one chunk per block
+    for shape, res, splits in K2_SPLIT_CASES:
+        x, args = k2_inputs(shape, dev, torch.bfloat16, g)
+        ref = ops.mbconv_plain(x, *args, residual=res)
+        allowance = k2_flip_allowance(x, args)
+        for sp in splits:
+            got = k2_launch_forced(lib, x, args, res, sp)
+            err16, beyond = k2_bf16_error(got, ref, allowance, f"{shape[:6]} residual={res} S={sp}")
+            print(f"[K2] {shape[:6]} residual={res}, S={sp} (forced): bf16 max-abs {err16:.3g} "
+                  f"(tol 8e-3·|ref| + 1e-3; {beyond} beyond it, within the flip allowance)")
+            worst16 = max(worst16, err16)
+    return worst32, worst16, controls
+
+
+def k2_launch_forced(lib, x, args, residual, splits):
+    """The bf16 K2 launcher called at a split count of our choosing (the wrapper
+    takes the launcher's own); not counted as a launch of the main path."""
+    import torch
+
+    from openstereo_tpu_torch.ops import kernels
+
+    b, cin, h, w = x.shape
+    ch, cout = args[0].shape[1], args[4].shape[1]
+    out = torch.empty((b, cout, h, w), dtype=x.dtype, device=x.device)
+    ws = torch.empty((splits, b, cout, h, w), dtype=torch.float32, device=x.device)
+    err = lib.fused_mbconv_launch(x.data_ptr(), *(a.data_ptr() for a in args), out.data_ptr(),
+                                  ws.data_ptr() if splits > 1 else None, b, cin, ch, cout, h, w,
+                                  int(residual), splits, 1, kernels.stream_handle(x.device))
+    check(err == 0, f"K2 bf16 launcher at S={splits}: cudaError_t {err}")
+    return out
+
+
+def k2_bf16_error(got, ref, allowance, what):
+    """bf16 K2 against its plain version on the same bf16 inputs (which rounds h
+    and d to bf16 where the TPU kernel does): (max-abs, elements beyond
+    `bf16_close`), raising as `bf16_close_flips` says."""
+    beyond, _ = bf16_close_flips(got, ref, allowance, K2_FLIP_SHARE, f"K2 bf16 {what}")
+    return (got.float() - ref.float()).abs().max().item(), beyond
 
 
 def k4_inputs(shape, dev, g):
@@ -255,55 +501,86 @@ def k4_inputs(shape, dev, g):
     return [t.to(dev) for t in (q * scale, k, v, ke, qe * scale)]
 
 
-def k4_errors(args, nh, masked, need_raw):
-    """K4 against its plain version: (out max-abs, raw max-abs on finite
-    entries), raising beyond the tolerances (f32: 1e-4 as
-    tests/test_rel_attention.py; bf16: one bf16 rounding of out, raw at
-    rtol 1e-3 against the plain version on f32 copies of the bf16 inputs)."""
+def k4_errors(args, nh, masked, need_raw, controls=None):
+    """K4 against its plain version on the same inputs: (out max-abs, raw
+    max-abs on finite entries or None, out elements beyond `bf16_close`),
+    raising beyond the tolerances (f32: 1e-4 as
+    tests/test_rel_attention.py; bf16: one bf16 rounding of out as
+    `bf16_close_flips` says, raw at rtol 1e-3; the bf16 plain version rounds
+    p to bf16 before p·v, as the TPU kernel does). With a dict `controls`
+    (bf16), the misrounded controls must fail the same check; their counts
+    go there."""
     import torch
 
     from openstereo_tpu_torch import ops
 
     bf16 = args[0].dtype == torch.bfloat16
-    ref, ref_raw = ops.rel_attention_plain(*[a.float() for a in args], nh, masked, need_raw)
+    ref, ref_raw = ops.rel_attention_plain(*args, nh, masked, need_raw)
+    ref = ref.float()
     got, raw = ops.rel_attention(*args, nh, masked, need_raw)
     err = (got.float() - ref).abs().max().item()
+    beyond = 0
     if bf16:
-        check(bf16_close(got, ref), f"out max-abs {err} beyond 8e-3·|ref| + 1e-3")
+        allowance = k4_flip_allowance(args, nh, masked)
+        beyond, _ = bf16_close_flips(got, ref, allowance, K4_FLIP_SHARE, "out")
+        for mode in () if controls is None else ("p f32", "exp before /l"):
+            no, controls[mode] = rejected(k4_misrounded(args, nh, masked, mode), ref, allowance,
+                                          K4_FLIP_SHARE)
+            check(no, f"the control with {mode} passes the check")
     else:
         check(bool(((got - ref).abs() <= 1e-4 + 1e-4 * ref.abs()).all()),
               f"out max-abs {err} beyond rtol 1e-4, atol 1e-4")
     if not need_raw:
         check(raw is None, "raw returned without need_raw")
-        return err, None
+        return err, None, beyond
     fin = ref_raw.abs() < 1e20
     check(bool((raw[~fin] < -1e29).all()), "masked raw entries are not ~-1e30 per head")
     rtol, atol = (1e-3, 1e-4) if bf16 else (1e-4, 1e-4)
     rerr = (raw[fin] - ref_raw[fin]).abs()
     check(bool((rerr <= atol + rtol * ref_raw[fin].abs()).all()),
           f"raw max-abs {rerr.max().item()} beyond rtol {rtol}, atol {atol}")
-    return err, rerr.max().item()
+    return err, rerr.max().item(), beyond
 
 
 def phase_k4(dev):
     import torch
 
+    from openstereo_tpu_torch import ops
+
     g = torch.Generator().manual_seed(4)
     worst = {"f32": 0.0, "bf16": 0.0}
+    controls = {}
     cases = [(*key, "main path") for key in K4_SHAPES] + K4_EDGES
     for b, w, e, nh, masked, need_raw, what in cases:
         args = k4_inputs((b, w, e, nh), dev, g)
         for tag, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            bf16 = dtype == torch.bfloat16
+            ctl = {} if bf16 and what == "main path" else None
             try:
-                err, rerr = k4_errors([a.to(dtype) for a in args], nh, masked, need_raw)
+                err, rerr, beyond = k4_errors([a.to(dtype) for a in args], nh, masked, need_raw,
+                                              ctl)
             except SmokeFailure as exc:
                 raise SmokeFailure(f"K4 {tag} {(b, w, e, nh, masked, need_raw)} ({what}): {exc}")
             worst[tag] = max(worst[tag], err)
+            if ctl:
+                controls[(b, w, e, nh, masked, need_raw)] = ctl
+            flips = f" ({beyond} of {b * w * e} beyond bf16_close, within the flip allowance)"
             print(f"[K4] {tag} B={b} W={w} E={e} heads={nh} masked={masked} raw={need_raw} "
-                  f"({what}): out max-abs {err:.3g}, raw max-abs "
-                  f"{'-' if rerr is None else f'{rerr:.3g}'}")
+                  f"({what}): out max-abs {err:.3g}{flips if bf16 else ''}"
+                  f", raw max-abs {'-' if rerr is None else f'{rerr:.3g}'}"
+                  f"{f'; controls rejected, beyond / over the allowance: {ctl}' if ctl else ''}")
+    # W beyond what the tiles take: the f32 score tile, and the bf16 raw tile
+    for dtype in (torch.float32, torch.bfloat16):
+        args = [a.to(dtype) for a in k4_inputs((1, 2048, 32, 2), dev, g)]
+        try:
+            ops.rel_attention(*args, 2, False, True)
+        except ValueError:
+            pass
+        else:
+            raise SmokeFailure(f"K4 {dtype} took W = 2048 with raw, beyond its shared memory")
+    print("[K4] W = 2048 with raw refused in f32 and bf16 (the tiles exceed shared memory)")
     torch.cuda.synchronize()
-    return worst["f32"], worst["bf16"]
+    return worst["f32"], worst["bf16"], controls
 
 
 def synthetic_pairs(size=(H, W)):
@@ -790,7 +1067,7 @@ def main():
     try:
         smi, name = phase_card()
         card = peaks(name)
-        phase_build()
+        ptxas = phase_build()
         k1_err = phase_k1(dev)
         k2_err = phase_k2(dev)
         k4_err = phase_k4(dev)
@@ -818,13 +1095,20 @@ def main():
              replaces="openstereo_tpu/ops/pallas/fused_mbconv.py:53",
              launches=launches["fused_mbconv"], max_abs_err=k2_err[1],
              max_abs_err_f32=k2_err[0], library_ms=None,
-             yardstick="eager cuDNN pw->dw->pw chain, folded BN", **k2),
+             yardstick="eager cuDNN pw->dw->pw chain, folded BN", ptxas=ptxas["fused_mbconv"],
+             flip_share=K2_FLIP_SHARE,
+             controls=[dict(shape=list(shp), residual=res, control=ctl, beyond=c[0],
+                            over_allowance=c[1]) for (shp, res, ctl), c in k2_err[2].items()],
+             **k2),
         dict(name="rel_attention", route="cuda", source="openstereo_tpu_torch/csrc/rel_attention.cu",
              replaces="openstereo_tpu/ops/pallas/rel_attention.py:49",
              launches=k4_launches, max_abs_err=k4_err[1], max_abs_err_f32=k4_err[0],
              library_ms=None,
              yardstick="the port's eager einsum chain (gathered [W,W,E] tables, einsums, "
                        "softmax, p.v); a chain, not one call",
+             ptxas=ptxas["rel_attention"], flip_share=K4_FLIP_SHARE,
+             controls=[dict(shape=list(shp), control=ctl, beyond=c[0], over_allowance=c[1])
+                       for shp, cs in k4_err[2].items() for ctl, c in cs.items()],
              **k4),
         dict(name="gwc_volume", route="cuda", source="openstereo_tpu_torch/csrc/gwc_volume.cu",
              replaces="openstereo_tpu/ops/pallas/corr_volume.py:103",

@@ -1,4 +1,5 @@
-"""Fused inference MBConv through the hand-written CUDA kernel (`csrc/fused_mbconv.cu`).
+"""Fused inference MBConv through the hand-written CUDA kernels
+(`csrc/fused_mbconv.cu`: tensor cores for bf16, CUDA cores for f32).
 
 Port of the TPU kernel `openstereo_tpu/ops/pallas/fused_mbconv.py:
 fused_mbconv` (with its `fold_bn` and `mbconv_reference`): stride-1
@@ -8,6 +9,13 @@ two, and the residual when Cin == Cout.
 Layouts: x and the result are NCHW; the folded weights keep the JAX
 kernel's layouts, w1 [Cin,Ch], dw [9,Ch] (tap 3·di+dj), w2 [Ch,Cout], so a
 test hands the same weight arrays to both. Biases are f32.
+
+The bf16 kernel owns 8×16 output tiles and walks the hidden channels in
+chunks of 32. Where the tiles would not fill two waves of the card's SMs,
+the launcher spreads a tile's chunks over S blocks (its choice,
+`fused_mbconv_splits` in the source, sizes the workspace here), which
+write f32 partial projections that a second kernel sums in a fixed order:
+one call then issues two device kernels, and counts one launch.
 """
 
 from __future__ import annotations
@@ -23,7 +31,7 @@ from .kernels import build
 __all__ = ["fold_bn", "fold_mbconv", "mbconv_plain", "fused_mbconv"]
 
 MAX_CIN = 256   # the x halo tile of the widest input stays in shared memory
-MAX_COUT = 192  # 4 channel groups × 48 f32 accumulators per thread
+MAX_COUT = 192  # the projection's f32 accumulators stay in registers
 
 
 def fold_bn(kernel: torch.Tensor, scale, bias, mean, var, eps: float = 1e-5):
@@ -50,7 +58,8 @@ def fold_mbconv(pw: torch.Tensor, bn1, dw: torch.Tensor, bn2, pwl: torch.Tensor,
 
 
 def mbconv_plain(x, w1, b1, dw, b2, w2, b3, residual: bool = True) -> torch.Tensor:
-    """Plain PyTorch version, computed in at least f32, returned in x's dtype.
+    """Plain PyTorch version, computed in at least f32 with the hidden h and
+    the depthwise d rounded to x's dtype, returned in x's dtype.
 
     JAX counterpart: `mbconv_reference` on the NHWC transpose of x.
     """
@@ -58,9 +67,12 @@ def mbconv_plain(x, w1, b1, dw, b2, w2, b3, residual: bool = True) -> torch.Tens
     xf = x.to(acc)
     ch = w1.shape[1]
     h = torch.einsum("bchw,cd->bdhw", xf, w1.to(acc)) + b1.to(acc)[:, None, None]
-    h = h.clamp(0.0, 6.0)
+    # h and d are rounded to x's dtype before the next product, where the TPU
+    # kernel keeps them in x's dtype; the dw conv's zero padding is h's
+    # out-of-frame zeroing
+    h = h.clamp(0.0, 6.0).to(x.dtype).to(acc)
     d = F.conv2d(h, dw.to(acc).t().reshape(ch, 1, 3, 3), b2.to(acc), padding=1, groups=ch)
-    d = d.clamp(0.0, 6.0)
+    d = d.clamp(0.0, 6.0).to(x.dtype).to(acc)
     y = torch.einsum("bchw,cd->bdhw", d, w2.to(acc)) + b3.to(acc)[:, None, None]
     if residual:
         y = y + xf
@@ -106,10 +118,17 @@ def fused_mbconv(x, w1, b1, dw, b2, w2, b3, residual: bool = True) -> torch.Tens
         raise ValueError("fused_mbconv needs contiguous inputs")
     b, cin, h, w = x.shape
     ch, cout = w1.shape[1], w2.shape[1]
-    out = torch.empty((b, cout, h, w), dtype=x.dtype, device=x.device)
     lib = build.load("fused_mbconv")
+    dtype = kernels.DTYPE_CODES[x.dtype]
+    splits = lib.fused_mbconv_splits(b, h, w, ch, dtype)
+    if splits < 1:
+        raise RuntimeError("fused_mbconv could not read the card's SM count")
+    out = torch.empty((b, cout, h, w), dtype=x.dtype, device=x.device)
+    ws = (torch.empty((splits, b, cout, h, w), dtype=torch.float32, device=x.device)
+          if splits > 1 else None)
     err = lib.fused_mbconv_launch(*(t.data_ptr() for t in tensors), out.data_ptr(),
-                                  b, cin, ch, cout, h, w, int(residual),
-                                  kernels.DTYPE_CODES[x.dtype], kernels.stream_handle(x.device))
+                                  ws.data_ptr() if ws is not None else None,
+                                  b, cin, ch, cout, h, w, int(residual), splits,
+                                  dtype, kernels.stream_handle(x.device))
     kernels.check_launch("fused_mbconv", err, (b, h, w, cin, ch, cout, bool(residual)))
     return out

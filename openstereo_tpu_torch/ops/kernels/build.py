@@ -15,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -25,7 +26,7 @@ CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("corr_volume", "fused_mbconv", "rel_attention", "gwc_volume")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -43,7 +44,9 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
+    """The library's path, keyed by its source, the shared headers and the flags."""
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}_{digest}.so"
 
@@ -70,9 +73,30 @@ def build_all(names=SOURCES) -> Dict[str, Path]:
             failed.append(f"{name}:\n{log}")
             continue
         os.replace(tmp, lib)
+        lib.with_suffix(".log").write_text(log)  # ptxas's registers, spills, shared memory
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return {name: library_path(name) for name in names}
+
+
+def ptxas_info(name: str) -> List[Dict[str, object]]:
+    """Per kernel entry of library `name`, from the build's `-Xptxas=-v` log:
+    registers, spill stores and loads (bytes), static shared memory (bytes)."""
+    log = library_path(name).with_suffix(".log")
+    entries: List[Dict[str, object]] = []
+    for line in log.read_text().splitlines() if log.exists() else []:
+        if "Compiling entry function" in line:
+            entries.append({"entry": line.split("'")[1], "registers": None, "spill_stores": None,
+                            "spill_loads": None, "smem": 0})
+        elif entries and "spill stores" in line:
+            nums = re.findall(r"(\d+) bytes spill (stores|loads)", line)
+            for n, kind in nums:
+                entries[-1][f"spill_{kind}"] = int(n)
+        elif entries and "Used" in line and "registers" in line:
+            entries[-1]["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
+            smem = re.search(r"(\d+) bytes smem", line)
+            entries[-1]["smem"] = int(smem.group(1)) if smem else 0
+    return entries
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -91,10 +115,14 @@ def _declare(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
         lib.corr_volume_launch.argtypes = [p, p, p, i, i, i, i, i, i, p]
         lib.corr_volume_launch.restype = i
     elif name == "fused_mbconv":
-        # x, w1, b1, dw, b2, w2, b3, out, B, Cin, Ch, Cout, H, W, residual, dtype, stream
-        lib.fused_mbconv_launch.argtypes = [p, p, p, p, p, p, p, p,
-                                            i, i, i, i, i, i, i, i, p]
+        # x, w1, b1, dw, b2, w2, b3, out, workspace (or None), B, Cin, Ch, Cout, H, W,
+        # residual, splits, dtype, stream
+        lib.fused_mbconv_launch.argtypes = [p, p, p, p, p, p, p, p, p,
+                                            i, i, i, i, i, i, i, i, i, p]
         lib.fused_mbconv_launch.restype = i
+        # B, H, W, Ch, dtype → the launcher's split count (0: no SM count)
+        lib.fused_mbconv_splits.argtypes = [i, i, i, i, i]
+        lib.fused_mbconv_splits.restype = i
     elif name == "rel_attention":
         # q, k, v, ke, qe, out, raw (or None), B, W, E, nheads, masked, dtype, stream
         lib.rel_attention_launch.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, p]

@@ -1,5 +1,5 @@
-"""STTR relative-position epipolar attention through the hand-written CUDA kernel
-(`csrc/rel_attention.cu`).
+"""STTR relative-position epipolar attention through the hand-written CUDA kernels
+(`csrc/rel_attention.cu`: tensor cores for bf16, CUDA cores for f32).
 
 Port of the TPU kernel `openstereo_tpu/ops/pallas/rel_attention.py:
 rel_attention` (also reached through `rel_attention_trainable`). The plain
@@ -14,8 +14,12 @@ Contract, per line b, head h (channels h·hd … h·hd+hd-1), query i, key j:
 with q and qe pre-scaled by hd^-1/2 and ke, qe the unpadded [2W-1, E]
 tables; `masked` sets s[i,j] = -1e30 (finite, as the TPU kernel) for j > i;
 softmax over j; out_i = Σ_j p_ij v_j; raw[i,j] = Σ_h s[i,j] in f32. Layout
-is the JAX package's [B, W, E]. Inputs are f32 or bf16, summed in f32; out
-is in v's dtype, raw f32 (or None without `need_raw`).
+is the JAX package's [B, W, E]. Inputs are f32 or bf16, summed in f32, with
+p rounded to v's dtype before p·v as the TPU kernel rounds it; out is in v's
+dtype, raw f32 (or None without `need_raw`). The f32 kernel's [32, W]
+score tile bounds its W (`smem_bytes`, >= 416 at every hd); the bf16 kernels
+stream their key tiles, and only the raw sum's [64, W] f32 tile bounds W
+there: the launcher refuses a plan that exceeds shared memory.
 """
 
 from __future__ import annotations
@@ -31,10 +35,12 @@ __all__ = ["rel_attention", "rel_attention_plain", "rel_index", "MASK_VALUE"]
 
 MASK_VALUE = -1e30
 HEAD_DIMS = (8, 16, 32, 64)
-# the kernel's tile constants (csrc/rel_attention.cu): query rows and keys per
-# step; the score tile (and the raw accumulator) of TQ rows lives in shared memory
-TQ, JC = 32, 64
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use on sm_90
+# the f32 CUDA-core kernel's tile constants (csrc/rel_attention.cu, namespace
+# simt): query rows and keys per step; its score tile (and the raw
+# accumulator) of TQ rows lives in shared memory
+TQ, JC = 32, 64
+CUDA_ERROR_INVALID_VALUE = 1  # what the launcher returns for a shape it does not take
 
 
 def rel_index(w: int, device=None) -> torch.Tensor:
@@ -47,7 +53,8 @@ def rel_index(w: int, device=None) -> torch.Tensor:
 
 def rel_attention_plain(q, k, v, ke, qe, nheads: int, masked: bool = False,
                         need_raw: bool = True) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """Plain PyTorch version, computed in at least f32 (same contract).
+    """Plain PyTorch version, computed in at least f32 (same contract), with
+    the softmax rounded to v's dtype before p·v as the TPU kernel does.
 
     JAX counterpart: `rel_attention_reference`, which materialises the
     [W, W, E] relative tables the same way.
@@ -66,13 +73,15 @@ def rel_attention_plain(q, k, v, ke, qe, nheads: int, masked: bool = False,
         attn = attn.masked_fill(torch.triu(torch.ones(w, w, dtype=torch.bool,
                                                       device=q.device), 1), MASK_VALUE)
     raw = attn.sum(dim=1).float() if need_raw else None
-    p = torch.softmax(attn, dim=-1)
+    # p is rounded to v's dtype before p·v, where the TPU kernel rounds it
+    p = torch.softmax(attn, dim=-1).to(v.dtype).to(acc)
     out = torch.einsum("bhwv,bvhc->bwhc", p, vh).reshape(b, w, e)
     return out.to(v.dtype), raw
 
 
 def smem_bytes(w: int, hd: int, need_raw: bool) -> int:
-    """Dynamic shared memory of one block (mirrors `smem_floats` in the source)."""
+    """Dynamic shared memory of one block of the f32 kernel (mirrors
+    `simt::smem_floats` in the source)."""
     hp, rt, sw = hd + 1, TQ + JC - 1, w | 1
     return 4 * ((TQ + JC + 2 * rt) * hp + TQ * sw * (2 if need_raw else 1))
 
@@ -112,12 +121,15 @@ def rel_attention(q, k, v, ke, qe, nheads: int, masked: bool = False,
     hd = e // nheads
     if hd not in HEAD_DIMS:
         raise ValueError(f"rel_attention's kernel takes head widths {HEAD_DIMS}, got {hd}")
-    if smem_bytes(w, hd, need_raw) > SMEM_LIMIT or b > 65535:
-        raise ValueError(f"rel_attention's kernel does not take W={w}, hd={hd}, B={b} "
-                         f"(shared memory {smem_bytes(w, hd, need_raw)} > {SMEM_LIMIT} bytes "
-                         "or B > 65535)")
+    refused = ValueError(f"rel_attention's kernel does not take W={w}, hd={hd}, B={b}, "
+                         f"need_raw={need_raw}, {q.dtype} (B > 65535, or W's tiles exceed "
+                         f"{SMEM_LIMIT} bytes of shared memory)")
+    if b > 65535 or (q.dtype == torch.float32 and smem_bytes(w, hd, need_raw) > SMEM_LIMIT):
+        raise refused
     if not all(t.is_contiguous() for t in (q, k, v, ke, qe)):
         raise ValueError("rel_attention needs contiguous inputs")
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, k, v, ke, qe)):
+        raise ValueError("rel_attention's bf16 kernel needs 16-byte aligned inputs")
     out = torch.empty_like(v)
     raw = torch.empty((b, w, w), dtype=torch.float32, device=q.device) if need_raw else None
     lib = build.load("rel_attention")
@@ -126,5 +138,7 @@ def rel_attention(q, k, v, ke, qe, nheads: int, masked: bool = False,
                                    raw.data_ptr() if need_raw else None,
                                    b, w, e, nheads, int(masked), kernels.DTYPE_CODES[q.dtype],
                                    kernels.stream_handle(q.device))
+    if err == CUDA_ERROR_INVALID_VALUE:
+        raise refused
     kernels.check_launch("rel_attention", err, (b, w, e, nheads, bool(masked), bool(need_raw)))
     return out, raw

@@ -309,13 +309,97 @@ def test_rel_attention_plain_matches_jax_and_pallas(w, masked, need_raw):
         np.testing.assert_allclose(raw.numpy()[fin], np.asarray(r)[fin], rtol=1e-4, atol=1e-4)
 
 
+def _rel_attention_p_rounded(q, k, v, ke, qe, nheads, masked):
+    """The contract in f32 from f32 copies, with only p rounded to bf16 before
+    p·v (where the TPU kernel rounds it): an independent f32 reference."""
+    b, w, e = q.shape
+    hd = e // nheads
+    i, j = np.arange(w)[:, None], np.arange(w)[None, :]
+    idx = torch.from_numpy(w - 1 - i + j)
+    qh, kh, vh = (t.float().reshape(b, w, nheads, hd) for t in (q, k, v))
+    k_r, q_r = (t.float()[idx].reshape(w, w, nheads, hd) for t in (ke, qe))
+    s = (torch.einsum("bihc,bjhc->bhij", qh, kh) + torch.einsum("bihc,ijhc->bhij", qh, k_r)
+         + torch.einsum("bjhc,ijhc->bhij", kh, q_r))
+    if masked:
+        s = s.masked_fill(torch.from_numpy(j > i), -1e30)
+    p = torch.softmax(s, dim=-1).bfloat16().float()
+    return torch.einsum("bhij,bjhc->bihc", p, vh).reshape(b, w, e), s.sum(dim=1)
+
+
 def test_rel_attention_bf16_accumulates_in_f32():
     args = [torch.from_numpy(a).bfloat16() for a in _rel_attention_case(5, 2, 20, 32)]
     got, raw = ops.rel_attention(*args, 2, masked=True)
     assert got.dtype == torch.bfloat16 and raw.dtype == torch.float32
     ref, ref_raw = ops.rel_attention_plain(*[a.float() for a in args], 2, masked=True)
-    np.testing.assert_allclose(got.float().numpy(), ref.numpy(), rtol=8e-3, atol=1e-6)
     np.testing.assert_array_equal(raw.numpy(), ref_raw.numpy())
+    # sums in f32 from the bf16 inputs; p rounded to bf16 before p·v, as the
+    # TPU kernel rounds it; then one bf16 rounding of out
+    ref, ref_raw = _rel_attention_p_rounded(*args, 2, masked=True)
+    np.testing.assert_allclose(got.float().numpy(), ref.numpy(), rtol=8e-3, atol=1e-6)
+    fin = ref_raw.abs() < 1e20
+    np.testing.assert_allclose(raw[fin].numpy(), ref_raw[fin].numpy(), rtol=1e-5, atol=1e-5)
+
+
+def assert_bf16_equal_but_few(got, want, most):
+    """bf16 `got` equals `want` (bf16 values held as f32) at all but at most
+    `most` elements, and there by one bf16 unit. The plain versions and the
+    Pallas kernels in interpret mode do the same f32 sums and round at the
+    same places, in other orders, which may round a near-tie the other way;
+    without the roundings (h, d, p kept in f32) hundreds of elements differ
+    at the shapes below."""
+    got, want = got.float(), torch.as_tensor(np.asarray(want, np.float32))
+    differ = got != want
+    assert int(differ.sum()) <= most, f"{int(differ.sum())} elements differ"
+    near = want.abs().bfloat16()
+    ulp = (near.view(torch.int16) + 1).view(torch.bfloat16).float() - near.float()
+    assert bool(((got - want).abs() <= ulp)[differ].all())
+
+
+def test_rel_attention_bf16_plain_rounds_like_pallas():
+    """K4's bf16 plain version rounds p to bf16 before p·v as the Pallas kernel
+    does (`rel_attention.py:78-80`); raw is f32 (rtol/atol 1e-5)."""
+    args = [(a * 2.5).astype(np.float32) for a in _rel_attention_case(11, 2, 24, 32)]
+    jargs = [jnp.asarray(a, jnp.bfloat16) for a in args]
+    pallas, pallas_raw = jra.rel_attention(*jargs, nheads=4, masked=True, need_raw=True,
+                                           interpret=True)
+    got, raw = ops.rel_attention_plain(*[torch.from_numpy(a).bfloat16() for a in args], 4,
+                                       masked=True)
+    assert got.dtype == torch.bfloat16
+    assert_bf16_equal_but_few(got, pallas, most=2)
+    # p kept in f32 (the plain version on f32 copies) fails that check
+    unrounded, _ = ops.rel_attention_plain(*[torch.from_numpy(a).bfloat16().float()
+                                             for a in args], 4, masked=True)
+    with pytest.raises(AssertionError, match=r"^\d{3,} elements differ"):
+        assert_bf16_equal_but_few(unrounded.bfloat16(), pallas, most=2)
+    pallas_raw = np.asarray(pallas_raw)
+    fin = np.abs(pallas_raw) < 1e20
+    assert not fin.all() and (raw.numpy()[~fin] < -1e29).all()
+    np.testing.assert_allclose(raw.numpy()[fin], pallas_raw[fin], rtol=1e-5, atol=1e-5)
+
+
+def test_fused_mbconv_bf16_plain_rounds_like_pallas():
+    """K2's bf16 plain version keeps h and d in bf16 as the Pallas kernel does
+    (`fused_mbconv.py:79` and `:89`)."""
+    rng = np.random.RandomState(12)
+    b, h, w, cin, ch, cout = 1, 8, 16, 32, 192, 32
+    x = (rng.randn(b, h, w, cin) * 3).astype(np.float32)
+    ws = [rng.randn(cin, ch) * cin ** -0.5, rng.randn(ch) * 0.5, rng.randn(9, ch) * 0.6,
+          rng.randn(ch) * 0.1, rng.randn(ch, cout) * ch ** -0.5, rng.randn(cout) * 0.1]
+    ws = [a.astype(np.float32) for a in ws]
+    jw = [jnp.asarray(a, jnp.bfloat16 if i % 2 == 0 else jnp.float32) for i, a in enumerate(ws)]
+    pallas = jfm.fused_mbconv(jnp.asarray(x, jnp.bfloat16), *jw, tile_h=8, tile_w=128,
+                              residual=True, interpret=True)
+    tw = [torch.from_numpy(a).bfloat16() if i % 2 == 0 else torch.from_numpy(a)
+          for i, a in enumerate(ws)]
+    got = ops.mbconv_plain(to_nchw(x).bfloat16(), *tw, residual=True)
+    assert got.dtype == torch.bfloat16
+    assert_bf16_equal_but_few(torch.from_numpy(to_nhwc(got.float())), pallas, most=2)
+    # h and d kept in f32 (the plain version on f32 copies) fail that check
+    unrounded = ops.mbconv_plain(to_nchw(x).bfloat16().float(), *[t.float() for t in tw],
+                                 residual=True)
+    with pytest.raises(AssertionError, match=r"^\d{3,} elements differ"):
+        assert_bf16_equal_but_few(torch.from_numpy(to_nhwc(unrounded)).bfloat16(), pallas,
+                                  most=2)
 
 
 def test_rel_attention_checks_inputs():
@@ -331,8 +415,11 @@ def test_rel_attention_checks_inputs():
 
 
 def test_rel_attention_kernel_limits():
-    """What the CUDA kernel takes: head widths 8..64, and W up to where its
-    score tile fills a block's shared memory (>= 416, a 1248-wide frame)."""
+    """What the f32 CUDA-core kernel takes: head widths 8..64, and W up to
+    where its score tile fills a block's shared memory (>= 416, a 1248-wide
+    frame). The bf16 tensor-core kernels' limits are the launcher's own (any
+    W without raw; with raw, W up to where the raw tile fills shared memory):
+    chip_smoke.py runs them at W 640 and 448 and has W 2048 with raw refused."""
     from openstereo_tpu_torch.ops.rel_attention import HEAD_DIMS, SMEM_LIMIT, smem_bytes
 
     for hd in HEAD_DIMS:
