@@ -9,9 +9,15 @@ without the repository around it). Phases, each of which fails the run:
 1. the card: `nvidia-smi` name and power limit, torch and CUDA versions;
 2. build every CUDA kernel of the main path from `openstereo_tpu_torch/csrc`
    (one nvcc per source, in parallel), and print ptxas's registers, spills
-   and shared memory for the tensor-core kernels of K4 and K2;
+   and shared memory for the tensor-core kernels of K4 and K2 and for the
+   cost-volume kernel of K1 and K3;
 3. K1 (corr_volume) against its plain version at the main-path shape, f32
-   (TF32 off) and bf16, plus a ragged-width and a d >= W case;
+   (TF32 off) and bf16, plus a ragged-width and a d >= W case. The bf16 plain
+   version takes the same bf16 inputs and rounds each product to bf16, as
+   JAX does; the kernel must be within `bf16_close` everywhere and bit-equal
+   at all but VOLUME_FLIP_SHARE of the elements (`volume_bf16_check`), and at
+   the main-path shape the unrounded control (products in f32) must fail that
+   check;
 4. K2 (fused_mbconv) against its plain version at the 9 distinct main-path
    shapes, f32 (TF32 off) and bf16, with and without the residual where
    Cin == Cout, with the launcher's split count at each shape, and in bf16
@@ -39,13 +45,15 @@ without the repository around it). Phases, each of which fails the run:
 8. timing with CUDA events: frames/s eager vs kernels of both models (the
    `bench.py` protocol), and per kernel at each shape its path launched it
    at its time, its plain version's, a yardstick and its bound, summed per
-   frame with the launch counts recorded in phases 6 and 7; and a
+   frame with the launch counts recorded in phases 6 and 7 (K1 also its
+   device time per launch from torch.profiler beside its bound); and a
    torch.profiler pass over STTR frames of both paths (tables under
    `chiprun_out/sttr_profile/`).
 9. K3 (gwc_volume) against its plain version at the GwcNet main-path shape
-   and at edge cases (the JAX test's shape, W ragged against the tile,
-   D over three disparity bands, d >= W, cg = 1, cg = 12), f32 (TF32 off)
-   and bf16, and with G = 1 against K1;
+   and at edge cases (the JAX test's shape, W ragged against the 8-column
+   chunks, D over six disparity chunks, d >= W, cg = 1, cg = 12), f32 (TF32
+   off) and bf16 (checked as K1's, with the unrounded control at the main
+   shape), and with G = 1 against K1;
 10. the GwcNet path: GwcNet at 544x960 (`cfgs/gwcnet/gwcnet_sceneflow.yaml`),
    b1, bf16, through `run_pair` on the synthetic pairs, with 1 K3 launch
    per frame at the main shape and no other kernel; the kernel path against
@@ -54,7 +62,8 @@ without the repository around it). Phases, each of which fails the run:
    b1, bf16, through `run_pair`; no kernel of the port lies on it, and the
    phase checks that none launched;
 12. timing: GwcNet frames/s eager vs kernels, PSMNet frames/s, K3 at the
-   main shape beside its plain version and its bound, and torch.profiler
+   main shape beside its plain version and its bound (CUDA events and its
+   device time per launch from torch.profiler), and torch.profiler
    passes over GwcNet frames of both paths and over PSMNet frames (tables
    in `gwcnet_profile/` and `psmnet_profile/` beside STTR's).
 
@@ -127,8 +136,8 @@ K3_SHAPE = (1, 320, 136, 240, 48, 40)  # B, C, H/4, W/4, D, G of GwcNet at 544x9
 # K3 edge cases: ((B, C, H, W, D, G), what)
 K3_EDGES = [
     ((1, 16, 4, 260, 12, 4), "the JAX test's shape"),
-    ((1, 32, 3, 37, 12, 4), "W ragged against the 64-column tile"),
-    ((2, 64, 3, 130, 100, 8), "D = 100, three disparity bands"),
+    ((1, 32, 3, 37, 12, 4), "W ragged against the 8-column chunks"),
+    ((2, 64, 3, 130, 100, 8), "D = 100, 13 disparity chunks"),
     ((1, 8, 2, 6, 10, 2), "d >= W"),
     ((1, 16, 3, 50, 20, 16), "cg = 1"),
     ((1, 96, 5, 70, 24, 8), "cg = 12 (C 96, G 8)"),
@@ -140,6 +149,10 @@ K3_EDGES = [
 # (PERF.md, agreement): K2 at most 5.1e-5 against >= 3.9e-2, K4 at most 2.7e-7
 # against >= 3.6e-6.
 K2_FLIP_SHARE, K4_FLIP_SHARE = 1e-4, 1e-6
+# The bf16 K1 and K3 checks (`volume_bf16_check`): the share of elements that may
+# differ from the plain version's bits (two f32 sum orders of the bf16 products may
+# round the mean to two neighbours); every element stays within `bf16_close`
+VOLUME_FLIP_SHARE = 1e-4
 
 # dense peaks: (memory bytes/s, bf16 tensor flop/s), NVIDIA data sheets
 CARDS = {"H100 PCIe": (2.0e12, 756e12), "H100 NVL": (3.9e12, 835e12), "H100": (3.35e12, 989e12)}
@@ -211,6 +224,51 @@ def rejected(got, ref, allowance, share):
     err = (got.float() - ref.float()).abs()
     tol = 8e-3 * ref.float().abs() + 1e-3
     return True, (int((err > tol).sum()), int((err > tol + allowance).sum()))
+
+
+def volume_bf16_check(got, ref, what):
+    """bf16 K1/K3 against the plain version on the same bf16 inputs (which
+    rounds each product to bf16, as JAX does): `bf16_close` at every element,
+    and bit-equal at all but VOLUME_FLIP_SHARE of them. Returns (max-abs, share
+    of elements not bit-equal)."""
+    err = (got.float() - ref.float()).abs().max().item()
+    check(bf16_close(got, ref.float()), f"{what}: max-abs {err} beyond 8e-3·|ref| + 1e-3")
+    share = (got != ref).float().mean().item()
+    check(share <= VOLUME_FLIP_SHARE,
+          f"{what}: {share:.3g} of the elements not bit-equal (cap {VOLUME_FLIP_SHARE})")
+    return err, share
+
+
+def volume_rejected(bad, ref):
+    """For the unrounded control: whether `volume_bf16_check` rejects it, and
+    its share of elements that are not bit-equal."""
+    try:
+        volume_bf16_check(bad, ref, "control")
+    except SmokeFailure:
+        return True, (bad != ref).float().mean().item()
+    return False, (bad != ref).float().mean().item()
+
+
+def device_ms(fn, key="cv_kernel", iters=20):
+    """Device time per launch of the kernels whose name holds `key`, from
+    torch.profiler over `iters` back-to-back calls of `fn` (the launch overhead
+    that CUDA events over back-to-back launches also count is left out),
+    averaged over the launches the trace recorded."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and key in e.key]
+    n = sum(e.count for e in rows)  # the trace may miss a launch at its edge
+    check(iters // 2 <= n <= iters, f"profiler saw {n} launches of {key!r} in {iters} calls")
+    return sum(e.self_device_time_total for e in rows) / 1e3 / n
 
 
 def bf16_flip(u, err):
@@ -348,12 +406,15 @@ def phase_build():
     for name, path in paths.items():
         print(f"[build]   {name}: {path}")
     # ptxas's figures for the tensor-core kernels (namespace tc) of K4 and K2
+    # and for the cost-volume kernel of K1 and K3
     ptxas = {}
-    for name in ("rel_attention", "fused_mbconv"):
-        ptxas[name] = [e for e in build.ptxas_info(name) if "2tc" in e["entry"]]
-        check(ptxas[name], f"no ptxas figures for {name}'s tensor-core kernels")
+    for name, key in (("rel_attention", "2tc"), ("fused_mbconv", "2tc"),
+                      ("cost_volume", "cv_kernel")):
+        ptxas[name] = [e for e in build.ptxas_info(name) if key in e["entry"]]
+        check(ptxas[name], f"no ptxas figures for {name}'s kernels ({key})")
         for e in ptxas[name]:
-            print(f"[ptxas] {name} {e['entry'][:48]}: {e['registers']} registers, spill "
+            print(f"[ptxas] {name} {e['entry'][max(0, e['entry'].find(key)):][:48]}: "
+                  f"{e['registers']} registers, spill "
                   f"stores {e['spill_stores']} B, spill loads {e['spill_loads']} B, static "
                   f"shared memory {e['smem']} B")
     return ptxas
@@ -375,15 +436,21 @@ def phase_k1(dev):
         err32 = (got - ref).abs().max().item()
         check(err32 <= 1e-5, f"K1 f32 {tag} {(b, c, h, w, d)}: max-abs {err32} > 1e-5")
         lb, rb = left.bfloat16(), right.bfloat16()
-        ref16 = ops.correlation_volume(lb.float(), rb.float(), d)
+        ref16 = ops.correlation_volume(lb, rb, d)
         got16 = ops.corr_volume(lb, rb, d)
-        err16 = (got16.float() - ref16).abs().max().item()
-        check(bf16_close(got16, ref16), f"K1 bf16 {tag}: max-abs {err16} beyond rtol 8e-3")
+        err16, share = volume_bf16_check(got16, ref16, f"K1 bf16 {tag}")
+        control = ""
+        if tag == "main":  # the unrounded control: products in f32
+            no, c_share = volume_rejected(
+                ops.correlation_volume(lb.float(), rb.float(), d).bfloat16(), ref16)
+            check(no, f"K1 bf16 {tag}: the unrounded control passes the check")
+            control = f"; unrounded control rejected ({c_share:.3g} not bit-equal)"
         if w < d:
             check(not got16[:, w:].any(), "K1: planes with d >= W are not zero")
         print(f"[K1] {tag} {(b, c, h, w, d)}: f32 max-abs {err32:.3g} (tol 1e-5), "
-              f"bf16 max-abs {err16:.3g} (tol 8e-3·|ref| + 1e-3)")
-        errs[tag] = (err32, err16)
+              f"bf16 max-abs {err16:.3g} (tol 8e-3·|ref| + 1e-3), {share:.3g} not bit-equal "
+              f"(cap {VOLUME_FLIP_SHARE}){control}")
+        errs[tag] = (err32, err16, share)
     return errs["main"]
 
 
@@ -774,14 +841,18 @@ def phase_timing(dev, model, card, per_frame):
     b, c, h, w, d = k1_shape
     left, right = (torch.randn(b, c, h, w, generator=g).to(dev, torch.bfloat16) for _ in range(2))
     t_k = time_ms(lambda: ops.corr_volume(left, right, d))
+    t_d = device_ms(lambda: ops.corr_volume(left, right, d))
     t_p = time_ms(lambda: ops.correlation_volume(left, right, d), iters=10)
     t_b, by = bound(*k1_work(k1_shape, 2), card)
-    k1 = {"ms": k1_count * t_k, "plain_ms": k1_count * t_p, "yardstick_ms": None,
-          "bound_ms": k1_count * t_b, "bound_by": by, "launches_per_frame": k1_count,
+    k1 = {"ms": k1_count * t_k, "device_ms": k1_count * t_d, "plain_ms": k1_count * t_p,
+          "yardstick_ms": None, "bound_ms": k1_count * t_b, "bound_by": by,
+          "bound_share": t_b / t_d, "launches_per_frame": k1_count,
           "shapes": [{"shape": list(k1_shape), "launches_per_frame": k1_count, "ms": t_k,
-                      "plain_ms": t_p, "bound_ms": t_b, "bound_by": by}]}
-    print(f"[time] K1 {k1_shape} x{k1_count} bf16: kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
-          f"bound {t_b:.4f} ms ({by}); no single PyTorch call computes it")
+                      "device_ms": t_d, "plain_ms": t_p, "bound_ms": t_b, "bound_by": by}]}
+    print(f"[time] K1 {k1_shape} x{k1_count} bf16: kernel {t_k:.4f} ms (CUDA events over "
+          f"back-to-back launches), device {t_d:.4f} ms per launch (torch.profiler), plain "
+          f"{t_p:.4f} ms, bound {t_b:.4f} ms ({by}; {t_b / t_d:.1%} of the device time); no "
+          f"single PyTorch call computes it")
 
     k2 = {"ms": 0.0, "plain_ms": 0.0, "yardstick_ms": 0.0, "bound_ms": 0.0, "shapes": [],
           "launches_per_frame": sum(per_frame["fused_mbconv"].values())}
@@ -897,16 +968,22 @@ def phase_k3(dev):
         err32 = (got - ref).abs().max().item()
         check(err32 <= 1e-5, f"K3 f32 {tag} {(b, c, h, w, d, gr)}: max-abs {err32} > 1e-5")
         lb, rb = left.bfloat16(), right.bfloat16()
-        ref16 = ops.build_gwc_volume(lb.float(), rb.float(), d, gr)
+        ref16 = ops.build_gwc_volume(lb, rb, d, gr)
         got16 = ops.gwc_volume(lb, rb, d, gr)
-        err16 = (got16.float() - ref16).abs().max().item()
-        check(bf16_close(got16, ref16), f"K3 bf16 {tag}: max-abs {err16} beyond rtol 8e-3")
+        err16, share = volume_bf16_check(got16, ref16, f"K3 bf16 {tag}")
+        control = ""
+        if tag == "main path":  # the unrounded control: products in f32
+            no, c_share = volume_rejected(
+                ops.build_gwc_volume(lb.float(), rb.float(), d, gr).bfloat16(), ref16)
+            check(no, f"K3 bf16 {tag}: the unrounded control passes the check")
+            control = f"; unrounded control rejected ({c_share:.3g} not bit-equal)"
         if w < d:
             check(not got[:, :, w:].any() and not got16[:, :, w:].any(),
                   "K3: planes with d >= W are not zero")
         print(f"[K3] {tag} {(b, c, h, w, d, gr)}: f32 max-abs {err32:.3g} (tol 1e-5), "
-              f"bf16 max-abs {err16:.3g} (tol 8e-3·|ref| + 1e-3)")
-        errs[tag] = (err32, err16)
+              f"bf16 max-abs {err16:.3g} (tol 8e-3·|ref| + 1e-3), {share:.3g} not bit-equal "
+              f"(cap {VOLUME_FLIP_SHARE}){control}")
+        errs[tag] = (err32, err16, share)
     # G = 1 is K1's function: the two kernels against each other
     left, right = (torch.randn(1, 24, 136, 240, generator=g).to(dev) for _ in range(2))
     err1 = (ops.gwc_volume(left, right, 48, 1)[:, 0] - ops.corr_volume(left, right, 48))
@@ -1032,16 +1109,20 @@ def phase_timing_3d(dev, gwcnet, psmnet, card, per_frame):
     b, c, h, w, d, gr = shape
     left, right = (torch.randn(b, c, h, w, generator=g).to(dev, torch.bfloat16) for _ in range(2))
     t_k = time_ms(lambda: ops.gwc_volume(left, right, d, gr))
+    t_d = device_ms(lambda: ops.gwc_volume(left, right, d, gr))
     t_p = time_ms(lambda: ops.build_gwc_volume(left, right, d, gr), iters=10)
     nbytes, flops = k3_work(shape, 2)
     t_b, by = bound(nbytes, flops, card)
-    k3 = {"ms": count * t_k, "plain_ms": count * t_p, "yardstick_ms": None,
-          "bound_ms": count * t_b, "bound_by": by, "launches_per_frame": count,
+    k3 = {"ms": count * t_k, "device_ms": count * t_d, "plain_ms": count * t_p,
+          "yardstick_ms": None, "bound_ms": count * t_b, "bound_by": by,
+          "bound_share": t_b / t_d, "launches_per_frame": count,
           "shapes": [{"shape": list(shape), "launches_per_frame": count, "ms": t_k,
-                      "plain_ms": t_p, "bound_ms": t_b, "bound_by": by, "bytes": nbytes,
-                      "flops": flops}]}
-    print(f"[time] K3 {shape} x{count} bf16: kernel {t_k:.4f} ms, plain {t_p:.4f} ms, bound "
-          f"{t_b:.4f} ms ({by}; {nbytes} B, {flops} flop); no single PyTorch call computes it")
+                      "device_ms": t_d, "plain_ms": t_p, "bound_ms": t_b, "bound_by": by,
+                      "bytes": nbytes, "flops": flops}]}
+    print(f"[time] K3 {shape} x{count} bf16: kernel {t_k:.4f} ms (CUDA events over "
+          f"back-to-back launches), device {t_d:.4f} ms per launch (torch.profiler), plain "
+          f"{t_p:.4f} ms, bound {t_b:.4f} ms ({by}; {nbytes} B, {flops} flop; "
+          f"{t_b / t_d:.1%} of the device time); no single PyTorch call computes it")
     return res, psm, prof, k3
 
 
@@ -1087,10 +1168,11 @@ def main():
         return 1
 
     entries = [
-        dict(name="corr_volume", route="cuda", source="openstereo_tpu_torch/csrc/corr_volume.cu",
+        dict(name="corr_volume", route="cuda", source="openstereo_tpu_torch/csrc/cost_volume.cu",
              replaces="openstereo_tpu/ops/pallas/corr_volume.py:34",
              launches=launches["corr_volume"], max_abs_err=k1_err[1],
-             max_abs_err_f32=k1_err[0], library_ms=None, **k1),
+             max_abs_err_f32=k1_err[0], not_bit_equal_share=k1_err[2],
+             flip_share=VOLUME_FLIP_SHARE, library_ms=None, ptxas=ptxas["cost_volume"], **k1),
         dict(name="fused_mbconv", route="cuda", source="openstereo_tpu_torch/csrc/fused_mbconv.cu",
              replaces="openstereo_tpu/ops/pallas/fused_mbconv.py:53",
              launches=launches["fused_mbconv"], max_abs_err=k2_err[1],
@@ -1110,10 +1192,11 @@ def main():
              controls=[dict(shape=list(shp), control=ctl, beyond=c[0], over_allowance=c[1])
                        for shp, cs in k4_err[2].items() for ctl, c in cs.items()],
              **k4),
-        dict(name="gwc_volume", route="cuda", source="openstereo_tpu_torch/csrc/gwc_volume.cu",
+        dict(name="gwc_volume", route="cuda", source="openstereo_tpu_torch/csrc/cost_volume.cu",
              replaces="openstereo_tpu/ops/pallas/corr_volume.py:103",
              launches=k3_launches, max_abs_err=k3_err[1], max_abs_err_f32=k3_err[0],
-             library_ms=None, **k3),
+             not_bit_equal_share=k3_err[2], flip_share=VOLUME_FLIP_SHARE, library_ms=None,
+             ptxas=ptxas["cost_volume"], **k3),
     ]
     print(f"[slice] fps eager {bench['eager']['fps']:.2f}, kernels {bench['kernels']['fps']:.2f}; "
           f"disparity f32 max-abs {max32:.3g}, bf16 mean-abs {mean16:.3g}; "

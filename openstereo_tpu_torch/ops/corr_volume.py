@@ -1,4 +1,4 @@
-"""Correlation volume through the hand-written CUDA kernel (`csrc/corr_volume.cu`).
+"""Correlation volume through the hand-written CUDA kernel (`csrc/cost_volume.cu`).
 
 Port of the TPU kernel `openstereo_tpu/ops/pallas/corr_volume.py:
 correlation_volume_pallas` (num_groups=1). The plain version is
@@ -39,7 +39,7 @@ def corr_volume(left: torch.Tensor, right: torch.Tensor, max_disp: int) -> torch
         raise ValueError("corr_volume needs contiguous NCHW inputs")
     b, c, h, w = left.shape
     out = torch.empty((b, max_disp, h, w), dtype=left.dtype, device=left.device)
-    lib = build.load("corr_volume")
+    lib = build.load("cost_volume")
     err = lib.corr_volume_launch(left.data_ptr(), right.data_ptr(), out.data_ptr(),
                                  b, c, h, w, max_disp, kernels.DTYPE_CODES[left.dtype],
                                  kernels.stream_handle(left.device))

@@ -14,19 +14,11 @@ def correlation_volume(left: torch.Tensor, right: torch.Tensor, max_disp: int) -
 
     JAX counterpart: `ops/cost_volume.py:correlation_volume`, which maps
     [B,H,W,C] → [B,H,W,D]; the port's volume is its transpose (0,3,1,2).
-    Planes with d ≥ W are zero. Accumulates in at least f32 and returns the
-    input dtype.
+    Planes with d ≥ W are zero. Rounds as JAX's `jnp.mean(l * r)` does: each
+    product in the input dtype, their mean in at least f32, the result once
+    to the input dtype.
     """
-    b, c, h, w = left.shape
-    acc = torch.promote_types(torch.float32, left.dtype)
-    l, r = left.to(acc), right.to(acc)
-    out = l.new_zeros((b, max_disp, h, w))
-    for d in range(min(max_disp, w)):
-        if d == 0:
-            out[:, 0] = (l * r).mean(dim=1)
-        else:
-            out[:, d, :, d:] = (l[..., d:] * r[..., :-d]).mean(dim=1)
-    return out.to(left.dtype)
+    return build_gwc_volume(left, right, max_disp, 1)[:, 0]
 
 
 def groupwise_correlation(fea1: torch.Tensor, fea2: torch.Tensor, num_groups: int) -> torch.Tensor:
@@ -46,15 +38,16 @@ def build_gwc_volume(left: torch.Tensor, right: torch.Tensor, max_disp: int,
 
     JAX counterpart: `ops/cost_volume.py:build_gwc_volume`, which returns
     [B,D,H,W,G]; the port's volume is its transpose (0,4,1,2,3). Planes with
-    d ≥ W are zero. Accumulates in at least f32 and returns the input dtype.
+    d ≥ W are zero. Rounds as JAX's `groupwise_correlation` does on bf16
+    features: each product in the input dtype (so a bf16 product is rounded
+    to bf16), their mean over a group's C/G channels accumulated in f32
+    (torch's `mean` of bf16 does), the result once to the input dtype.
     """
-    b, c, h, w = left.shape
-    acc = torch.promote_types(torch.float32, left.dtype)
-    l, r = left.to(acc), right.to(acc)
-    out = l.new_zeros((b, num_groups, max_disp, h, w))
+    b, _, h, w = left.shape
+    out = left.new_zeros((b, num_groups, max_disp, h, w))
     for d in range(min(max_disp, w)):
-        out[:, :, d, :, d:] = groupwise_correlation(l[..., d:], r[..., :w - d], num_groups)
-    return out.to(left.dtype)
+        out[:, :, d, :, d:] = groupwise_correlation(left[..., d:], right[..., :w - d], num_groups)
+    return out
 
 
 def build_concat_volume(left: torch.Tensor, right: torch.Tensor, max_disp: int) -> torch.Tensor:

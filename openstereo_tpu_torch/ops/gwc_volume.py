@@ -1,4 +1,4 @@
-"""Group-wise correlation volume through the hand-written CUDA kernel (`csrc/gwc_volume.cu`).
+"""Group-wise correlation volume through the hand-written CUDA kernel (`csrc/cost_volume.cu`).
 
 Port of the TPU kernel `openstereo_tpu/ops/pallas/corr_volume.py:
 build_gwc_volume_pallas` (the `correlation_volume_pallas` call with
@@ -43,7 +43,7 @@ def gwc_volume(left: torch.Tensor, right: torch.Tensor, max_disp: int,
         raise ValueError("gwc_volume needs contiguous NCHW inputs")
     b, c, h, w = left.shape
     out = torch.empty((b, num_groups, max_disp, h, w), dtype=left.dtype, device=left.device)
-    lib = build.load("gwc_volume")
+    lib = build.load("cost_volume")
     err = lib.gwc_volume_launch(left.data_ptr(), right.data_ptr(), out.data_ptr(),
                                 b, c, h, w, max_disp, num_groups,
                                 kernels.DTYPE_CODES[left.dtype],

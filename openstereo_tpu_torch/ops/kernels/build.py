@@ -24,7 +24,10 @@ from typing import Dict, List
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("corr_volume", "fused_mbconv", "rel_attention", "gwc_volume")
+# each source and the launchers (`<entry>_launch`) it exports, one per wrapper
+ENTRIES = {"cost_volume": ("corr_volume", "gwc_volume"), "fused_mbconv": ("fused_mbconv",),
+           "rel_attention": ("rel_attention",)}
+SOURCES = tuple(ENTRIES)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
@@ -110,10 +113,13 @@ def load(name: str) -> ctypes.CDLL:
 
 def _declare(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
-    if name == "corr_volume":
+    if name == "cost_volume":
         # left, right, out, B, C, H, W, D, dtype, stream
         lib.corr_volume_launch.argtypes = [p, p, p, i, i, i, i, i, i, p]
         lib.corr_volume_launch.restype = i
+        # left, right, out, B, C, H, W, D, G, dtype, stream
+        lib.gwc_volume_launch.argtypes = [p, p, p, i, i, i, i, i, i, i, p]
+        lib.gwc_volume_launch.restype = i
     elif name == "fused_mbconv":
         # x, w1, b1, dw, b2, w2, b3, out, workspace (or None), B, Cin, Ch, Cout, H, W,
         # residual, splits, dtype, stream
@@ -127,8 +133,4 @@ def _declare(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
         # q, k, v, ke, qe, out, raw (or None), B, W, E, nheads, masked, dtype, stream
         lib.rel_attention_launch.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, p]
         lib.rel_attention_launch.restype = i
-    elif name == "gwc_volume":
-        # left, right, out, B, C, H, W, D, G, dtype, stream
-        lib.gwc_volume_launch.argtypes = [p, p, p, i, i, i, i, i, i, i, p]
-        lib.gwc_volume_launch.restype = i
     return lib

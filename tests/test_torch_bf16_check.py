@@ -8,7 +8,9 @@ it, because two correct sum orders may round a near-tie differently. These
 tests show where that leaves it: the plain arithmetic summed in f64, which
 rounds h, d and p where the TPU kernels do, passes; controls that round in the
 wrong place (K2: h or d left in f32; K4: p left in f32, or exp(s - m) rounded
-before the division by the row sum) fail.
+before the division by the row sum) fail. The same for the K1/K3 check
+(`volume_bf16_check`): products rounded to bf16 and summed in f64 pass, the
+unrounded products fail.
 """
 
 import pytest
@@ -83,4 +85,27 @@ def test_k4_bf16_check(masked, impl, passes):
     got = k4_f64(args, 8, masked) if impl == "f64 sums" else cs.k4_misrounded(args, 8, masked,
                                                                               impl)
     rejected, _ = cs.rejected(got, ref, allowance, cs.K4_FLIP_SHARE)
+    assert rejected != passes
+
+
+@pytest.mark.parametrize("shape", [(1, 320, 2, 240, 48, 40), (1, 24, 4, 240, 48, 1)],
+                         ids=["K3 rows", "K1 rows"])
+@pytest.mark.parametrize("impl,passes", [("f64 sums", True), ("unrounded", False)])
+def test_volume_bf16_check(shape, impl, passes):
+    """Two main-path rows of GwcNet's and LightStereo-S's volumes: products
+    rounded to bf16 and summed in f64 pass `volume_bf16_check`; products in
+    f32 (the form the port's plain versions had) fail it, on ~1/3 of the
+    elements against a cap of 1e-4."""
+    b, c, h, w, d, g = shape
+    gen = torch.Generator().manual_seed(sum(shape))
+    left, right = (torch.randn(b, c, h, w, generator=gen).bfloat16() for _ in range(2))
+    ref = ops.build_gwc_volume(left, right, d, g)
+    got = torch.zeros(b, g, d, h, w, dtype=torch.float64)
+    for k in range(min(d, w)):
+        if impl == "f64 sums":  # each product rounded to bf16
+            prod = (left[..., k:] * right[..., :w - k]).double()
+        else:  # exact products, as f32 gives them
+            prod = left[..., k:].double() * right[..., :w - k].double()
+        got[:, :, k, :, k:] = prod.reshape(b, g, c // g, h, w - k).sum(dim=2) / (c // g)
+    rejected, _ = cs.volume_rejected(got.bfloat16(), ref)
     assert rejected != passes

@@ -55,11 +55,12 @@ def test_every_kernel_source_is_built_and_annotated():
     from openstereo_tpu_torch.ops.kernels import build, launch_counts
 
     assert set(build.SOURCES) == {p.stem for p in (PORT / "csrc").glob("*.cu")}
-    assert set(build.SOURCES) == set(launch_counts)
-    for name in build.SOURCES:
+    assert sorted(e for es in build.ENTRIES.values() for e in es) == sorted(launch_counts)
+    for name, entries in build.ENTRIES.items():
         src = (PORT / "csrc" / f"{name}.cu").read_text()
         head = src.split("#include")[0]
         assert "openstereo_tpu/ops/pallas/" in head and "bounds it" in head, name
-        assert f'extern "C" cudaError_t {name}_launch(' in src
+        for entry in entries:
+            assert f'extern "C" cudaError_t {entry}_launch(' in src
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     assert build.BUILD_DIR.parts[-2:] == ("build", "kernels")

@@ -233,3 +233,118 @@ def test_k2_tile_plan_matches_plain(shape, residual, splits, dtype):
     ref = ops.mbconv_plain(x, *args, residual=residual)
     tol = dict(rtol=1e-5, atol=1e-4) if dtype == torch.float32 else dict(rtol=2.0 ** -7, atol=1e-6)
     np.testing.assert_allclose(got.float().numpy(), ref.float().numpy(), **tol)
+
+
+# K1/K3's tiling (csrc/cost_volume.cu): columns and disparities per thread (an
+# item), channels per staged chunk at most, threads per block at most
+CV_CW, CV_DPT, CV_CC_MAX, CV_NT_MAX, CV_STAGES = 8, 8, 32, 192, 3
+
+
+def cv_plan(b, c, h, w, d, g, sms, threads_sm=2048, smem_max=232448, elem=2):
+    """`make_plan` in csrc/cost_volume.cu: lanes per item `cs` while the items
+    fill under a quarter of the resident threads, tiles of `twc` 8-column chunks
+    (at most CV_NT_MAX threads, halved while there are fewer than 4 tiles per
+    SM), `cc` channels per stage that fit shared memory."""
+    cg, n_dc, n_wc = c // g, math.ceil(d / CV_DPT), math.ceil(w / CV_CW)
+    rows, pad = b * g * h, CV_DPT * n_dc
+    cs = 1
+    while (cs < 8 and 2 * cs <= cg and n_dc * 2 * cs <= CV_NT_MAX
+           and rows * n_dc * n_wc * 2 * cs <= sms * threads_sm // 4):
+        cs *= 2
+    twc = n_wc
+    while twc > 1 and n_dc * twc * cs > CV_NT_MAX:
+        twc = (twc + 1) // 2
+    while twc > 1 and rows * math.ceil(n_wc / twc) < 4 * sms:
+        twc = (twc + 1) // 2
+    cc = min(cg, CV_CC_MAX)
+    while cc * (2 * twc * CV_CW + pad) * elem * CV_STAGES > smem_max and (twc > 1 or cc > 1):
+        if twc > 1:
+            twc = (twc + 1) // 2
+        else:
+            cc = (cc + 1) // 2
+    return dict(cs=cs, twc=twc, cc=cc, nt=math.ceil(n_dc * twc * cs / 32) * 32,
+                n_wt=math.ceil(n_wc / twc))
+
+
+def cv_walk(left, right, max_disp, groups, cs, twc, cc, **_):
+    """The kernel's loop: per tile (b, g, h, w-tile) it stages cc channels at a
+    time, left columns w_s .. and right columns w_s - pad .., zeros outside the
+    frame; item x // cs of the tile (column chunk fastest, then disparity chunk)
+    reads 8 left values and the 16-column right window at pad + 8 wcl - 8 dc - 8
+    and adds round(l[j] * win[j - k + 8]) in f32, lane p of the item taking the
+    p-th run of ceil(cc / cs) channels of each chunk; the lanes meet in a
+    butterfly (own + partner's), the quotient by cg is rounded to f32 and then
+    to the input dtype, and lane p stores disparities k % cs == p, d < D, w < W."""
+    b, c, h, w = left.shape
+    cg, n_dc, n_wc = c // groups, math.ceil(max_disp / CV_DPT), math.ceil(w / CV_CW)
+    pad, tw, n_wt, run = CV_DPT * n_dc, twc * CV_CW, math.ceil(n_wc / twc), math.ceil(cc / cs)
+    item = torch.arange(n_dc * twc)
+    wcl, dc = item % twc, item // twc
+    jk = torch.arange(CV_CW)[None, :] - torch.arange(CV_DPT)[:, None] + CV_DPT  # [k, j]
+    l_cols = CV_CW * wcl[:, None] + torch.arange(CV_CW)                          # [item, j]
+    r_cols = (pad + CV_CW * wcl - CV_DPT * dc - CV_DPT)[:, None, None] + jk      # [item, k, j]
+    out = torch.full((b, groups, max_disp, h, w), float("nan"), dtype=left.dtype)
+
+    def staged(src, rows, cols):  # [n, len(cols)], zeros outside [0, W)
+        ok = (cols >= 0) & (cols < w)
+        return torch.where(ok, src[rows][:, cols.clamp(0, w - 1)], torch.zeros((), dtype=src.dtype))
+
+    for bi, gi, hi, wt in np.ndindex(b, groups, h, n_wt):
+        w_s = wt * tw
+        acc = torch.zeros(cs, len(item), CV_DPT, CV_CW)
+        for c0 in range(0, cg, cc):
+            n = min(cc, cg - c0)
+            rows = gi * cg + c0 + torch.arange(n)
+            sl = staged(left[bi, :, hi], rows, w_s + torch.arange(tw))
+            sr = staged(right[bi, :, hi], rows, w_s - pad + torch.arange(pad + tw))
+            for part in range(cs):
+                for ci in range(part * run, min(n, (part + 1) * run)):
+                    prod = sl[ci][l_cols][:, None, :] * sr[ci][r_cols]  # rounded in the dtype
+                    acc[part] += prod.float()
+        m = 1
+        while m < cs:
+            acc = acc + acc[torch.tensor([p ^ m for p in range(cs)])]
+            m *= 2
+        q = (acc.double() / cg).float().to(left.dtype)  # [part, item, k, j]
+        k = torch.arange(CV_DPT)[None, :, None]
+        q = q[k % cs, item[:, None, None], k, torch.arange(CV_CW)]  # lane k % cs's copy
+        d = (CV_DPT * dc[:, None, None] + k).expand_as(q)
+        col = (w_s + l_cols[:, None, :]).expand_as(q)
+        keep = (d < max_disp) & (col < w)
+        out[bi, gi, d[keep], hi, col[keep]] = q[keep]
+    return out
+
+
+def test_cv_plan_at_main_path_shapes():
+    """What `make_plan` picks on a 132-SM H100: K3 (GwcNet) one tile per group
+    row, 180 of 192 threads, no channel split; K1 (LightStereo-S) two lanes per
+    item and 64-column tiles, so that its 24,480 items fill the card."""
+    assert cv_plan(*chip_smoke.K3_SHAPE, sms=132) == dict(cs=1, twc=30, cc=8, nt=192, n_wt=1)
+    b, c, h, w, d = chip_smoke.K1_SHAPE
+    assert cv_plan(b, c, h, w, d, 1, sms=132) == dict(cs=2, twc=8, cc=24, nt=96, n_wt=4)
+
+
+CV_MAIN_ROWS = [
+    ((1, 320, 2, 240, 48, 40), cv_plan(*chip_smoke.K3_SHAPE, sms=132), "K3's plan, cg 8"),
+    ((1, 24, 2, 240, 48, 1), cv_plan(*chip_smoke.K1_SHAPE, 1, sms=132), "K1's plan, cg 24"),
+    ((1, 80, 2, 40, 16, 1), cv_plan(1, 80, 2, 40, 16, 1, sms=132), "cg 80: three chunks"),
+]
+CV_EDGES = [(shape, cv_plan(*shape, sms=132), what) for shape, what in chip_smoke.K3_EDGES]
+
+
+@pytest.mark.parametrize("shape,plan,what", CV_MAIN_ROWS + CV_EDGES,
+                         ids=[w for _, _, w in CV_MAIN_ROWS + CV_EDGES])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cv_tile_plan_matches_plain(shape, plan, what, dtype):
+    """The walk of the kernel's plan against the plain version: bit for bit in
+    bf16 (the f32 sums of bf16 products are exact here, so their order does not
+    show), 1e-5 in f32."""
+    b, c, h, w, d, g = shape
+    gen = torch.Generator().manual_seed(sum(shape))
+    left, right = (torch.randn(b, c, h, w, generator=gen).to(dtype) for _ in range(2))
+    got = cv_walk(left, right, d, g, **plan)
+    ref = ops.build_gwc_volume(left, right, d, g)
+    if dtype == torch.bfloat16:
+        assert torch.equal(got, ref)
+    else:
+        np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=1e-5, atol=1e-5)

@@ -58,15 +58,33 @@ def test_corr_volume_plain_matches_jax_and_pallas(b, h, w, c, d):
         assert not got[:, w:].any()
 
 
+def bf16_features(seed, shape):
+    """Two [B,H,W,C] bf16 feature maps from numpy, as JAX arrays."""
+    rng = np.random.default_rng(seed)
+    return tuple(jnp.asarray(rng.standard_normal(shape).astype(np.float32)).astype(jnp.bfloat16)
+                 for _ in range(2))
+
+
 def test_corr_volume_bf16_accumulates_in_f32():
-    rng = np.random.RandomState(3)
-    l, r = (torch.from_numpy(rng.randn(1, 24, 4, 32).astype(np.float32)).bfloat16()
-            for _ in range(2))
-    got = ops.corr_volume(l, r, 8)
+    """bf16: each product rounded to bf16 as JAX's `l * r` does, their mean in
+    f32, the result rounded once. Bit for bit JAX's jnp builder on the same
+    bf16 inputs. The Pallas kernel rounds its G = 1 sum to bf16 before the 1/C
+    scale (ROADMAP §3), an error at the scale of the sums, so it is held within
+    one bf16 unit at the volume's scale (the unit of max |ref|) at every
+    element. The unrounded form (products in f32) differs from JAX at 10 % of
+    the elements or more."""
+    l, r = bf16_features(3, (1, 4, 32, 24))
+    f32 = lambda a: np.asarray(a.astype(jnp.float32))
+    ref = f32(jops.correlation_volume(l, r, 8))
+    pallas = f32(correlation_volume_pallas(l, r, 8, tile_w=128, interpret=True))
+    lt, rt = to_nchw(f32(l)).bfloat16(), to_nchw(f32(r)).bfloat16()
+    got = ops.corr_volume(lt, rt, 8)
     assert got.dtype == torch.bfloat16
-    ref = ops.correlation_volume(l.float(), r.float(), 8)
-    # one bf16 rounding of the f32 result
-    np.testing.assert_allclose(got.float().numpy(), ref.numpy(), rtol=8e-3, atol=1e-6)
+    np.testing.assert_array_equal(to_nhwc(got.float()), ref)
+    unit = 2.0 ** (np.floor(np.log2(np.abs(ref).max())) - 7)  # bf16's step at max |ref|
+    assert np.abs(to_nhwc(got.float()) - pallas).max() <= unit
+    unrounded = to_nhwc(ops.correlation_volume(lt.float(), rt.float(), 8).bfloat16().float())
+    assert (unrounded != ref).mean() >= 0.10
 
 
 @pytest.mark.parametrize("b,h,w,c,d,g", [
@@ -94,17 +112,27 @@ def test_gwc_volume_plain_matches_jax_and_pallas(b, h, w, c, d, g):
 
 
 def test_gwc_volume_bf16_accumulates_in_f32_and_g1_is_corr():
-    rng = np.random.RandomState(7)
-    l, r = (torch.from_numpy(rng.randn(1, 24, 4, 32).astype(np.float32)).bfloat16()
-            for _ in range(2))
-    got = ops.gwc_volume(l, r, 8, 3)
+    """bf16 group-wise volume, cg = 8 (a power of two, so the Pallas kernel's
+    sum * (1/cg) is the mean): bit for bit JAX's jnp builder and the Pallas
+    kernel on the same bf16 inputs; the unrounded form differs at 10 % of the
+    elements or more. With G = 1 it is K1's volume, in f32 and bit for bit in bf16."""
+    l, r = bf16_features(7, (1, 4, 32, 24))
+    f32 = lambda a: np.asarray(a.astype(jnp.float32))
+    ref = f32(jops.build_gwc_volume(l, r, 8, 3))
+    pallas = f32(build_gwc_volume_pallas(l, r, 8, 3, tile_w=128, interpret=True))
+    lt, rt = to_nchw(f32(l)).bfloat16(), to_nchw(f32(r)).bfloat16()
+    got = ops.gwc_volume(lt, rt, 8, 3)
     assert got.dtype == torch.bfloat16
-    ref = ops.build_gwc_volume(l.float(), r.float(), 8, 3)
-    # one bf16 rounding of the f32 result
-    np.testing.assert_allclose(got.float().numpy(), ref.numpy(), rtol=8e-3, atol=1e-6)
-    one = ops.gwc_volume(l.float(), r.float(), 8, 1)[:, 0]
-    np.testing.assert_allclose(one.numpy(), ops.corr_volume(l.float(), r.float(), 8).numpy(),
+    got = np.moveaxis(got.float().numpy(), 1, -1)  # [B,G,D,H,W] -> [B,D,H,W,G]
+    np.testing.assert_array_equal(got, ref)
+    np.testing.assert_array_equal(got, pallas)
+    unrounded = np.moveaxis(ops.build_gwc_volume(lt.float(), rt.float(), 8, 3).bfloat16()
+                            .float().numpy(), 1, -1)
+    assert (unrounded != ref).mean() >= 0.10
+    one = ops.gwc_volume(lt.float(), rt.float(), 8, 1)[:, 0]
+    np.testing.assert_allclose(one.numpy(), ops.corr_volume(lt.float(), rt.float(), 8).numpy(),
                                **TOL)
+    assert torch.equal(ops.gwc_volume(lt, rt, 8, 1)[:, 0], ops.corr_volume(lt, rt, 8))
 
 
 def test_gwc_volume_checks_inputs():
