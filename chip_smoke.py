@@ -67,6 +67,24 @@ without the repository around it). Phases, each of which fails the run:
    passes over GwcNet frames of both paths and over PSMNet frames (tables
    in `gwcnet_profile/` and `psmnet_profile/` beside STTR's).
 
+13. K1 and K2 at the trainer's evaluation batch (12 pairs at 544x960: K1
+   [12,24,136,240] and K2 at batch 24 in the trunk and 12 in the
+   aggregation), f32 (TF32 off) and bf16, with the checks of phases 3 and 4
+   and the launcher's split count printed for each shape;
+14. training: a synthetic SceneFlow-layout set (96 + 12 random-dot pairs at
+   540x960, PNG and PFM, under `chiprun_out/train_smoke/`), and the port's
+   training entry point (`openstereo_tpu_torch/tools/train.py`) on
+   `cfgs/lightstereo/lightstereo_s_sceneflow.yaml` pointed at it, with
+   NUM_EPOCHS cut to 1 (4 steps of 24 at 320x736, bf16, AdamW, OneCycleLR,
+   clip by value). Finite losses; its evaluation launches K1 once and K2 18
+   times per batch of 12 and nothing else is launched in the run; its EPE
+   within 0.5 px of an eager evaluation of the same weights; a resumed
+   Trainer starts at epoch 1, bit-equal to the checkpoint. Prints ms per
+   step (CUDA events, median of steps 2-4), samples/s, peak memory;
+15. the learning check: the port's `tools/overfit_check.py`, LightStereo,
+   400 steps on one batch of 4 random-dot pairs at 192x384, max_disp 64,
+   bf16, AdamW 4e-4, clip 0.1: the final train EPE must be below 3 px.
+
 The line before the card line is a JSON object with one entry per kernel;
 the last line is {"ok": true, "device": {...}}.
 """
@@ -142,6 +160,17 @@ K3_EDGES = [
     ((1, 16, 3, 50, 20, 16), "cg = 1"),
     ((1, 96, 5, 70, 24, 8), "cg = 12 (C 96, G 8)"),
 ]
+
+# The trainer's evaluation batch (EVALUATOR.BATCH_SIZE_PER_GPU of the LightStereo-S config):
+# K1 at [12, 24, 136, 240] and K2 at batch 24 in the siamese trunk, 12 in the aggregation
+EVAL_BATCH = 12
+K1_EVAL_SHAPE = (EVAL_BATCH,) + K1_SHAPE[1:]
+K2_EVAL_SHAPES = {(s[0] * EVAL_BATCH,) + s[1:]: n for s, n in K2_SHAPES.items()}
+# the training phase: a synthetic SceneFlow-layout set written by this script
+TRAIN_PAIRS, EVAL_PAIRS, PAIR_HW = 96, 12, (540, 960)
+TRAIN_DIR = OUT_DIR / "train_smoke"
+OVERFIT_ARGS = ["--steps", "400", "--batch", "4", "--size", "192", "384", "--max_disp", "64",
+                "--lr", "4e-4", "--device", "cuda"]
 
 # The bf16 K2 and K4 checks (`bf16_close_flips`): the share of output elements that
 # may miss `bf16_close`, each within its flip allowance. Set between what a correct
@@ -1126,6 +1155,261 @@ def phase_timing_3d(dev, gwcnet, psmnet, card, per_frame):
     return res, psm, prof, k3
 
 
+def phase_eval_batch(dev):
+    """K1 and K2 at the shapes the trainer's evaluation launches them at
+    (batch 12; K2 at 24 in the siamese trunk), f32 (TF32 off) and bf16, with
+    the checks of phases 3 and 4 and the launcher's split count per shape."""
+    import torch
+
+    from openstereo_tpu_torch import ops
+    from openstereo_tpu_torch.ops.kernels import build
+
+    g = torch.Generator().manual_seed(8)
+    b, c, h, w, d = K1_EVAL_SHAPE
+    left, right = (torch.randn(b, c, h, w, generator=g).to(dev) for _ in range(2))
+    err32 = (ops.corr_volume(left, right, d) - ops.correlation_volume(left, right, d))
+    err32 = err32.abs().max().item()
+    check(err32 <= 1e-5, f"K1 f32 {K1_EVAL_SHAPE}: max-abs {err32} > 1e-5")
+    lb, rb = left.bfloat16(), right.bfloat16()
+    err16, share = volume_bf16_check(ops.corr_volume(lb, rb, d), ops.correlation_volume(lb, rb, d),
+                                     f"K1 bf16 {K1_EVAL_SHAPE}")
+    print(f"[eval-batch] K1 {K1_EVAL_SHAPE}: f32 max-abs {err32:.3g} (tol 1e-5), bf16 max-abs "
+          f"{err16:.3g} (tol 8e-3·|ref| + 1e-3), {share:.3g} not bit-equal "
+          f"(cap {VOLUME_FLIP_SHARE})")
+    del left, right, lb, rb
+    k1 = (err32, err16, share)
+
+    lib = build.load("fused_mbconv")
+    worst32 = worst16 = 0.0
+    splits_by_shape = {}
+    for shape in K2_EVAL_SHAPES:
+        b, h, w, cin, ch, cout = shape[:6]
+        splits = lib.fused_mbconv_splits(b, h, w, ch, 1)
+        chunks = -(-ch // 32)
+        check(splits >= 1 and (splits - 1) * -(-chunks // splits) < chunks,
+              f"K2 {shape[:6]}: the launcher picks {splits} splits of {chunks} chunks")
+        splits_by_shape[shape[:6]] = splits
+        x, args = k2_inputs(shape, dev, torch.float32, g)
+        x16, args16 = x.bfloat16(), [a.bfloat16() if i % 2 == 0 else a for i, a in enumerate(args)]
+        allowance = k2_flip_allowance(x16, args16)
+        for res in ((True, False) if cin == cout else (False,)):
+            ref = ops.mbconv_plain(x, *args, residual=res)
+            got = ops.fused_mbconv(x, *args, residual=res)
+            e32 = (got - ref).abs().max().item()
+            check(torch.allclose(got, ref, rtol=1e-4, atol=1e-4),
+                  f"K2 f32 {shape[:6]} residual={res}: max-abs {e32} beyond rtol 1e-4, atol 1e-4")
+            del ref, got
+            e16, beyond = k2_bf16_error(ops.fused_mbconv(x16, *args16, residual=res),
+                                        ops.mbconv_plain(x16, *args16, residual=res), allowance,
+                                        f"{shape[:6]} residual={res}")
+            print(f"[eval-batch] K2 {shape[:6]} residual={res}, S={splits}: f32 max-abs "
+                  f"{e32:.3g} (tol 1e-4 + 1e-4·|ref|), bf16 max-abs {e16:.3g} (tol "
+                  f"8e-3·|ref| + 1e-3; {beyond} of {x16.numel() // cin * cout} beyond it, within "
+                  f"the flip allowance, cap {K2_FLIP_SHARE})")
+            worst32, worst16 = max(worst32, e32), max(worst16, e16)
+        del x, x16, args, args16, allowance
+        torch.cuda.empty_cache()
+    print(f"[eval-batch] K2 launcher split counts: {splits_by_shape}")
+    return k1, (worst32, worst16), splits_by_shape
+
+
+def write_stereo_set(root, n, first, hw, max_disp):
+    """`n` random-dot stereograms (the port's `make_stereogram`, seeds
+    first..first+n-1) in the SceneFlow layout: left/, right/ PNG and left/
+    PFM disparities; returns the split lines."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from PIL import Image
+
+    from openstereo_tpu_torch.data.readers import write_pfm
+    from openstereo_tpu_torch.tools.overfit_check import make_stereogram
+
+    for sub in ("left", "right"):
+        (root / sub).mkdir(parents=True, exist_ok=True)
+
+    def one(i):
+        left, right, disp = make_stereogram(np.random.RandomState(i), *hw, max_disp)
+        for sub, img in (("left", left), ("right", right)):
+            Image.fromarray(np.clip(np.round(img), 0, 255).astype(np.uint8)).save(
+                root / sub / f"{i:04d}.png")
+        write_pfm(str(root / "left" / f"{i:04d}.pfm"), disp)
+        return f"left/{i:04d}.png right/{i:04d}.png left/{i:04d}.pfm"
+
+    with ThreadPoolExecutor(8) as pool:
+        return list(pool.map(one, range(first, first + n)))
+
+
+def phase_train(dev):
+    """`run_training` on a data set written for it under `chiprun_out/`,
+    which is deleted afterwards with the run's checkpoints (the run's log,
+    metrics and config stay)."""
+    import shutil
+
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    data_root = TRAIN_DIR / "SceneFlow"
+    try:
+        return run_training(dev, data_root)
+    finally:
+        shutil.rmtree(data_root, ignore_errors=True)
+        for ckpt in TRAIN_DIR.glob("runs/**/ckpt"):
+            shutil.rmtree(ckpt, ignore_errors=True)
+
+
+def run_training(dev, data_root):
+    """The port's training entry point (`tools/train.py`) on the LightStereo-S
+    SceneFlow config at full width: crop 320x736, batch 24, AMP bf16, AdamW
+    2.4e-3, OneCycleLR, clip by value 0.1. Cuts: NUM_EPOCHS 1 (4 steps) and
+    a synthetic data set. Its evaluation (544x960, batch 12) must go
+    through K1 and K2; then the same weights evaluated eager, and a resumed
+    Trainer against the checkpoint."""
+    import torch
+    import yaml
+
+    from openstereo_tpu_torch.config import Config
+    from openstereo_tpu_torch.models import set_kernels
+    from openstereo_tpu_torch.ops import kernels
+    from openstereo_tpu_torch.runtime import Trainer
+    from openstereo_tpu_torch.tools import train
+
+    t0 = time.perf_counter()
+    split = {}
+    for mode, n, first in (("train", TRAIN_PAIRS, 0), ("test", EVAL_PAIRS, TRAIN_PAIRS)):
+        split[mode] = TRAIN_DIR / f"sceneflow_{mode}.txt"
+        split[mode].write_text("\n".join(write_stereo_set(data_root, n, first, PAIR_HW, 192)))
+    print(f"[train] wrote {TRAIN_PAIRS} + {EVAL_PAIRS} random-dot pairs at {PAIR_HW[0]}x"
+          f"{PAIR_HW[1]} (PNG, PFM) in {time.perf_counter() - t0:.1f} s")
+
+    cfg = yaml.safe_load(CFG_FILE.read_text())
+    info = cfg["DATA_CONFIG"]["DATA_INFOS"][0]
+    info["DATA_SPLIT"] = {"TRAINING": str(split["train"]), "EVALUATING": str(split["test"]),
+                          "TESTING": str(split["test"])}
+    info["DATA_PATH"] = str(data_root)
+    cfg["OPTIMIZATION"]["NUM_EPOCHS"] = 1  # the cut: 96 pairs / 24 = 4 steps
+    cfg_file = TRAIN_DIR / "lightstereo_s_sceneflow.yaml"
+    cfg_file.write_text(yaml.safe_dump(cfg))
+    paths = TRAIN_DIR / "data_paths.yaml"
+    paths.write_text(yaml.safe_dump({info["DATASET"]: str(data_root)}))
+    opt = cfg["OPTIMIZATION"]
+    print(f"[train] config: crop {cfg['DATA_CONFIG']['DATA_TRANSFORM']['TRAINING'][0]['SIZE']}, "
+          f"batch {opt['BATCH_SIZE_PER_GPU']}, AMP {opt['AMP']}, {opt['OPTIMIZER']['NAME']} "
+          f"{opt['OPTIMIZER']['LR']}, {opt['SCHEDULER']['NAME']}, clip {opt['CLIP_GRAD']}, "
+          f"NUM_EPOCHS {opt['NUM_EPOCHS']}; evaluation batch {cfg['EVALUATOR']['BATCH_SIZE_PER_GPU']}")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    trainer = train.main(["--cfg_file", str(cfg_file), "--save_root", str(TRAIN_DIR / "runs"),
+                          "--data_paths", str(paths), "--workers", "8", "--device", "cuda"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.launch_counts)
+    shapes = {k: dict(v) for k, v in kernels.launch_shapes.items()}
+    peak = torch.cuda.max_memory_allocated(dev)
+    n_eval = trainer.eval_loader.steps_per_epoch
+    steps = trainer.state.step
+    check(steps == TRAIN_PAIRS // opt["BATCH_SIZE_PER_GPU"], f"{steps} train steps")
+    losses, step_ms = trainer.epoch_losses, trainer.epoch_step_ms
+    check(len(losses) == steps and all(np.isfinite(v) for v in losses), f"losses {losses}")
+    print(f"[train] launches over the run ({steps} train steps, {n_eval} evaluation batch(es)): "
+          f"{launches}")
+    check(launches["corr_volume"] == n_eval and launches["fused_mbconv"] == 18 * n_eval,
+          f"launches {launches} != K1 1 and K2 18 per evaluation batch (and none in training)")
+    check(launches["rel_attention"] == 0 and launches["gwc_volume"] == 0, f"launches {launches}")
+    check(shapes["corr_volume"] == {K1_EVAL_SHAPE: n_eval},
+          f"K1 launch shapes {shapes['corr_volume']}")
+    check(shapes["fused_mbconv"] == {k: n * n_eval for k, n in K2_EVAL_SHAPES.items()},
+          f"K2 launch shapes {shapes['fused_mbconv']} != {K2_EVAL_SHAPES} per batch")
+    ms = float(np.median(step_ms[1:4]))
+    rate = opt["BATCH_SIZE_PER_GPU"] / ms * 1e3
+    records = [json.loads(ln) for ln in open(trainer.metrics_file)]
+    wired = [r for r in records if r["phase"] == "eval"][-1]
+    print(f"[train] losses {[round(v, 4) for v in losses]}; step ms (CUDA events) "
+          f"{[round(t, 2) for t in step_ms]}; median of steps 2-4 {ms:.2f} ms/step, "
+          f"{rate:.1f} samples/s; peak memory (max_memory_allocated) {peak / 2**30:.3f} GiB; "
+          f"run wall time {wall:.1f} s")
+
+    set_kernels(trainer.model, False)
+    kernels.reset_launch_counts()
+    eager = trainer.evaluate(0)
+    check(sum(kernels.launch_counts.values()) == 0, "the eager evaluation launched kernels")
+    set_kernels(trainer.model, True)
+    d_epe = abs(wired["epe"] - eager["epe"])
+    print(f"[train] evaluation with kernels: "
+          f"{ {k: round(v, 4) for k, v in wired.items() if k not in ('phase', 'epoch')} }; "
+          f"eager: { {k: round(v, 4) for k, v in eager.items()} }; |EPE difference| "
+          f"{d_epe:.4g} px (tol 0.5)")
+    check(all(np.isfinite(v) for k, v in wired.items() if k not in ("phase",)), f"{wired}")
+    check(d_epe <= 0.5, f"evaluation with kernels vs eager: EPE differs by {d_epe} px > 0.5")
+
+    check(trainer.saved_epochs() == [0], f"checkpoints {trainer.saved_epochs()}")
+    saved = torch.load(trainer.ckpt_path(0), map_location="cpu", weights_only=True)
+    again = Trainer(Config.from_dict(cfg), trainer.run_dir, device=dev, num_workers=8)
+    start = again.resume_ckpt()
+    state = again.model.state_dict()
+    same = all(torch.equal(state[k].cpu(), v) for k, v in saved["model_state"].items())
+    check(start == 1 and again.start_epoch == 1 and again.state.step == steps and same,
+          f"resume: start epoch {start}, step {again.state.step}, bit-equal {same}")
+    print(f"[train] resumed Trainer: start epoch {start}, step {again.state.step}, "
+          f"{len(saved['model_state'])} tensors bit-equal to the checkpoint")
+    prof = profile_train_steps(again, ms)
+    del trainer, again
+    torch.cuda.empty_cache()
+    return {"ms_per_step": ms, "samples_per_s": rate, "step_ms": step_ms, "losses": losses,
+            "peak_bytes": peak, "eval_kernels": wired, "eval_eager": eager, "launches": launches,
+            "eval_batches": n_eval, "profile": prof}
+
+
+def profile_train_steps(trainer, untraced_ms, steps=2):
+    """torch.profiler over `steps` train steps of `trainer` on one batch of its
+    loader: device busy ms per step (the kernel rows summed; one stream), its
+    idle share against `untraced_ms` per step, and the top kernels (table in
+    `chiprun_out/train_smoke/profile_train_step.txt`)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from openstereo_tpu_torch.data.loader import batch_to_device
+
+    batches = trainer.train_loader.epoch(1)
+    batch = batch_to_device(next(batches), trainer.device)
+    batches.close()
+    trainer.train_step(batch)  # warm-up outside the trace
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            trainer.train_step(batch)
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    events.sort(key=lambda e: -e.self_device_time_total)
+    busy = sum(e.self_device_time_total for e in events) / 1e3 / steps
+    (TRAIN_DIR / "profile_train_step.txt").write_text(
+        prof.key_averages().table(sort_by="self_device_time_total", row_limit=40))
+    top = [{"kernel": e.key[:90], "ms_per_step": e.self_device_time_total / 1e3 / steps,
+            "calls_per_step": e.count / steps} for e in events[:10]]
+    idle = 1.0 - busy / untraced_ms
+    print(f"[profile] train step (b24 320x736 bf16): device busy {busy:.2f} ms/step, idle share "
+          f"{idle:.4f} (against {untraced_ms:.2f} ms/step untraced); top: " + "; ".join(
+              f"{t['kernel'][:60]} {t['ms_per_step']:.2f} ms x{t['calls_per_step']:g}"
+              for t in top[:8]))
+    return {"device_busy_ms_per_step": busy, "idle_share": idle, "top": top}
+
+
+def phase_overfit():
+    """The port's learning check: LightStereo, 400 steps, 192x384, batch 4,
+    max_disp 64, bf16, AdamW 4e-4, clip 0.1; the final train EPE must be
+    below 3 px (the JAX tool's CONVERGED line)."""
+    from openstereo_tpu_torch.tools import overfit_check
+
+    t0 = time.perf_counter()
+    res = overfit_check.main(OVERFIT_ARGS)
+    took = time.perf_counter() - t0
+    traj = [(s, round(l, 4), round(e, 3)) for s, l, e in res["trajectory"]]
+    print(f"[overfit] trajectory (step, loss, train EPE px): {traj}; {took:.1f} s")
+    check(res["final_epe"] < 3.0, f"overfit check: final train EPE {res['final_epe']} px >= 3.0")
+    return res
+
+
 def main():
     try:
         import torch
@@ -1163,6 +1447,11 @@ def main():
         psmnet = phase_psmnet(dev)
         gwc_bench, psm_bench, gwc_prof, k3 = phase_timing_3d(dev, gwcnet, psmnet, card,
                                                              k3_per_frame)
+        del gwcnet, psmnet
+        torch.cuda.empty_cache()
+        k1_eval, k2_eval, k2_eval_splits = phase_eval_batch(dev)
+        trained = phase_train(dev)
+        overfit = phase_overfit()
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -1172,11 +1461,18 @@ def main():
              replaces="openstereo_tpu/ops/pallas/corr_volume.py:34",
              launches=launches["corr_volume"], max_abs_err=k1_err[1],
              max_abs_err_f32=k1_err[0], not_bit_equal_share=k1_err[2],
+             launches_trainer_eval=trained["launches"]["corr_volume"],
+             eval_batch=dict(shape=list(K1_EVAL_SHAPE), max_abs_err=k1_eval[1],
+                             max_abs_err_f32=k1_eval[0], not_bit_equal_share=k1_eval[2]),
              flip_share=VOLUME_FLIP_SHARE, library_ms=None, ptxas=ptxas["cost_volume"], **k1),
         dict(name="fused_mbconv", route="cuda", source="openstereo_tpu_torch/csrc/fused_mbconv.cu",
              replaces="openstereo_tpu/ops/pallas/fused_mbconv.py:53",
              launches=launches["fused_mbconv"], max_abs_err=k2_err[1],
              max_abs_err_f32=k2_err[0], library_ms=None,
+             launches_trainer_eval=trained["launches"]["fused_mbconv"],
+             eval_batch=dict(max_abs_err=k2_eval[1], max_abs_err_f32=k2_eval[0],
+                             splits=[dict(shape=list(k), splits=v)
+                                     for k, v in k2_eval_splits.items()]),
              yardstick="eager cuDNN pw->dw->pw chain, folded BN", ptxas=ptxas["fused_mbconv"],
              flip_share=K2_FLIP_SHARE,
              controls=[dict(shape=list(shp), residual=res, control=ctl, beyond=c[0],
@@ -1214,6 +1510,12 @@ def main():
           f"{gwc_prof['kernels']['device_busy_ms_per_frame']:.3f} ms/frame (kernels), "
           f"{gwc_prof['eager']['device_busy_ms_per_frame']:.3f} (eager); PSMNet fps "
           f"{psm_bench['fps']:.3f}; total {time.perf_counter() - t0:.1f} s")
+    print(f"[train] LightStereo-S 320x736 b24 bf16: {trained['ms_per_step']:.2f} ms/step (median "
+          f"of steps 2-4), {trained['samples_per_s']:.1f} samples/s, peak "
+          f"{trained['peak_bytes'] / 2**30:.3f} GiB; losses {trained['losses']}; evaluation EPE "
+          f"{trained['eval_kernels']['epe']:.4f} px with kernels, {trained['eval_eager']['epe']:.4f} "
+          f"eager; overfit final train EPE {overfit['final_epe']:.3f} px; total "
+          f"{time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": entries}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -91,10 +91,66 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     return model
 
 
+# flax's lecun_normal: a normal truncated at ±2 σ, σ rescaled so the variance is 1/fan_in
+_TRUNC_STD = 0.87962566103423978
+
+
+def fan_in(m: nn.Module) -> int:
+    """The fan-in flax computes for the kernel of the counterpart of `m`: the
+    product of its (kh, kw[, kd], in) axes. A torch conv weight is
+    [out, in/groups, k...], a transposed conv's [in, out/groups, k...]."""
+    w = m.weight
+    if isinstance(m, (nn.ConvTranspose2d, nn.ConvTranspose3d)):
+        return w.shape[0] * w[0, 0].numel()
+    return w[0].numel()
+
+
+def init_training_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """flax's default initialisers, which the JAX trainer starts from
+    (`runtime/trainer.py:186-194`): conv, deconv and linear kernels
+    lecun-normal (truncated normal, variance 1/fan_in), zero biases,
+    BatchNorm scale 1, bias 0, mean 0, var 1, LayerNorm scale 1, bias 0.
+    Drawn from `generator` in module order. Raises on a parameter that flax
+    would not initialise this way (STTR's weight-normed convs, attention
+    projections and dustbin cost: STTR training is ROADMAP item 8)."""
+    drawn = set()
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Conv3d, nn.ConvTranspose3d,
+                              nn.Linear)):
+                std = fan_in(m) ** -0.5 / _TRUNC_STD
+                nn.init.trunc_normal_(m.weight, 0.0, std, -2.0 * std, 2.0 * std,
+                                      generator=generator)
+                drawn.add(id(m.weight))
+                if m.bias is not None:
+                    m.bias.zero_()
+                    drawn.add(id(m.bias))
+            elif isinstance(m, (nn.BatchNorm2d, nn.BatchNorm3d, nn.LayerNorm)):
+                for t, v in ((m.weight, 1.0), (m.bias, 0.0)):
+                    t.fill_(v)
+                    drawn.add(id(t))
+                if not isinstance(m, nn.LayerNorm):
+                    m.reset_running_stats()
+                    drawn.update(id(t) for t in m.buffers())
+    missed = [k for k, t in list(model.named_parameters()) + list(model.named_buffers())
+              if id(t) not in drawn]
+    if missed:
+        raise NotImplementedError(
+            f"no training initialiser for {missed[:8]}; STTR training is ROADMAP item 8")
+    return model
+
+
+INITS = {"test": init_weights, "train": init_training_weights}
+
+
 def build_model(model_cfg: Config, dtype: torch.dtype = torch.float32,
-                device: Optional[Union[str, torch.device]] = None, seed: int = 0) -> nn.Module:
+                device: Optional[Union[str, torch.device]] = None, seed: int = 0,
+                init: str = "test") -> nn.Module:
     """Instantiate a MODEL config section in eval mode on `device` (default:
-    the CUDA card; the CPU only when asked), with random weights from `seed`.
+    the CUDA card; the CPU only when asked), with random weights from `seed`:
+    `init` "test" draws every weight and BatchNorm statistic away from
+    identity (`init_weights`), "train" is flax's default initialisation
+    (`init_training_weights`), which training starts from.
 
     UPPER_CASE YAML keys map onto lower_case constructor arguments; unknown
     keys are dropped, as in the JAX package.
@@ -111,5 +167,5 @@ def build_model(model_cfg: Config, dtype: torch.dtype = torch.float32,
     with torch.device("meta"):
         model = cls(dtype=dtype, **kwargs)
     model.to_empty(device="cpu")
-    init_weights(model, torch.Generator().manual_seed(seed))
+    INITS[init](model, torch.Generator().manual_seed(seed))
     return model.to(device).eval()

@@ -131,7 +131,7 @@ class GwcNet(nn.Module):
 
     def forward(self, data: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         if self.training:
-            raise NotImplementedError("GwcNet training is ROADMAP Slice D, item 11")
+            raise NotImplementedError("GwcNet training is ROADMAP item 8")
         left = data["left"].to(self.dtype)
         feat_l, feat_r = siamese(self.Backbone["feature_extraction"], left,
                                  data["right"].to(self.dtype))

@@ -5,8 +5,9 @@ Conventions, following flax's `dtype=` policy in the JAX package:
   input's dtype (bf16 on the main path) with its weight cast to that dtype,
   and the cast is cached per weight version;
 - softmax/regression heads run in `head_dtype` (at least f32);
-- BatchNorm is the eval form (running statistics); training is ROADMAP
-  Slice B;
+- BatchNorm in eval uses its running statistics; in training it follows
+  flax's `nn.BatchNorm` (`batch_norm_train`); a BatchNorm module left in
+  eval mode inside a training model is FREEZE_BN;
 - module attribute names follow the reference OpenStereo state_dict keys
   that `openstereo_tpu/utils/torch_convert.py` reads (`block.0`, `pwconv.1`).
 
@@ -18,7 +19,7 @@ lowering and have no counterpart here.
 
 from __future__ import annotations
 
-from functools import partial
+from functools import lru_cache
 from typing import Callable, Optional
 
 import torch
@@ -37,8 +38,20 @@ def relu6(x: torch.Tensor) -> torch.Tensor:
     return x.clamp(0.0, 6.0)
 
 
+@lru_cache(maxsize=None)
+def _in_dtype(value: float, dtype: torch.dtype) -> float:
+    return float(torch.tensor(value, dtype=dtype))
+
+
 def leaky_relu(negative_slope: float = 0.01) -> Callable:
-    return partial(F.leaky_relu, negative_slope=negative_slope)
+    """x where x >= 0, else slope·x with the slope rounded to x's dtype first,
+    as JAX's weakly typed `negative_slope * x` is (`jax.nn.leaky_relu`): in
+    bf16 the slope 0.2 is 0.2001953125, and the product of two bf16 values,
+    exact in f32, is rounded once."""
+    def act(x: torch.Tensor) -> torch.Tensor:
+        return F.leaky_relu(x, negative_slope=_in_dtype(negative_slope, x.dtype))
+
+    return act
 
 
 def siamese(fn: Callable, left: torch.Tensor, right: torch.Tensor):
@@ -83,18 +96,57 @@ def run_conv(x: torch.Tensor, conv: nn.Module) -> torch.Tensor:
     return CONVS[type(conv)](x, w, b, conv.stride, conv.padding, conv.dilation, conv.groups)
 
 
+def batch_norm_train(x: torch.Tensor, norm: nn.Module) -> torch.Tensor:
+    """Training BatchNorm as flax's `nn.BatchNorm(momentum=0.9)` computes it
+    (`layers.py:276-282` with flax 0.12's `_compute_stats` and `_normalize`):
+
+    - batch statistics in at least f32 (also for a bf16 x), the variance as
+      E[x²] − E[x]² clipped at 0 (flax's default `use_fast_variance`);
+    - y = (x − µ) · (γ · rsqrt(σ² + eps)) + β in that precision, then x's dtype;
+    - the running statistics, as buffers in place, with flax's momentum 0.9
+      (torch's `momentum` 0.1) and the *biased* batch variance. Torch's own
+      `F.batch_norm(training=True)` would update with the unbiased one, so it
+      only ever runs with running statistics here.
+    """
+    acc = head_dtype(x.dtype)
+    xf = x.to(acc)
+    dims = [0] + list(range(2, x.dim()))
+    shape = (1, -1) + (1,) * (x.dim() - 2)
+    mean = xf.mean(dims)
+    var = ((xf * xf).mean(dims) - mean * mean).clamp(min=0.0)
+    with torch.no_grad():
+        m = norm.momentum
+        norm.running_mean.mul_(1.0 - m).add_(mean.detach().to(norm.running_mean.dtype), alpha=m)
+        norm.running_var.mul_(1.0 - m).add_(var.detach().to(norm.running_var.dtype), alpha=m)
+        norm.num_batches_tracked.add_(1)
+    mul = torch.rsqrt(var + norm.eps) * norm.weight.to(acc)
+    y = (xf - mean.reshape(shape)) * mul.reshape(shape) + norm.bias.to(acc).reshape(shape)
+    return y.to(x.dtype)
+
+
 def apply_norm(x: torch.Tensor, norm: nn.Module) -> torch.Tensor:
-    """Eval-mode norm (`layers.py:266-291`): BatchNorm (2d or 3d) with running
-    statistics (f32 statistics on an x of any dtype); InstanceNorm non-affine,
-    eps 1e-5, with statistics in at least f32."""
+    """BatchNorm (2d or 3d): in training `batch_norm_train`, else its running
+    statistics (f32 statistics on an x of any dtype; gradients still reach
+    its scale and bias). InstanceNorm: non-affine, eps 1e-5, statistics in at
+    least f32, the same in both modes (`layers.py:266-291`)."""
     if isinstance(norm, (nn.BatchNorm2d, nn.BatchNorm3d)):
         if norm.training:
-            raise NotImplementedError("training-mode BatchNorm is ROADMAP Slice B")
+            return batch_norm_train(x, norm)
         return F.batch_norm(x, norm.running_mean, norm.running_var, norm.weight, norm.bias,
                             False, 0.0, norm.eps)
     if isinstance(norm, nn.InstanceNorm2d):
         return F.instance_norm(x.to(head_dtype(x.dtype)), eps=norm.eps).to(x.dtype)
     raise ValueError(f"unsupported norm {type(norm).__name__}")
+
+
+def freeze_bn(model: nn.Module) -> nn.Module:
+    """FREEZE_BN (`runtime/trainer.py:211-222`): every BatchNorm of a model in
+    training uses its running statistics and leaves them as they are; its
+    scale and bias still get gradients."""
+    for m in model.modules():
+        if isinstance(m, (nn.BatchNorm2d, nn.BatchNorm3d)):
+            m.eval()
+    return model
 
 
 def run_seq(x: torch.Tensor, seq: nn.Sequential) -> torch.Tensor:
@@ -219,6 +271,8 @@ class FusableMBConv(nn.Module):
         return cached[1]
 
     def forward_fused(self, x: torch.Tensor) -> Optional[torch.Tensor]:
+        """The fused kernel in eval; None in training (the kernel folds BN,
+        which training cannot), so the eager chain runs there."""
         if not (self.fusable and self.use_kernels and not self.training):
             return None
         return fused_mbconv(x.contiguous(), *self.folded(x.dtype), residual=self.use_res)

@@ -1,4 +1,4 @@
-"""LightStereo S/M/L eval, NCHW (counterpart of `openstereo_tpu/models/lightstereo/lightstereo.py:33-208`).
+"""LightStereo S/M/L, NCHW (counterpart of `openstereo_tpu/models/lightstereo/lightstereo.py:33-216`).
 
 The correlation volume comes out [B,D,H/4,W/4] with disparity as channels,
 so the aggregation UNet is a stack of ordinary 2D convs. Attribute names
@@ -9,7 +9,10 @@ reference `.pth` loads as it is.
 With `use_kernels` on (the default) the eval path runs the correlation
 volume and every stride-1 MBConv with an expand through the CUDA kernels
 of `ops/` (on a CPU tensor, their plain versions); off, it runs the eager
-PyTorch/cuDNN path. Variants differ only in blocks and expanse ratio:
+PyTorch/cuDNN path. In training (`model.train()`) the backbone runs once
+per view, the volume is the plain one under autograd and every MBConv runs
+its eager chain, as the JAX model trains (`lightstereo.py:170-216`).
+Variants differ only in blocks and expanse ratio:
 S (1,2,4)/4, M (4,8,16)/4, L (8,16,32)/8. LX (EfficientNetV2) is not
 ported yet.
 """
@@ -22,8 +25,10 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ...ops import context_upsample, corr_volume, correlation_volume, disparity_regression
+from ...ops import (context_upsample, corr_volume, correlation_volume, disparity_regression,
+                   resize_bilinear)
 from ..backbones import MobileNetV2Features
+from ..losses import disp_valid_mask, masked_smooth_l1
 from ..layers import (ConvBlock, DeconvBlock, MobileV2Residual, deconv_bn, head_dtype,
                       leaky_relu, run_conv, run_seq, siamese)
 
@@ -128,7 +133,8 @@ class Aggregation(nn.Module):
 
 
 class LightStereo(nn.Module):
-    """forward(data) → {'disp_pred': [B,H,W]} (eval).
+    """forward(data) → {'disp_pred': [B,H,W]}, and in training also
+    'disp_4' [B,H,W], the 1/4-scale disparity upsampled.
 
     data['left'] / data['right']: [B,3,H,W] normalized images, H and W
     multiples of 32. `dtype` is the compute dtype (bf16 on the main path);
@@ -159,14 +165,19 @@ class LightStereo(nn.Module):
         self.refine_3 = DeconvBlock(16, 9, 4)
 
     def forward(self, data: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        if self.training:
-            raise NotImplementedError("LightStereo training is ROADMAP Slice B")
         left = data["left"].to(self.dtype)
         right = data["right"].to(self.dtype)
-        feats_l, feats_r = siamese(self.backbone, left, right)
+        if self.training:
+            # one call per view: each gets its own BatchNorm batch statistics, and
+            # the running statistics are updated for the left view, then the right
+            feats_l, feats_r = self.backbone(left), self.backbone(right)
+        else:
+            feats_l, feats_r = siamese(self.backbone, left, right)
 
         d4 = self.max_disp // 4
-        corr = corr_volume if self.use_kernels else correlation_volume
+        # K1's wrapper has no backward: training builds the plain volume under
+        # autograd, as the JAX model trains its jnp builder
+        corr = corr_volume if self.use_kernels and not self.training else correlation_volume
         volume = corr(feats_l[0].contiguous(), feats_r[0].contiguous(), d4)
         volume = self.cost_agg(volume, feats_l)
 
@@ -178,4 +189,17 @@ class LightStereo(nn.Module):
         stem2 = self.stem_2(left)
         xspx = self.refine_3(self.refine_2(xspx, stem2))
         spx_pred = torch.softmax(xspx.to(hd), dim=1)  # [B,9,H,W]
-        return {"disp_pred": context_upsample(init_disp * 4.0, spx_pred)}
+        out = {"disp_pred": context_upsample(init_disp * 4.0, spx_pred)}
+        if self.training:
+            size = tuple(left.shape[-2:])
+            out["disp_4"] = resize_bilinear(init_disp[:, None], size)[:, 0] * 4.0
+        return out
+
+    def get_loss(self, pred: Dict[str, torch.Tensor], data: Dict[str, torch.Tensor]):
+        """Smooth-L1 on 'disp_pred' + 0.3 × smooth-L1 on 'disp_4', over
+        0 < gt < max_disp (`lightstereo.py:210-216`) → (loss, {'loss_disp'})."""
+        gt = data["disp"]
+        mask = disp_valid_mask(gt, self.max_disp)
+        loss = masked_smooth_l1(pred["disp_pred"], gt, mask)
+        loss = loss + 0.3 * masked_smooth_l1(pred["disp_4"], gt, mask)
+        return loss, {"loss_disp": loss}

@@ -1,0 +1,70 @@
+"""Loss primitives: the port's copy of `openstereo_tpu/models/losses.py` (whole file).
+
+Masked losses reduce with a mask instead of boolean indexing, as the JAX
+package does, so a loss over an empty mask is 0 (`losses.py:20-24`), where
+the reference's `F.smooth_l1_loss(pred[mask], gt[mask])` gives NaN.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def smooth_l1(pred: torch.Tensor, target: torch.Tensor, beta: float = 1.0) -> torch.Tensor:
+    """Elementwise smooth-L1 (`losses.py:14`, F.smooth_l1_loss's beta=1 form)."""
+    diff = (pred - target).abs()
+    return torch.where(diff < beta, 0.5 * diff * diff / beta, diff - 0.5 * beta)
+
+
+def masked_mean(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Mean of `values` where `mask`; 0 if the mask is empty (`losses.py:20`)."""
+    mask = mask.to(values.dtype)
+    return (values * mask).sum() / mask.sum().clamp(min=1.0)
+
+
+def masked_smooth_l1(pred, target, mask) -> torch.Tensor:
+    return masked_mean(smooth_l1(pred, target), mask)
+
+
+def masked_l1(pred, target, mask) -> torch.Tensor:
+    return masked_mean((pred - target).abs(), mask)
+
+
+def disp_valid_mask(disp_gt: torch.Tensor, max_disp: float) -> torch.Tensor:
+    """0 < gt < max_disp (`losses.py:35`)."""
+    return (disp_gt > 0) & (disp_gt < max_disp)
+
+
+# Classification losses (`losses.py:46-81`), mean-reduced.
+
+def bce(probs: torch.Tensor, targets: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
+    """Binary cross-entropy on probabilities (post-sigmoid)."""
+    p = probs.clamp(eps, 1.0 - eps)
+    return -(targets * torch.log(p) + (1.0 - targets) * torch.log1p(-p)).mean()
+
+
+def bce_with_logits(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """max(x,0) - x·t + log(1+e^-|x|)."""
+    return (logits.clamp(min=0.0) - logits * targets
+            + torch.log1p(torch.exp(-logits.abs()))).mean()
+
+
+def cross_entropy(logits: torch.Tensor, targets: torch.Tensor, axis: int = 1) -> torch.Tensor:
+    """Softmax cross-entropy over `axis`; integer class targets (logits'
+    shape without `axis`) or a soft distribution of logits' shape."""
+    logp = logits - torch.logsumexp(logits, dim=axis, keepdim=True)
+    if targets.shape == logits.shape:
+        return -(targets * logp).sum(dim=axis).mean()
+    return -torch.gather(logp, axis, targets.long().unsqueeze(axis)).mean()
+
+
+def kl_div(log_pred: torch.Tensor, targets: torch.Tensor, reduction: str = "mean",
+           eps: float = 1e-12) -> torch.Tensor:
+    """KL(targets ‖ exp(log_pred)) pointwise, log_pred already log-probabilities."""
+    pointwise = targets * (torch.log(targets.clamp(min=eps)) - log_pred)
+    pointwise = torch.where(targets > 0, pointwise, torch.zeros_like(pointwise))
+    if reduction == "mean":
+        return pointwise.mean()
+    if reduction == "batchmean":
+        return pointwise.sum() / log_pred.shape[0]
+    return pointwise

@@ -170,7 +170,7 @@ class PSMNet(nn.Module):
 
     def forward(self, data: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         if self.training:
-            raise NotImplementedError("PSMNet training is ROADMAP Slice C, item 10")
+            raise NotImplementedError("PSMNet training is ROADMAP item 8")
         left = data["left"].to(self.dtype)
         feat_l, feat_r = siamese(self.Backbone, left, data["right"].to(self.dtype))
         volume = build_concat_volume(feat_l, feat_r, self.max_disp // 4)

@@ -8,8 +8,8 @@ argmax; nearest upsample and the context adjustment layer.
 
 Attribute names follow the reference STTR state_dict (`backbone.`,
 `tokenizer.`, `transformer.`, `regression_head.phi`, `regression_head.cal.`),
-so a reference `.pth` loads as it is. The train outputs and `get_loss` are
-ROADMAP Slice B.
+so a reference `.pth` loads as it is. The train outputs, `get_loss` and K4's
+backward are ROADMAP item 8.
 """
 
 from __future__ import annotations
@@ -120,7 +120,7 @@ class STTR(nn.Module):
 
     def forward(self, data: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         if self.training:
-            raise NotImplementedError("STTR training is ROADMAP Slice B")
+            raise NotImplementedError("STTR training is ROADMAP item 8")
         left = data["left"]
         bs, _, h, w = left.shape
         stacked = torch.cat([left, data["right"]], dim=0).to(self.dtype)

@@ -34,6 +34,17 @@ def context_upsample(disp_low: torch.Tensor, up_weights: torch.Tensor,
     return (taps * up_weights).sum(dim=1)
 
 
+def _interpolate(x: torch.Tensor, size, mode: str, align_corners: bool) -> torch.Tensor:
+    """F.interpolate in at least f32, the result rounded once to x's dtype:
+    PyTorch's CPU bilinear resize of a bf16 tensor rounds its weights to
+    bf16 (up to ~30 bf16 units off the exact resize where values are small),
+    and one rounding of the f32 resize is what the port promises (ROADMAP
+    §3, 3b)."""
+    acc = torch.promote_types(torch.float32, x.dtype)
+    out = F.interpolate(x.to(acc), size=size, mode=mode, align_corners=align_corners)
+    return out.to(x.dtype)
+
+
 def resize_bilinear(x: torch.Tensor, size) -> torch.Tensor:
     """[B,C,h,w] → [B,C,*size], bilinear with half-pixel centres
     (counterpart of `openstereo_tpu/ops/upsample.py:48-53`).
@@ -47,7 +58,7 @@ def resize_bilinear(x: torch.Tensor, size) -> torch.Tensor:
         raise ValueError(f"resize_bilinear only upsamples: {tuple(x.shape[-2:])} → {size}")
     if size == tuple(x.shape[-2:]):
         return x
-    return F.interpolate(x, size=size, mode="bilinear", align_corners=False)
+    return _interpolate(x, size, "bilinear", False)
 
 
 def resize_trilinear(x: torch.Tensor, size) -> torch.Tensor:
@@ -61,7 +72,7 @@ def resize_trilinear(x: torch.Tensor, size) -> torch.Tensor:
         raise ValueError(f"resize_trilinear only upsamples: {tuple(x.shape[-3:])} → {size}")
     if size == tuple(x.shape[-3:]):
         return x
-    return F.interpolate(x, size=size, mode="trilinear", align_corners=False)
+    return _interpolate(x, size, "trilinear", False)
 
 
 def resize_linear_align_corners(x: torch.Tensor, size) -> torch.Tensor:
@@ -75,4 +86,4 @@ def resize_linear_align_corners(x: torch.Tensor, size) -> torch.Tensor:
         raise ValueError(f"{mode} resize of a {x.dim()}-d tensor to {size}")
     if size == tuple(x.shape[2:]):
         return x
-    return F.interpolate(x, size=size, mode=mode, align_corners=True)
+    return _interpolate(x, size, mode, True)

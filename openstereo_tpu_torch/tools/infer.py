@@ -24,14 +24,13 @@ from ..data.readers import read_image_rgb
 from ..data.transforms import build_transforms
 from ..device import resolve_device
 from ..models import build_model
+from ..runtime.pretrained import load_state_dict_file
 
 
 def load_pretrained(model: torch.nn.Module, path: str) -> int:
     """Load a reference OpenStereo checkpoint ({'model_state': sd} or a bare
     state_dict); the port's keys are the reference's, so no conversion."""
-    ckpt = torch.load(path, map_location="cpu", weights_only=True)
-    state = ckpt.get("model_state", ckpt)
-    state = {k.removeprefix("module."): v for k, v in state.items()}
+    state = load_state_dict_file(path)
     model.load_state_dict(state)
     return len(state)
 

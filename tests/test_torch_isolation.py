@@ -64,3 +64,13 @@ def test_every_kernel_source_is_built_and_annotated():
             assert f'extern "C" cudaError_t {entry}_launch(' in src
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     assert build.BUILD_DIR.parts[-2:] == ("build", "kernels")
+
+
+def test_scan_covers_the_training_modules():
+    scanned = {str(p.values[0].relative_to(ROOT)) for p in _sources()}
+    for rel in ("runtime/trainer.py", "runtime/optim.py", "runtime/train_state.py",
+                "runtime/pretrained.py", "data/loader.py", "data/datasets.py",
+                "data/transforms.py", "data/readers.py", "evaluation/metrics.py",
+                "models/losses.py", "utils/seeds.py", "utils/logging.py", "registry.py",
+                "tools/train.py", "tools/overfit_check.py"):
+        assert f"openstereo_tpu_torch/{rel}" in scanned, rel

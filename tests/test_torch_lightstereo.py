@@ -129,8 +129,15 @@ def test_eval_transforms_match_jax():
     ref = jax_transforms(spec)({k: v.copy() for k, v in sample.items()})
     for k in sample:
         np.testing.assert_array_equal(got[k], ref[k])
-    with pytest.raises(NotImplementedError):
-        build_transforms(cfg["DATA_CONFIG"]["DATA_TRANSFORM"]["TRAINING"])
+    # the training pipeline builds too, and draws what JAX's draws (more in test_torch_data.py)
+    train = cfg["DATA_CONFIG"]["DATA_TRANSFORM"]["TRAINING"]
+    got = build_transforms(train)({**{k: v.copy() for k, v in sample.items()},
+                                   "_rng": np.random.default_rng(3)})
+    ref = jax_transforms(train)({**{k: v.copy() for k, v in sample.items()},
+                                 "_rng": np.random.default_rng(3)})
+    for k in sample:
+        assert got[k].shape[:2] == (320, 736)
+        np.testing.assert_array_equal(got[k], ref[k])
 
 
 def test_infer_cli_on_cpu(tmp_path):
