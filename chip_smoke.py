@@ -11,15 +11,16 @@ without the repository around it). Phases, each of which fails the run:
    (one nvcc per source, in parallel), and print ptxas's registers, spills
    and shared memory for the tensor-core kernels of K4 and K2 and for the
    cost-volume kernel of K1 and K3;
-3. K1 (corr_volume) against its plain version at the main-path shape, f32
-   (TF32 off) and bf16, plus a ragged-width and a d >= W case. The bf16 plain
-   version takes the same bf16 inputs and rounds each product to bf16, as
-   JAX does; the kernel must be within `bf16_close` everywhere and bit-equal
-   at all but VOLUME_FLIP_SHARE of the elements (`volume_bf16_check`), and at
-   the main-path shape the unrounded control (products in f32) must fail that
-   check;
-4. K2 (fused_mbconv) against its plain version at the 9 distinct main-path
-   shapes, f32 (TF32 off) and bf16, with and without the residual where
+3. K1 (corr_volume) against its plain version at the main-path shape and at
+   CoEx's (C 48), f32 (TF32 off) and bf16, plus a ragged-width and a d >= W
+   case. The bf16 plain version takes the same bf16 inputs and rounds each
+   product to bf16, as JAX does; the kernel must be within `bf16_close`
+   everywhere and bit-equal at all but VOLUME_FLIP_SHARE of the elements
+   (`volume_bf16_check`), and at the main-path and CoEx shapes the unrounded
+   control (products in f32) must fail that check;
+4. K2 (fused_mbconv) against its plain version at the 14 distinct shapes of
+   the LightStereo-S, CoEx, MSNet3D and MSNet2D paths, f32 (TF32 off) and
+   bf16, with and without the residual where
    Cin == Cout, with the launcher's split count at each shape, and in bf16
    at forced hidden-channel split counts through the launcher itself;
 5. K4 (rel_attention) against its plain version at the 3 STTR main-path
@@ -84,6 +85,21 @@ without the repository around it). Phases, each of which fails the run:
 15. the learning check: the port's `tools/overfit_check.py`, LightStereo,
    400 steps on one batch of 4 random-dot pairs at 192x384, max_disp 64,
    bf16, AdamW 4e-4, clip 0.1: the final train EPE must be below 3 px.
+16-18. (run after phase 12) the CoEx, MSNet3D and MSNet2D paths, each at
+   544x960 (`cfgs/coex/coex_sceneflow_amp.yaml`, `cfgs/msnet/msnet3d_sceneflow.yaml`,
+   `cfgs/msnet/msnet2d_sceneflow.yaml`), b1, bf16, random weights from a
+   seed, through `run_pair` on the synthetic pairs: the launch records per
+   frame by shape (CoEx K1 1 at C 48 and K2 11; MSNet3D K3 1 and K2 2;
+   MSNet2D K2 18; no other kernel), peak memory, the kernel path against
+   the eager path in f32 with TF32 off (MSNets max-abs <= 5e-3 px; CoEx,
+   whose top-k may flip on a near-tie, >= 99.9 % of pixels within 5e-3 px)
+   and bf16 (MSNets mean-abs <= 0.5 px; CoEx the cost feeding its top-2
+   head within 2^-7 of its largest magnitude on average, and the kernel
+   path's disparity no more than 5 % further from the f32 one than the
+   eager path's); frames/s of both paths (8 groups each, with their spread
+   and the host's time to issue a frame), a torch.profiler pass over each
+   (tables in `chiprun_out/<model>_profile/`), and each kernel at the
+   path's shapes beside its plain version and bound.
 
 The line before the card line is a JSON object with one entry per kernel;
 the last line is {"ok": true, "device": {...}}.
@@ -106,6 +122,9 @@ STTR_CFG = ROOT / "cfgs/sttr/sttr_flyingthings3d.yaml"
 STTR_HW = (540, 960)
 GWC_CFG = ROOT / "cfgs/gwcnet/gwcnet_sceneflow.yaml"
 PSM_CFG = ROOT / "cfgs/psmnet/psmnet_sceneflow.yaml"
+COEX_CFG = ROOT / "cfgs/coex/coex_sceneflow_amp.yaml"
+MSNET3D_CFG = ROOT / "cfgs/msnet/msnet3d_sceneflow.yaml"
+MSNET2D_CFG = ROOT / "cfgs/msnet/msnet2d_sceneflow.yaml"
 
 # expected K2 launches per LightStereo-S frame: (batch, H, W, Cin, Ch, Cout, residual) → count
 K2_SHAPES = {
@@ -119,12 +138,31 @@ K2_SHAPES = {
     (1, 68, 120, 96, 384, 96, True): 2,
     (1, 34, 60, 192, 768, 192, True): 3,
 }
+# expected K2 launches per frame of the CoEx, MSNet3D and MSNet2D paths at 544x960: CoEx's
+# trunk is LightStereo-S's (batch 2, 11 launches); MSNet's trunk stem (2 launches) and,
+# in MSNet2D, the 2D volume's blocks (dres 4, the hourglasses' conv2 and redir2 6,
+# conv4 3, redir1 3)
+COEX_K2_SHAPES = {k: n for k, n in K2_SHAPES.items() if k[0] == 2}
+MSNET3D_K2_SHAPES = {(2, 272, 480, 32, 96, 32, True): 2}
+MSNET2D_K2_SHAPES = {
+    (2, 272, 480, 32, 96, 32, True): 2,
+    (1, 136, 240, 48, 144, 48, True): 4,
+    (1, 68, 120, 96, 192, 96, True): 6,
+    (1, 34, 60, 192, 384, 192, True): 3,
+    (1, 136, 240, 48, 96, 48, True): 3,
+}
+K2_ALL_SHAPES = sorted(set(K2_SHAPES) | set(COEX_K2_SHAPES) | set(MSNET3D_K2_SHAPES)
+                       | set(MSNET2D_K2_SHAPES), reverse=True)
 # the launcher's hidden-channel split count at each main-path shape (B, H, W, Ch) on a
 # card with 132 SMs (H100 SXM); tests/test_torch_kernel_plans.py walks the same rule
 K2_SPLITS_132 = {(2, 136, 240, 144): 1, (2, 68, 120, 192): 2, (2, 34, 60, 384): 6,
                  (2, 34, 60, 576): 6, (2, 17, 30, 960): 15, (1, 136, 240, 192): 2,
-                 (1, 68, 120, 384): 4, (1, 34, 60, 768): 12}
+                 (1, 68, 120, 384): 4, (1, 34, 60, 768): 12,
+                 # MSNet3D and MSNet2D
+                 (2, 272, 480, 96): 1, (1, 136, 240, 144): 2, (1, 68, 120, 192): 3,
+                 (1, 34, 60, 384): 12, (1, 136, 240, 96): 2}
 K1_SHAPE = (1, 24, 136, 240, 48)  # B, C, H/4, W/4, D
+COEX_K1_SHAPE = (1, 48, 136, 240, 48)  # CoEx's cosine volume: 48 descriptor channels
 # K2 at forced split counts, through the launcher itself: (shape as K2_SHAPES,
 # residual, splits)
 K2_SPLIT_CASES = [
@@ -282,20 +320,31 @@ def device_ms(fn, key="cv_kernel", iters=20):
     """Device time per launch of the kernels whose name holds `key`, from
     torch.profiler over `iters` back-to-back calls of `fn` (the launch overhead
     that CUDA events over back-to-back launches also count is left out),
-    averaged over the launches the trace recorded."""
+    averaged over the launches the trace recorded. The profiler records a
+    warm-up step of `iters` calls first and reads only the step after it:
+    the trace may miss launches at its start (one run saw 9 of 20 without
+    the warm-up step); a trace that still sees fewer than half is taken
+    again, up to three times."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and key in e.key]
-    n = sum(e.count for e in rows)  # the trace may miss a launch at its edge
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+            for _ in range(2):
+                for _ in range(iters):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        rows = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and key in e.key]
+        n = sum(e.count for e in rows)  # the trace may miss a launch at its edge
+        if iters // 2 <= n <= iters:
+            break
+        print(f"[time] profiler saw {n} launches of {key!r} in {iters} calls; tracing again")
     check(iters // 2 <= n <= iters, f"profiler saw {n} launches of {key!r} in {iters} calls")
     return sum(e.self_device_time_total for e in rows) / 1e3 / n
 
@@ -456,7 +505,8 @@ def phase_k1(dev):
 
     g = torch.Generator().manual_seed(1)
     errs = {}
-    for (b, c, h, w, d), tag in ((K1_SHAPE, "main"), ((1, 8, 3, 37, 48), "ragged W"),
+    for (b, c, h, w, d), tag in ((K1_SHAPE, "main"), (COEX_K1_SHAPE, "CoEx"),
+                                 ((1, 8, 3, 37, 48), "ragged W"),
                                  ((2, 24, 5, 130, 100), "ragged W, D>64"),
                                  ((1, 4, 2, 6, 10), "d >= W")):
         left, right = (torch.randn(b, c, h, w, generator=g).to(dev) for _ in range(2))
@@ -469,7 +519,7 @@ def phase_k1(dev):
         got16 = ops.corr_volume(lb, rb, d)
         err16, share = volume_bf16_check(got16, ref16, f"K1 bf16 {tag}")
         control = ""
-        if tag == "main":  # the unrounded control: products in f32
+        if tag in ("main", "CoEx"):  # the unrounded control: products in f32
             no, c_share = volume_rejected(
                 ops.correlation_volume(lb.float(), rb.float(), d).bfloat16(), ref16)
             check(no, f"K1 bf16 {tag}: the unrounded control passes the check")
@@ -480,7 +530,7 @@ def phase_k1(dev):
               f"bf16 max-abs {err16:.3g} (tol 8e-3·|ref| + 1e-3), {share:.3g} not bit-equal "
               f"(cap {VOLUME_FLIP_SHARE}){control}")
         errs[tag] = (err32, err16, share)
-    return errs["main"]
+    return errs
 
 
 def k2_inputs(shape, dev, dtype, g):
@@ -506,8 +556,8 @@ def phase_k2(dev):
     lib = build.load("fused_mbconv")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     worst32 = worst16 = 0.0
-    controls = {}
-    for shape in K2_SHAPES:
+    controls, by_shape = {}, {}
+    for shape in K2_ALL_SHAPES:
         b, h, w, cin, ch, cout = shape[:6]
         splits = lib.fused_mbconv_splits(b, h, w, ch, 1)
         chunks = -(-ch // 32)
@@ -543,6 +593,8 @@ def phase_k2(dev):
                   f"{controls[(shape[:6], res, 'h f32')]}, d f32 "
                   f"{controls[(shape[:6], res, 'd f32')]}")
             worst32, worst16 = max(worst32, err32), max(worst16, err16)
+            e32, e16 = by_shape.get(shape, (0.0, 0.0))
+            by_shape[shape] = (max(e32, err32), max(e16, err16))
     # the bf16 kernel at split counts other than the launcher's, through the launcher:
     # every S of a ragged 3-chunk case (Cin 24 padded), and the 30-chunk 17x30 shape
     # unsplit and one chunk per block
@@ -556,7 +608,7 @@ def phase_k2(dev):
             print(f"[K2] {shape[:6]} residual={res}, S={sp} (forced): bf16 max-abs {err16:.3g} "
                   f"(tol 8e-3·|ref| + 1e-3; {beyond} beyond it, within the flip allowance)")
             worst16 = max(worst16, err16)
-    return worst32, worst16, controls
+    return worst32, worst16, controls, by_shape
 
 
 def k2_launch_forced(lib, x, args, residual, splits):
@@ -692,7 +744,6 @@ def phase_slice(dev):
     from openstereo_tpu_torch.config import load_config
     from openstereo_tpu_torch.data.transforms import build_transforms
     from openstereo_tpu_torch.models import build_model, set_kernels
-    from openstereo_tpu_torch.ops import kernels
     from openstereo_tpu_torch.tools.infer import run_pair
 
     cfg = load_config(str(CFG_FILE))
@@ -703,24 +754,11 @@ def phase_slice(dev):
     print(f"[slice] LightStereo-S ({n_params} parameters), {H}x{W} b1 bf16, {N_PAIRS} pairs")
 
     run_pair(model, tf, *pairs[0])  # warm-up: kernel build and cuDNN plans
-    torch.cuda.synchronize()
-    kernels.reset_launch_counts()
-    wired = [run_pair(model, tf, *p) for p in pairs]  # the main path
-    torch.cuda.synchronize()
-    launches = dict(kernels.launch_counts)
-    shapes = {k: dict(v) for k, v in kernels.launch_shapes.items()}
-    print(f"[slice] launches over {N_PAIRS} frames: {launches}; per frame: "
-          f"{ {k: v / N_PAIRS for k, v in launches.items()} }")
-    check(launches["corr_volume"] == N_PAIRS, f"K1 launches {launches} != 1 per frame")
-    check(launches["fused_mbconv"] == 18 * N_PAIRS, f"K2 launches {launches} != 18 per frame")
-    per_frame = {}
-    for name, want in (("corr_volume", {K1_SHAPE: 1}), ("fused_mbconv", K2_SHAPES)):
-        check(all(n % N_PAIRS == 0 for n in shapes[name].values()),
-              f"{name} launch shapes {shapes[name]} differ between frames")
-        per_frame[name] = {k: n // N_PAIRS for k, n in shapes[name].items()}
-        check(per_frame[name] == want,
-              f"{name} launch shapes per frame {per_frame[name]} != expected {want}")
-        print(f"[slice] {name} launches per frame by shape: {per_frame[name]}")
+    wired, launches, per_frame = record_path(  # the main path
+        {"corr_volume": {K1_SHAPE: 1}, "fused_mbconv": K2_SHAPES},
+        lambda: [run_pair(model, tf, *p) for p in pairs])
+    print(f"[slice] launches over {N_PAIRS} frames: {launches}; per frame by shape: "
+          f"{per_frame}")
 
     set_kernels(model, False)
     eager = [run_pair(model, tf, *p) for p in pairs]
@@ -744,9 +782,10 @@ def phase_slice(dev):
     return model, launches, per_frame, max32, mean16
 
 
-def record_launches(name, want, run):
-    """Zero the launch counts, `run()` the path, and hold the record of kernel
-    `name` against `want` (shape key → launches per frame)."""
+def record_path(want, run):
+    """Zero the launch counts, `run()` a path over N_PAIRS frames, and hold the
+    record of every kernel against `want` (kernel → shape key → launches per
+    frame); a kernel not in `want` must not have launched."""
     import torch
 
     from openstereo_tpu_torch.ops import kernels
@@ -756,16 +795,19 @@ def record_launches(name, want, run):
     out = run()
     torch.cuda.synchronize()
     launches = dict(kernels.launch_counts)
-    shapes = dict(kernels.launch_shapes[name])
-    check(launches[name] == sum(want.values()) * N_PAIRS,
-          f"{name} launches {launches} != {sum(want.values())} per frame")
-    check(all(n % N_PAIRS == 0 for n in shapes.values()),
-          f"{name} launch shapes {shapes} differ between frames")
-    per_frame = {k: n // N_PAIRS for k, n in shapes.items()}
-    check(per_frame == want, f"{name} launch shapes per frame {per_frame} != expected {want}")
-    print(f"[record] {name} launches over {N_PAIRS} frames: {launches[name]}; per frame by "
-          f"shape: {per_frame}")
-    return out, launches[name], per_frame
+    per_frame = {}
+    for name, n in launches.items():
+        shapes = dict(kernels.launch_shapes[name])
+        expected = want.get(name, {})
+        check(n == sum(expected.values()) * N_PAIRS,
+              f"{name} launches {n} over {N_PAIRS} frames != {sum(expected.values())} per frame")
+        check(all(k % N_PAIRS == 0 for k in shapes.values()),
+              f"{name} launch shapes {shapes} differ between frames")
+        if expected:
+            per_frame[name] = {k: c // N_PAIRS for k, c in shapes.items()}
+            check(per_frame[name] == expected,
+                  f"{name} launch shapes per frame {per_frame[name]} != expected {expected}")
+    return out, launches, per_frame
 
 
 def phase_sttr(dev):
@@ -784,8 +826,11 @@ def phase_sttr(dev):
     print(f"[sttr] STTR ({n_params} parameters), {STTR_HW[0]}x{STTR_HW[1]} b1 bf16, "
           f"{N_PAIRS} pairs")
     run_pair(model, tf, *pairs[0])  # warm-up: kernel build and cuDNN plans
-    wired, launches, per_frame = record_launches(
-        "rel_attention", K4_SHAPES, lambda: [run_pair(model, tf, *p) for p in pairs])
+    wired, launches, per_frame = record_path(
+        {"rel_attention": K4_SHAPES}, lambda: [run_pair(model, tf, *p) for p in pairs])
+    print(f"[record] launches over {N_PAIRS} frames: {launches}; per frame by shape: "
+          f"{per_frame}")
+    launches, per_frame = launches["rel_attention"], per_frame["rel_attention"]
 
     set_kernels(model, False)
     eager = [run_pair(model, tf, *p) for p in pairs]
@@ -852,41 +897,45 @@ def bound(nbytes, flops, card):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def phase_timing(dev, model, card, per_frame):
+def k1_timing(dev, per_frame, card, g, tag="K1"):
+    """K1 at the one shape a path launched it at (`per_frame`: shape → launches
+    per frame), bf16: CUDA events over back-to-back launches, device time per
+    launch (torch.profiler), the plain version, the bound; summed per frame."""
     import torch
-    import torch.nn.functional as F
 
     from openstereo_tpu_torch import ops
-    from openstereo_tpu_torch.tools.bench import bench_eager_vs_kernels
 
-    res = bench_eager_vs_kernels(model, groups=8, reps=20)
-    for path in ("eager", "kernels"):
-        print(f"[time] LightStereo-S {path}: {res[path]['fps']:.2f} frames/s, "
-              f"{res[path]['ms_per_frame']:.3f} ms/frame (median of {len(res[path]['group_ms'])} "
-              f"groups of 20 chained frames)")
-
-    g = torch.Generator().manual_seed(3)
-    (k1_shape, k1_count), = per_frame["corr_volume"].items()
-    b, c, h, w, d = k1_shape
+    (shape, count), = per_frame.items()
+    b, c, h, w, d = shape
     left, right = (torch.randn(b, c, h, w, generator=g).to(dev, torch.bfloat16) for _ in range(2))
     t_k = time_ms(lambda: ops.corr_volume(left, right, d))
     t_d = device_ms(lambda: ops.corr_volume(left, right, d))
     t_p = time_ms(lambda: ops.correlation_volume(left, right, d), iters=10)
-    t_b, by = bound(*k1_work(k1_shape, 2), card)
-    k1 = {"ms": k1_count * t_k, "device_ms": k1_count * t_d, "plain_ms": k1_count * t_p,
-          "yardstick_ms": None, "bound_ms": k1_count * t_b, "bound_by": by,
-          "bound_share": t_b / t_d, "launches_per_frame": k1_count,
-          "shapes": [{"shape": list(k1_shape), "launches_per_frame": k1_count, "ms": t_k,
-                      "device_ms": t_d, "plain_ms": t_p, "bound_ms": t_b, "bound_by": by}]}
-    print(f"[time] K1 {k1_shape} x{k1_count} bf16: kernel {t_k:.4f} ms (CUDA events over "
+    t_b, by = bound(*k1_work(shape, 2), card)
+    print(f"[time] {tag} {shape} x{count} bf16: kernel {t_k:.4f} ms (CUDA events over "
           f"back-to-back launches), device {t_d:.4f} ms per launch (torch.profiler), plain "
           f"{t_p:.4f} ms, bound {t_b:.4f} ms ({by}; {t_b / t_d:.1%} of the device time); no "
           f"single PyTorch call computes it")
+    return {"ms": count * t_k, "device_ms": count * t_d, "plain_ms": count * t_p,
+            "yardstick_ms": None, "bound_ms": count * t_b, "bound_by": by,
+            "bound_share": t_b / t_d, "launches_per_frame": count,
+            "shapes": [{"shape": list(shape), "launches_per_frame": count, "ms": t_k,
+                        "device_ms": t_d, "plain_ms": t_p, "bound_ms": t_b, "bound_by": by}]}
+
+
+def k2_timing(dev, per_frame, card, g, tag="K2"):
+    """K2 at each shape a path launched it at, bf16: the kernel, its plain
+    version, the cuDNN pw→dw→pw chain with folded BN (a yardstick, not one
+    call), the bound; summed per frame with the launches of `per_frame`."""
+    import torch
+    import torch.nn.functional as F
+
+    from openstereo_tpu_torch import ops
 
     k2 = {"ms": 0.0, "plain_ms": 0.0, "yardstick_ms": 0.0, "bound_ms": 0.0, "shapes": [],
-          "launches_per_frame": sum(per_frame["fused_mbconv"].values())}
+          "launches_per_frame": sum(per_frame.values())}
     t_bytes = t_ops = 0.0
-    for shape, count in sorted(per_frame["fused_mbconv"].items(), reverse=True):
+    for shape, count in sorted(per_frame.items(), reverse=True):
         res_ = shape[-1]
         x, args = k2_inputs(shape, dev, torch.bfloat16, g)
         w1, b1, dw, b2, w2, b3 = args
@@ -913,12 +962,30 @@ def phase_timing(dev, model, card, per_frame):
             k2[key] += count * t
         k2["shapes"].append({"shape": list(shape), "launches_per_frame": count, "ms": t_k,
                              "plain_ms": t_p, "yardstick_ms": t_y, "bound_ms": t_b, "bound_by": by})
-        print(f"[time] K2 {shape} x{count} bf16: kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
+        print(f"[time] {tag} {shape} x{count} bf16: kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
               f"cuDNN chain {t_y:.4f} ms, bound {t_b:.4f} ms ({by})")
+        del x, args
     k2["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
-    print(f"[time] K2 per frame ({k2['launches_per_frame']} launches): kernel {k2['ms']:.4f} ms, plain "
-          f"{k2['plain_ms']:.4f} ms, cuDNN chain {k2['yardstick_ms']:.4f} ms, "
-          f"bound {k2['bound_ms']:.4f} ms")
+    print(f"[time] {tag} per frame ({k2['launches_per_frame']} launches): kernel "
+          f"{k2['ms']:.4f} ms, plain {k2['plain_ms']:.4f} ms, cuDNN chain "
+          f"{k2['yardstick_ms']:.4f} ms, bound {k2['bound_ms']:.4f} ms")
+    return k2
+
+
+def phase_timing(dev, model, card, per_frame):
+    import torch
+
+    from openstereo_tpu_torch.tools.bench import bench_eager_vs_kernels
+
+    res = bench_eager_vs_kernels(model, groups=8, reps=20)
+    for path in ("eager", "kernels"):
+        print(f"[time] LightStereo-S {path}: {res[path]['fps']:.2f} frames/s, "
+              f"{res[path]['ms_per_frame']:.3f} ms/frame (median of {len(res[path]['group_ms'])} "
+              f"groups of 20 chained frames, spread {res[path]['group_spread']:.1%}); host issue "
+              f"{res[path]['host_issue_ms']:.3f} ms/frame")
+    g = torch.Generator().manual_seed(3)
+    k1 = k1_timing(dev, per_frame["corr_volume"], card, g)
+    k2 = k2_timing(dev, per_frame["fused_mbconv"], card, g)
     return res, k1, k2
 
 
@@ -941,15 +1008,16 @@ def phase_timing_sttr(dev, model, card, per_frame):
     for path in ("eager", "kernels"):
         print(f"[time] STTR {path}: {res[path]['fps']:.3f} frames/s, "
               f"{res[path]['ms_per_frame']:.3f} ms/frame (median of {len(res[path]['group_ms'])} "
-              f"groups of 3 chained frames)")
+              f"groups of 3 chained frames); host issue {res[path]['host_issue_ms']:.3f} ms/frame")
     prof = profile_paths(model, 2, str(OUT_DIR / "sttr_profile"), size=STTR_HW)
     for path, r in prof.items():
         r["idle_share"] = 1.0 - r["device_busy_ms_per_frame"] / res[path]["ms_per_frame"]
         top = "; ".join(f"{t['kernel'][:60]} {t['ms_per_frame']:.3f} ms x{t['calls_per_frame']:g}"
                         for t in r["top"][:6])
         print(f"[profile] STTR {path}: device busy {r['device_busy_ms_per_frame']:.3f} ms/frame, "
-              f"idle share {r['idle_share']:.4f} (against {res[path]['ms_per_frame']:.3f} "
-              f"ms/frame untraced); top: {top}")
+              f"{r['device_ops_per_frame']:g} device operations a frame, idle share "
+              f"{r['idle_share']:.4f} (against {res[path]['ms_per_frame']:.3f} ms/frame untraced); "
+              f"top: {top}")
 
     g = torch.Generator().manual_seed(5)
     k4 = {"ms": 0.0, "plain_ms": 0.0, "yardstick_ms": 0.0, "bound_ms": 0.0, "exp_count": 0,
@@ -1029,7 +1097,6 @@ def phase_gwcnet(dev):
     from openstereo_tpu_torch.config import load_config
     from openstereo_tpu_torch.data.transforms import build_transforms
     from openstereo_tpu_torch.models import build_model, set_kernels
-    from openstereo_tpu_torch.ops import kernels
     from openstereo_tpu_torch.tools.infer import run_pair
 
     cfg = load_config(str(GWC_CFG))
@@ -1039,10 +1106,11 @@ def phase_gwcnet(dev):
     n_params = sum(p.numel() for p in model.parameters())
     print(f"[gwcnet] GwcNet ({n_params} parameters), {H}x{W} b1 bf16, {N_PAIRS} pairs")
     run_pair(model, tf, *pairs[0])  # warm-up: kernel build and cuDNN plans
-    wired, launches, per_frame = record_launches(
-        "gwc_volume", {K3_SHAPE: 1}, lambda: [run_pair(model, tf, *p) for p in pairs])
-    others = {k: n for k, n in kernels.launch_counts.items() if k != "gwc_volume" and n}
-    check(not others, f"GwcNet launched other kernels: {others}")
+    wired, launches, per_frame = record_path(
+        {"gwc_volume": {K3_SHAPE: 1}}, lambda: [run_pair(model, tf, *p) for p in pairs])
+    print(f"[record] launches over {N_PAIRS} frames: {launches}; per frame by shape: "
+          f"{per_frame}")
+    launches, per_frame = launches["gwc_volume"], per_frame["gwc_volume"]
 
     set_kernels(model, False)
     eager = [run_pair(model, tf, *p) for p in pairs]
@@ -1073,7 +1141,6 @@ def phase_psmnet(dev):
     from openstereo_tpu_torch.config import load_config
     from openstereo_tpu_torch.data.transforms import build_transforms
     from openstereo_tpu_torch.models import build_model
-    from openstereo_tpu_torch.ops import kernels
     from openstereo_tpu_torch.tools.infer import run_pair
 
     cfg = load_config(str(PSM_CFG))
@@ -1083,15 +1150,10 @@ def phase_psmnet(dev):
     n_params = sum(p.numel() for p in model.parameters())
     print(f"[psmnet] PSMNet ({n_params} parameters), {H}x{W} b1 bf16, {N_PAIRS} pairs")
     run_pair(model, tf, *pairs[0])  # warm-up: cuDNN plans
-    torch.cuda.synchronize()
-    kernels.reset_launch_counts()
-    disps = [run_pair(model, tf, *p) for p in pairs]
-    torch.cuda.synchronize()
-    launched = {k: n for k, n in kernels.launch_counts.items() if n}
-    check(not launched, f"PSMNet launched kernels of the port: {launched}")
+    disps, launches, _ = record_path({}, lambda: [run_pair(model, tf, *p) for p in pairs])
     for d in disps:
         check(d.shape == (H, W) and np.isfinite(d).all(), "PSMNet bf16 disparity not finite [H,W]")
-    print(f"[psmnet] launches over {N_PAIRS} frames: {dict(kernels.launch_counts)} (no Pallas "
+    print(f"[psmnet] launches over {N_PAIRS} frames: {launches} (no Pallas "
           f"kernel lies on the JAX PSMNet path, so none of the port's either); bf16 disparity "
           f"finite, {H}x{W}, range {disps[0].min():.2f}..{disps[0].max():.2f}")
     return model
@@ -1107,7 +1169,6 @@ def k3_work(shape, elem):
 def phase_timing_3d(dev, gwcnet, psmnet, card, per_frame):
     import torch
 
-    from openstereo_tpu_torch import ops
     from openstereo_tpu_torch.tools.bench import (bench_eager_vs_kernels, pair, profile_paths,
                                                   time_frames)
 
@@ -1133,7 +1194,16 @@ def phase_timing_3d(dev, gwcnet, psmnet, card, per_frame):
               f"ms/frame, idle share {r['idle_share']:.4f} (against {ms:.3f} ms/frame "
               f"untraced); top: {top}")
 
-    g = torch.Generator().manual_seed(7)
+    k3 = k3_timing(dev, per_frame, card, torch.Generator().manual_seed(7))
+    return res, psm, prof, k3
+
+
+def k3_timing(dev, per_frame, card, g, tag="K3"):
+    """K3 at the one shape a path launched it at, bf16, as `k1_timing`."""
+    import torch
+
+    from openstereo_tpu_torch import ops
+
     (shape, count), = per_frame.items()
     b, c, h, w, d, gr = shape
     left, right = (torch.randn(b, c, h, w, generator=g).to(dev, torch.bfloat16) for _ in range(2))
@@ -1142,17 +1212,156 @@ def phase_timing_3d(dev, gwcnet, psmnet, card, per_frame):
     t_p = time_ms(lambda: ops.build_gwc_volume(left, right, d, gr), iters=10)
     nbytes, flops = k3_work(shape, 2)
     t_b, by = bound(nbytes, flops, card)
-    k3 = {"ms": count * t_k, "device_ms": count * t_d, "plain_ms": count * t_p,
-          "yardstick_ms": None, "bound_ms": count * t_b, "bound_by": by,
-          "bound_share": t_b / t_d, "launches_per_frame": count,
-          "shapes": [{"shape": list(shape), "launches_per_frame": count, "ms": t_k,
-                      "device_ms": t_d, "plain_ms": t_p, "bound_ms": t_b, "bound_by": by,
-                      "bytes": nbytes, "flops": flops}]}
-    print(f"[time] K3 {shape} x{count} bf16: kernel {t_k:.4f} ms (CUDA events over "
+    print(f"[time] {tag} {shape} x{count} bf16: kernel {t_k:.4f} ms (CUDA events over "
           f"back-to-back launches), device {t_d:.4f} ms per launch (torch.profiler), plain "
           f"{t_p:.4f} ms, bound {t_b:.4f} ms ({by}; {nbytes} B, {flops} flop; "
           f"{t_b / t_d:.1%} of the device time); no single PyTorch call computes it")
-    return res, psm, prof, k3
+    return {"ms": count * t_k, "device_ms": count * t_d, "plain_ms": count * t_p,
+            "yardstick_ms": None, "bound_ms": count * t_b, "bound_by": by,
+            "bound_share": t_b / t_d, "launches_per_frame": count,
+            "shapes": [{"shape": list(shape), "launches_per_frame": count, "ms": t_k,
+                        "device_ms": t_d, "plain_ms": t_p, "bound_ms": t_b, "bound_by": by,
+                        "bytes": nbytes, "flops": flops}]}
+
+
+def model_paths():
+    """The CoEx, MSNet3D and MSNet2D paths: (name, config, the kernels each
+    must launch per frame by shape, the module whose output feeds a top-k head
+    or None, the timing protocol). CoEx's top-k head picks 2 of its 48 costs;
+    with random weights the costs are nearly flat, so a bf16 rounding moves
+    the picks and the bf16 disparity of either path lies ~11 px from the f32
+    one (the phase prints both; the flax model's own bf16 lies as far from
+    its f32, `tests/coex_bf16_witness.py`): its bf16 check holds the cost
+    that feeds the head, and the kernel path's distance from the f32
+    disparity against the eager path's. Its f32 check is a share of pixels,
+    as near-ties may flip there too (as STTR's argmax may). The protocol:
+    (timing groups, chained frames per group, frames profiled), about 0.25-1
+    s per group, as LightStereo-S's 8 groups of 20."""
+    return [
+        ("CoEx", COEX_CFG, {"corr_volume": {COEX_K1_SHAPE: 1}, "fused_mbconv": COEX_K2_SHAPES},
+         "CostProcessor.cost_agg", (8, 20, 20)),
+        ("MSNet3D", MSNET3D_CFG, {"gwc_volume": {K3_SHAPE: 1}, "fused_mbconv": MSNET3D_K2_SHAPES},
+         None, (8, 12, 6)),
+        ("MSNet2D", MSNET2D_CFG, {"fused_mbconv": MSNET2D_K2_SHAPES}, None, (8, 20, 10)),
+    ]
+
+
+def phase_model(dev, name, cfg_file, want, topk_input):
+    """One of the CoEx/MSNet paths at 544x960, b1, bf16, random weights (seed
+    0), through `run_pair` on the synthetic pairs: the launch records, peak
+    memory, and the kernel path against the eager path. f32 (TF32 off):
+    max-abs <= 5e-3 px, or with a top-k head >= 99.9 % of the pixels within
+    5e-3 px. bf16: mean-abs <= 0.5 px; with a top-k head (`topk_input`, the
+    module whose output feeds it), that cost within one bf16 unit of its
+    largest magnitude on average, and the kernel path's disparity no more
+    than 5 % further from the f32 eager one than the eager path's is
+    (`model_paths` says why). Each bf16 path's distance from the f32 eager
+    disparity is printed for every model."""
+    import torch
+
+    from openstereo_tpu_torch.config import load_config
+    from openstereo_tpu_torch.data.transforms import build_transforms
+    from openstereo_tpu_torch.models import build_model, set_kernels
+    from openstereo_tpu_torch.tools.infer import run_pair
+
+    tag = f"[{name.lower()}]"
+    cfg = load_config(str(cfg_file))
+    tf = build_transforms(cfg.DATA_CONFIG.DATA_TRANSFORM["EVALUATING"])
+    pairs = list(synthetic_pairs())
+    model = build_model(cfg.MODEL, dtype=torch.bfloat16, device=dev, seed=0)
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"{tag} {name} ({n_params} parameters), {H}x{W} b1 bf16, {N_PAIRS} pairs")
+    run_pair(model, tf, *pairs[0])  # warm-up: kernel build and cuDNN plans
+    costs = {"kernels": [], "eager": []}
+    if topk_input:
+        hook = model.get_submodule(topk_input).register_forward_hook(
+            lambda mod, inp, out: costs[path].append(out.float()))
+    path = "kernels"
+    torch.cuda.reset_peak_memory_stats(dev)
+    wired, launches, per_frame = record_path(want, lambda: [run_pair(model, tf, *p)
+                                                            for p in pairs])
+    peak = torch.cuda.max_memory_allocated(dev)
+    print(f"{tag} launches over {N_PAIRS} frames: {launches}; per frame by shape: {per_frame}; "
+          f"peak memory (max_memory_allocated) {peak / 2**30:.3f} GiB")
+    path = "eager"
+    set_kernels(model, False)
+    eager = [run_pair(model, tf, *p) for p in pairs]
+    set_kernels(model, True)
+    if topk_input:
+        hook.remove()
+    for d in wired + eager:
+        check(d.shape == (H, W) and np.isfinite(d).all(), f"{name} bf16 disparity not finite [H,W]")
+    mean16 = max(float(np.abs(a - b).mean()) for a, b in zip(wired, eager))
+
+    model32 = build_model(cfg.MODEL, dtype=torch.float32, device=dev, seed=0)
+    max32, share32, eager32 = 0.0, 1.0, []
+    for p in pairs:
+        a = run_pair(set_kernels(model32, True), tf, *p)
+        eager32.append(run_pair(set_kernels(model32, False), tf, *p))
+        d = np.abs(a - eager32[-1])
+        max32, share32 = max(max32, float(d.max())), min(share32, float((d <= 5e-3).mean()))
+    del model32
+    torch.cuda.empty_cache()
+    to_f32 = {k: max(float(np.abs(a - b).mean()) for a, b in zip(ds, eager32))
+              for k, ds in (("kernels", wired), ("eager", eager))}
+    print(f"{tag} f32 kernel vs eager: max-abs {max32:.3g} px, share within 5e-3 px "
+          f"{share32:.6f} (tol {'>= 0.999' if topk_input else 'max-abs 5e-3'}); bf16 kernel vs "
+          f"eager: mean-abs {mean16:.4g} px (tol {'-' if topk_input else '0.5'}); bf16 vs the f32 "
+          f"eager disparity, mean-abs: kernels {to_f32['kernels']:.4g} px, eager "
+          f"{to_f32['eager']:.4g} px; bf16 disparity range {wired[0].min():.2f}.."
+          f"{wired[0].max():.2f}")
+    rec = {"launches": launches, "per_frame": per_frame, "peak_bytes": peak,
+           "max_abs_f32": max32, "share_within_5e-3_f32": share32, "mean_abs_bf16": mean16,
+           "mean_abs_bf16_to_f32": to_f32}
+    if topk_input:
+        check(share32 >= 0.999, f"{name} f32 kernel vs eager: only {share32} of pixels within "
+                                f"5e-3 px")
+        cost = max(float((a - b).abs().mean() / b.abs().max())
+                   for a, b in zip(costs["kernels"], costs["eager"]))
+        print(f"{tag} bf16 kernel vs eager, the cost feeding the top-k head ({topk_input}): "
+              f"mean-abs {cost:.3g} of its largest magnitude (tol 2^-7 = {2 ** -7:.3g})")
+        check(cost <= 2 ** -7, f"{name} bf16 top-k input: mean-abs {cost}·max|cost| > 2^-7")
+        check(to_f32["kernels"] <= 1.05 * to_f32["eager"],
+              f"{name} bf16 kernel path {to_f32['kernels']} px from the f32 disparity, the eager "
+              f"path {to_f32['eager']} px: more than 5 % further")
+        rec["topk_input_mean_abs_rel_bf16"] = cost
+    else:
+        check(max32 <= 5e-3, f"{name} f32 kernel vs eager max-abs {max32} px > 5e-3")
+        check(mean16 <= 0.5, f"{name} bf16 kernel vs eager mean-abs {mean16} px > 0.5")
+    return model, rec
+
+
+def phase_timing_model(dev, name, model, card, per_frame, protocol):
+    """Frames/s of both paths (the bench protocol: `groups` groups of `reps`
+    chained frames, with the spread between groups and the host's issue time
+    per frame), a torch.profiler pass over `frames` frames of each (tables in
+    `chiprun_out/<name>_profile/`), and each kernel of the path at its
+    shapes beside its plain version and its bound."""
+    import torch
+
+    from openstereo_tpu_torch.tools.bench import bench_eager_vs_kernels, profile_paths
+
+    groups, reps, frames = protocol
+    res = bench_eager_vs_kernels(model, groups=groups, reps=reps)
+    prof = profile_paths(model, frames, str(OUT_DIR / f"{name.lower()}_profile"))
+    for path in ("eager", "kernels"):
+        r, b = prof[path], res[path]
+        ms = b["ms_per_frame"]
+        r["idle_share"] = 1.0 - r["device_busy_ms_per_frame"] / ms
+        top = "; ".join(f"{t['kernel'][:60]} {t['ms_per_frame']:.3f} ms x{t['calls_per_frame']:g}"
+                        for t in r["top"][:8])
+        print(f"[time] {name} {path}: {b['fps']:.3f} frames/s, {ms:.3f} ms/frame (median of "
+              f"{len(b['group_ms'])} groups of {reps} chained frames; groups "
+              f"{min(b['group_ms']):.3f}..{max(b['group_ms']):.3f} ms, spread "
+              f"{b['group_spread']:.1%}); host issue {b['host_issue_ms']:.3f} ms/frame")
+        print(f"[profile] {name} {path}: device busy {r['device_busy_ms_per_frame']:.3f} "
+              f"ms/frame over {frames} frames, {r['device_ops_per_frame']:g} device operations "
+              f"a frame, idle share {r['idle_share']:.4f}; top: {top}")
+    g = torch.Generator().manual_seed(9)
+    timing = {"corr_volume": k1_timing, "fused_mbconv": k2_timing, "gwc_volume": k3_timing}
+    kernel_times = {k: timing[k](dev, shapes, card, g, tag=f"{k} ({name})")
+                    for k, shapes in per_frame.items()}
+    return res, prof, kernel_times
 
 
 def phase_eval_batch(dev):
@@ -1410,6 +1619,24 @@ def phase_overfit():
     return res
 
 
+def path_entries(models, kernel, errors):
+    """The `paths` field of a kernel's JSON entry: for each CoEx/MSNet path
+    that launched it, the launches counted on that path's run, per frame by
+    shape, the times per frame at those shapes (`k1/k2/k3_timing`) and the
+    errors at those shapes from the kernel phases."""
+    out = {}
+    for name, rec in models.items():
+        if kernel not in rec["per_frame"]:
+            continue
+        t = rec["kernels"][kernel]
+        out[name] = dict(launches=rec["launches"][kernel],
+                         launches_per_frame=t["launches_per_frame"],
+                         **{k: t[k] for k in ("ms", "device_ms", "plain_ms", "yardstick_ms",
+                                              "bound_ms", "bound_by", "shapes") if k in t},
+                         **errors.get(name, {}))
+    return out
+
+
 def main():
     try:
         import torch
@@ -1430,8 +1657,8 @@ def main():
     dev = torch.device("cuda")
     t0 = time.perf_counter()
     try:
-        smi, name = phase_card()
-        card = peaks(name)
+        smi, kind = phase_card()
+        card = peaks(kind)
         ptxas = phase_build()
         k1_err = phase_k1(dev)
         k2_err = phase_k2(dev)
@@ -1449,6 +1676,14 @@ def main():
                                                              k3_per_frame)
         del gwcnet, psmnet
         torch.cuda.empty_cache()
+        models = {}
+        for name, cfg_file, want, rule, protocol in model_paths():
+            model, rec = phase_model(dev, name, cfg_file, want, rule)
+            rec["bench"], rec["profile"], rec["kernels"] = phase_timing_model(
+                dev, name, model, card, rec["per_frame"], protocol)
+            models[name] = rec
+            del model
+            torch.cuda.empty_cache()
         k1_eval, k2_eval, k2_eval_splits = phase_eval_batch(dev)
         trained = phase_train(dev)
         overfit = phase_overfit()
@@ -1459,8 +1694,11 @@ def main():
     entries = [
         dict(name="corr_volume", route="cuda", source="openstereo_tpu_torch/csrc/cost_volume.cu",
              replaces="openstereo_tpu/ops/pallas/corr_volume.py:34",
-             launches=launches["corr_volume"], max_abs_err=k1_err[1],
-             max_abs_err_f32=k1_err[0], not_bit_equal_share=k1_err[2],
+             launches=launches["corr_volume"], max_abs_err=k1_err["main"][1],
+             max_abs_err_f32=k1_err["main"][0], not_bit_equal_share=k1_err["main"][2],
+             paths=path_entries(models, "corr_volume",
+                                {"CoEx": dict(zip(("max_abs_err_f32", "max_abs_err",
+                                                   "not_bit_equal_share"), k1_err["CoEx"]))}),
              launches_trainer_eval=trained["launches"]["corr_volume"],
              eval_batch=dict(shape=list(K1_EVAL_SHAPE), max_abs_err=k1_eval[1],
                              max_abs_err_f32=k1_eval[0], not_bit_equal_share=k1_eval[2]),
@@ -1469,6 +1707,10 @@ def main():
              replaces="openstereo_tpu/ops/pallas/fused_mbconv.py:53",
              launches=launches["fused_mbconv"], max_abs_err=k2_err[1],
              max_abs_err_f32=k2_err[0], library_ms=None,
+             paths=path_entries(models, "fused_mbconv", {
+                 name: {"max_abs_err_f32": max(k2_err[3][k][0] for k in want["fused_mbconv"]),
+                        "max_abs_err": max(k2_err[3][k][1] for k in want["fused_mbconv"])}
+                 for name, _, want, _, _ in model_paths()}),
              launches_trainer_eval=trained["launches"]["fused_mbconv"],
              eval_batch=dict(max_abs_err=k2_eval[1], max_abs_err_f32=k2_eval[0],
                              splits=[dict(shape=list(k), splits=v)
@@ -1492,6 +1734,8 @@ def main():
              replaces="openstereo_tpu/ops/pallas/corr_volume.py:103",
              launches=k3_launches, max_abs_err=k3_err[1], max_abs_err_f32=k3_err[0],
              not_bit_equal_share=k3_err[2], flip_share=VOLUME_FLIP_SHARE, library_ms=None,
+             paths=path_entries(models, "gwc_volume", {"MSNet3D": dict(zip(
+                 ("max_abs_err_f32", "max_abs_err", "not_bit_equal_share"), k3_err))}),
              ptxas=ptxas["cost_volume"], **k3),
     ]
     print(f"[slice] fps eager {bench['eager']['fps']:.2f}, kernels {bench['kernels']['fps']:.2f}; "
@@ -1510,6 +1754,18 @@ def main():
           f"{gwc_prof['kernels']['device_busy_ms_per_frame']:.3f} ms/frame (kernels), "
           f"{gwc_prof['eager']['device_busy_ms_per_frame']:.3f} (eager); PSMNet fps "
           f"{psm_bench['fps']:.3f}; total {time.perf_counter() - t0:.1f} s")
+    for name, rec in models.items():
+        b, p = rec["bench"], rec["profile"]
+        print(f"[{name.lower()}] fps eager {b['eager']['fps']:.3f}, kernels "
+              f"{b['kernels']['fps']:.3f} (group spread {b['eager']['group_spread']:.1%}, "
+              f"{b['kernels']['group_spread']:.1%}; host issue {b['eager']['host_issue_ms']:.3f}, "
+              f"{b['kernels']['host_issue_ms']:.3f} ms/frame); f32 max-abs {rec['max_abs_f32']:.3g} px "
+              f"({rec['share_within_5e-3_f32']:.6f} within 5e-3), bf16 mean-abs "
+              f"{rec['mean_abs_bf16']:.3g} px; device busy "
+              f"{p['kernels']['device_busy_ms_per_frame']:.3f} ms/frame (kernels, idle "
+              f"{p['kernels']['idle_share']:.4f}), {p['eager']['device_busy_ms_per_frame']:.3f} "
+              f"(eager, idle {p['eager']['idle_share']:.4f}); peak {rec['peak_bytes'] / 2**30:.3f} "
+              f"GiB")
     print(f"[train] LightStereo-S 320x736 b24 bf16: {trained['ms_per_step']:.2f} ms/step (median "
           f"of steps 2-4), {trained['samples_per_s']:.1f} samples/s, peak "
           f"{trained['peak_bytes'] / 2**30:.3f} GiB; losses {trained['losses']}; evaluation EPE "
@@ -1518,7 +1774,7 @@ def main():
           f"{time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": entries}))
     print(smi)
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
     return 0
 

@@ -1,7 +1,8 @@
 """Model registry and `build_model` (counterpart of `openstereo_tpu/models/__init__.py:32`).
 
-LightStereo, STTR, GwcNet and PSMNet are ported; the other names of the
-JAX zoo raise NotImplementedError naming the ROADMAP item that brings them.
+LightStereo, STTR, GwcNet, PSMNet, CoEx, MSNet3D and MSNet2D are ported;
+the other names of the JAX zoo raise NotImplementedError naming the ROADMAP
+item that brings them.
 """
 
 from __future__ import annotations
@@ -13,21 +14,22 @@ import torch.nn as nn
 
 from ..config import Config, get_valid_kwargs
 from ..device import resolve_device
+from .coex import CoExNet
 from .gwcnet import GwcNet
 from .layers import set_kernels  # noqa: F401
 from .lightstereo import LightStereo
+from .msnet import MSNet2D, MSNet3D
 from .psmnet import PSMNet
 from .sttr import STTR
 from .sttr.blocks import WNConv
 from .sttr.sttr import RegressionHead
 from .sttr.transformer import MultiheadAttentionRelative
 
-MODELS = {"LightStereo": LightStereo, "STTR": STTR, "GwcNet": GwcNet, "PSMNet": PSMNet}
+MODELS = {"LightStereo": LightStereo, "STTR": STTR, "GwcNet": GwcNet, "PSMNet": PSMNet,
+          "CoExNet": CoExNet, "MSNet3D": MSNet3D, "MSNet2D": MSNet2D}
 
 # JAX-zoo names still to be ported → the ROADMAP item (queue 1) that ports them
 NOT_PORTED = {
-    "CoExNet": "Slice D, item 11",
-    "MSNet2D": "Slice D, item 11", "MSNet3D": "Slice D, item 11",
     "CasPSMNet": "Slice D, item 12", "CasGwcNet": "Slice D, item 12",
     "CFNet": "Slice D, item 12", "FADNet": "Slice D, item 12",
     "IGEV": "Slice E, item 14", "IGEVRT": "Slice E, item 14",

@@ -1,9 +1,11 @@
 """MobileNetV2-1.0 trunk, NCHW (counterpart of `openstereo_tpu/models/backbones/mobilenetv2.py:23-81`).
 
-Attribute names follow timm's `mobilenetv2_100` as the reference LightStereo
-backbone re-slices it (`utils/torch_convert.py:_ls_trunk`): conv_stem/bn1,
+Attribute names follow timm's `mobilenetv2_100` as the reference re-slices
+it. LightStereo's layout (`utils/torch_convert.py:_ls_trunk`): conv_stem/bn1,
 block0 = blocks[0], block1..2 = blocks[1..2], block3 = blocks[3:5] (children
-"3" and "4"), block4 = blocks[5]. Stage taps:
+"3" and "4"), block4 = blocks[5]. The `sliced` layout of CoEx and IGEV
+(`_timm_trunk_sliced`) wraps each slice in one more Sequential:
+block0.0.0, blockK.<stage within the slice>.<block>. Stage taps:
 
     c1 16@1/2 · c2 24@1/4 · c3 32@1/8 · c4 96@1/16 · c5 160@1/32
 """
@@ -82,20 +84,34 @@ def _stage(si: int, inp: int) -> nn.Sequential:
 
 
 class MobileNetV2Features(nn.Module):
-    """[B,3,H,W] → [c1@1/2, c2@1/4, c3@1/8, c4@1/16, c5@1/32]."""
+    """[B,3,H,W] → [c1@1/2, c2@1/4, c3@1/8, c4@1/16, c5@1/32].
 
-    def __init__(self):
+    `stem_act` False applies the stem BN with no relu6, as CoEx's trunk does
+    (`backbones/mobilenetv2.py:56-70`); `sliced` picks CoEx's key layout."""
+
+    def __init__(self, stem_act: bool = True, sliced: bool = False):
         super().__init__()
+        self.stem_act = stem_act
         self.conv_stem = nn.Conv2d(3, 32, 3, 2, 1, bias=False)
         self.bn1 = nn.BatchNorm2d(32)
-        self.block0 = nn.Sequential(DepthwiseSeparable(32, 16))
-        self.block1 = _stage(1, 16)
-        self.block2 = _stage(2, 24)
-        self.block3 = nn.Sequential(OrderedDict([("3", _stage(3, 32)), ("4", _stage(4, 64))]))
-        self.block4 = _stage(5, 96)
+        block0 = nn.Sequential(DepthwiseSeparable(32, 16))
+        if sliced:
+            self.block0 = nn.Sequential(block0)
+            self.block1 = nn.Sequential(_stage(1, 16))
+            self.block2 = nn.Sequential(_stage(2, 24))
+            self.block3 = nn.Sequential(_stage(3, 32), _stage(4, 64))
+            self.block4 = nn.Sequential(_stage(5, 96))
+        else:
+            self.block0 = block0
+            self.block1 = _stage(1, 16)
+            self.block2 = _stage(2, 24)
+            self.block3 = nn.Sequential(OrderedDict([("3", _stage(3, 32)), ("4", _stage(4, 64))]))
+            self.block4 = _stage(5, 96)
 
     def forward(self, x) -> List:
-        x = relu6(apply_norm(run_conv(x, self.conv_stem), self.bn1))
+        x = apply_norm(run_conv(x, self.conv_stem), self.bn1)
+        if self.stem_act:
+            x = relu6(x)
         taps = []
         for blk in (self.block0, self.block1, self.block2, self.block3, self.block4):
             x = blk(x)

@@ -88,12 +88,19 @@ DECONVS = {nn.ConvTranspose2d: F.conv_transpose2d, nn.ConvTranspose3d: F.conv_tr
 
 
 def run_conv(x: torch.Tensor, conv: nn.Module) -> torch.Tensor:
-    """Apply an nn.Conv2d/3d or nn.ConvTranspose2d/3d in x's dtype."""
+    """Apply an nn.Conv2d/3d or nn.ConvTranspose2d/3d in x's dtype.
+
+    Below f32 a bias is added after the conv's result is rounded, as flax's
+    `nn.Conv` adds it (two roundings; a conv with its bias fused rounds once)."""
     w, b = compute_weight(conv.weight, x.dtype), compute_weight(conv.bias, x.dtype)
+    split = b is not None and x.dtype in (torch.bfloat16, torch.float16)
+    fused = None if split else b
     if type(conv) in DECONVS:
-        return DECONVS[type(conv)](x, w, b, conv.stride, conv.padding, conv.output_padding,
-                                   conv.groups, conv.dilation)
-    return CONVS[type(conv)](x, w, b, conv.stride, conv.padding, conv.dilation, conv.groups)
+        y = DECONVS[type(conv)](x, w, fused, conv.stride, conv.padding, conv.output_padding,
+                                conv.groups, conv.dilation)
+    else:
+        y = CONVS[type(conv)](x, w, fused, conv.stride, conv.padding, conv.dilation, conv.groups)
+    return y + b.reshape((-1,) + (1,) * (y.dim() - 2)) if split else y
 
 
 def batch_norm_train(x: torch.Tensor, norm: nn.Module) -> torch.Tensor:
@@ -149,18 +156,26 @@ def freeze_bn(model: nn.Module) -> nn.Module:
     return model
 
 
+NORMS = (nn.BatchNorm2d, nn.BatchNorm3d, nn.InstanceNorm2d)
+
+
 def run_seq(x: torch.Tensor, seq: nn.Sequential) -> torch.Tensor:
-    """Eval walk of a reference-style Sequential of convs, norms, ReLUs and
-    nested Sequentials, each conv in x's dtype."""
+    """Walk of a reference-style Sequential: each conv in x's dtype, norms by
+    `apply_norm`, ReLU and ReLU6, nested Sequentials; any other module (a
+    block of the port) by its own forward."""
     for m in seq:
         if isinstance(m, nn.Sequential):
             x = run_seq(x, m)
         elif isinstance(m, nn.ReLU):
             x = F.relu(x)
+        elif isinstance(m, nn.ReLU6):
+            x = relu6(x)
         elif type(m) in CONVS or type(m) in DECONVS:
             x = run_conv(x, m)
-        else:
+        elif isinstance(m, NORMS):
             x = apply_norm(x, m)
+        else:
+            x = m(x)
     return x
 
 
@@ -174,15 +189,32 @@ def _norm(norm: Optional[str], ch: int, ndim: int = 2):
     raise ValueError(f"unknown norm {norm!r} for ndim {ndim}")
 
 
+def ntuple(v, n: int) -> tuple:
+    return tuple(v) if isinstance(v, (tuple, list)) else (v,) * n
+
+
+def conv_norm(in_ch: int, out_ch: int, kernel_size=3, stride=1, padding=None, dilation=1,
+              groups: int = 1, bias: bool = False, norm: Optional[str] = None,
+              ndim: int = 2) -> list:
+    """[conv, norm?]: the conv of `ConvBlock` (`layers.py:150-211`). Kernel,
+    stride, padding and dilation are an int or one value per axis; padding
+    None is torch's symmetric d·(k-1)/2 per axis (flax ConvBlock's "SAME" in
+    the JAX package), else explicit, as MSNet2D's compressor gives it
+    (`msnet.py:213-216`)."""
+    ks, dil = ntuple(kernel_size, ndim), ntuple(dilation, ndim)
+    if padding is None:
+        padding = tuple(d * (k - 1) // 2 for k, d in zip(ks, dil))
+    conv = (nn.Conv2d if ndim == 2 else nn.Conv3d)(
+        in_ch, out_ch, ks, stride, padding=padding, dilation=dil, groups=groups, bias=bias)
+    return [conv, *_norm(norm, out_ch, ndim)]
+
+
 def convbn(in_ch: int, out_ch: int, kernel_size: int = 3, stride: int = 1, dilation: int = 1,
            ndim: int = 2) -> nn.Sequential:
     """The reference's bias-free conv + BatchNorm, Sequential(conv, bn), with
-    torch's symmetric padding d·(k-1)/2 (flax ConvBlock's "SAME" in the JAX
-    package)."""
-    conv = (nn.Conv2d if ndim == 2 else nn.Conv3d)(
-        in_ch, out_ch, kernel_size, stride, padding=dilation * (kernel_size - 1) // 2,
-        dilation=dilation, bias=False)
-    return nn.Sequential(conv, *_norm("batch", out_ch, ndim))
+    torch's symmetric padding d·(k-1)/2."""
+    return nn.Sequential(*conv_norm(in_ch, out_ch, kernel_size, stride, dilation=dilation,
+                                    norm="batch", ndim=ndim))
 
 
 def deconv_bn(in_ch: int, out_ch: int, kernel_size: int = 4, norm: Optional[str] = None,
@@ -201,28 +233,31 @@ class ConvBlock(nn.Module):
     """Conv + optional norm + optional activation (`layers.py:150-211`), 2D
     (NCHW) or, with ndim=3, 3D (NCDHW).
 
-    Padding is torch's symmetric d·(k-1)/2; pad_mode "replicate" edge-pads
-    first and convolves unpadded. Keys: block.0 (conv), block.1 (norm).
+    Kernel, stride and dilation as `conv_norm` takes them (an int or one per
+    axis), with torch's symmetric padding d·(k-1)/2; pad_mode "replicate"
+    edge-pads first and convolves unpadded. Keys: block.0 (conv), block.1
+    (norm).
     """
 
-    def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 3, stride: int = 1,
-                 dilation: int = 1, groups: int = 1, bias: bool = False,
-                 norm: Optional[str] = None, act: Optional[Callable] = None,
-                 pad_mode: str = "zeros", ndim: int = 2):
+    def __init__(self, in_ch: int, out_ch: int, kernel_size=3, stride=1, dilation=1,
+                 groups: int = 1, bias: bool = False, norm: Optional[str] = None,
+                 act: Optional[Callable] = None, pad_mode: str = "zeros", ndim: int = 2):
         super().__init__()
         if pad_mode not in ("zeros", "replicate"):
             raise ValueError(f"unknown pad_mode {pad_mode!r}")
-        self.pad = dilation * (kernel_size - 1) // 2
+        conv, *norm_ = conv_norm(in_ch, out_ch, kernel_size, stride, None, dilation, groups,
+                                 bias, norm, ndim)
         self.pad_mode = pad_mode
-        conv = (nn.Conv2d if ndim == 2 else nn.Conv3d)(
-            in_ch, out_ch, kernel_size, stride, padding=self.pad if pad_mode == "zeros" else 0,
-            dilation=dilation, groups=groups, bias=bias)
-        self.block = nn.Sequential(conv, *_norm(norm, out_ch, ndim))
+        if pad_mode == "replicate":
+            # edge-pad first, then convolve unpadded
+            self.pad = conv.padding
+            conv.padding = (0,) * ndim
+        self.block = nn.Sequential(conv, *norm_)
         self.act = act
 
     def forward(self, x):
-        if self.pad_mode == "replicate" and self.pad:
-            x = F.pad(x, (self.pad,) * (2 * (x.dim() - 2)), mode="replicate")
+        if self.pad_mode == "replicate" and any(self.pad):
+            x = F.pad(x, [p for p in reversed(self.pad) for _ in (0, 1)], mode="replicate")
         x = run_seq(x, self.block)
         return self.act(x) if self.act is not None else x
 
@@ -307,6 +342,80 @@ class MobileV2Residual(FusableMBConv):
         y = relu6(run_seq(y, self.dwconv))
         y = run_seq(y, self.pwliner)
         return x + y if self.use_res else y
+
+
+def mbconv_seq(inp: int, oup: int, stride: int, hidden: int, ndim: int) -> nn.Sequential:
+    """MSNet's reference inverted residual body (`msnet/submodule.py`), one
+    Sequential: pw conv, BN, ReLU6, dw 3×3 conv, BN, ReLU6, pwl conv, BN."""
+    conv, bn = (nn.Conv2d, nn.BatchNorm2d) if ndim == 2 else (nn.Conv3d, nn.BatchNorm3d)
+    return nn.Sequential(
+        conv(inp, hidden, 1, bias=False), bn(hidden), nn.ReLU6(),
+        conv(hidden, hidden, 3, stride, 1, groups=hidden, bias=False), bn(hidden), nn.ReLU6(),
+        conv(hidden, oup, 1, bias=False), bn(oup))
+
+
+class MobileV2ResidualSeq(FusableMBConv):
+    """`MobileV2Residual` (`layers.py:350-373`) with MSNet's reference keys:
+    conv.{0,1} pw conv/BN, conv.{3,4} dw, conv.{6,7} pw-linear
+    (`torch_convert.py:_mv2`). Stride-1 blocks run the fused MBConv kernel
+    in eval, as LightStereo's do."""
+
+    def __init__(self, inp: int, oup: int, stride: int = 1, expanse_ratio: float = 4):
+        super().__init__()
+        self.use_res = stride == 1 and inp == oup
+        self.fusable = stride == 1
+        self.conv = mbconv_seq(inp, oup, stride, int(inp * expanse_ratio), 2)
+
+    def _mbconv_parts(self):
+        c = self.conv
+        return c[0].weight, c[1], c[3].weight, c[4], c[6].weight, c[7]
+
+    def forward(self, x):
+        y = self.forward_fused(x)
+        if y is not None:
+            return y
+        y = run_seq(x, self.conv)
+        return x + y if self.use_res else y
+
+
+class MobileV2Residual3D(nn.Module):
+    """3D inverted block, NCDHW (`layers.py:294-319`), keys as
+    `MobileV2ResidualSeq`. Like the reference (and the JAX package), it never
+    takes its residual: the reference tests `stride == (1, 1, 1)` against the
+    int every caller passes."""
+
+    def __init__(self, inp: int, oup: int, stride: int = 1, expanse_ratio: float = 2):
+        super().__init__()
+        self.conv = mbconv_seq(inp, oup, stride, round(inp * expanse_ratio), 3)
+
+    def forward(self, x):
+        return run_seq(x, self.conv)
+
+
+class MobileV1Residual(nn.Module):
+    """Depthwise-separable residual (`layers.py:322-347`): conv1 = (dw 3×3
+    conv, BN, ReLU6, pw conv, BN, ReLU6), conv2 the same without the last
+    ReLU6, both dw convs dilated; plus x, through the 1×1 `downsample`
+    convbn where the stride or the width changes. Keys as
+    `torch_convert.py:_mv1`."""
+
+    def __init__(self, inp: int, oup: int, stride: int = 1, dilation: int = 1):
+        super().__init__()
+
+        def dws(cin, s, second_relu):
+            return nn.Sequential(
+                nn.Conv2d(cin, cin, 3, s, dilation, dilation, groups=cin, bias=False),
+                nn.BatchNorm2d(cin), nn.ReLU6(),
+                nn.Conv2d(cin, oup, 1, bias=False), nn.BatchNorm2d(oup),
+                *([nn.ReLU6()] if second_relu else []))
+
+        self.conv1 = dws(inp, stride, True)
+        self.conv2 = dws(oup, 1, False)
+        self.downsample = convbn(inp, oup, 1, stride) if stride != 1 or inp != oup else None
+
+    def forward(self, x):
+        y = run_seq(run_seq(x, self.conv1), self.conv2)
+        return y + (x if self.downsample is None else run_seq(x, self.downsample))
 
 
 def set_kernels(model: nn.Module, enabled: bool) -> nn.Module:

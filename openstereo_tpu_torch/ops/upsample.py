@@ -23,6 +23,21 @@ def upsample_nearest(x: torch.Tensor, scale: int, dims=(-2, -1)) -> torch.Tensor
     return x
 
 
+def resize_nearest(x: torch.Tensor, size) -> torch.Tensor:
+    """Nearest resize of the len(size) trailing axes, up or down, with
+    half-pixel centres: output i reads input ⌊(i + ½)·n_in / n_out⌋, with no
+    antialiasing (counterpart of `jax.image.resize(..., method="nearest")`,
+    as `models/igev/blocks.py:91` and `models/coex/coex.py:145-147` call it;
+    torch's "nearest-exact" mode, in exact integer arithmetic)."""
+    size = tuple(size)
+    for axis, n in zip(range(x.dim() - len(size), x.dim()), size):
+        m = x.shape[axis]
+        if n != m:
+            src = (2 * torch.arange(n, device=x.device) + 1) * m // (2 * n)
+            x = x.index_select(axis, src)
+    return x
+
+
 def context_upsample(disp_low: torch.Tensor, up_weights: torch.Tensor,
                      scale_factor: int = 4) -> torch.Tensor:
     """disp_low [B,h,w], up_weights [B,9,s·h,s·w] → [B,s·h,s·w].

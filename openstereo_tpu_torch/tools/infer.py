@@ -29,8 +29,11 @@ from ..runtime.pretrained import load_state_dict_file
 
 def load_pretrained(model: torch.nn.Module, path: str) -> int:
     """Load a reference OpenStereo checkpoint ({'model_state': sd} or a bare
-    state_dict); the port's keys are the reference's, so no conversion."""
-    state = load_state_dict_file(path)
+    state_dict); the port's keys are the reference's, so no conversion.
+    Keys under a model's `REFERENCE_ONLY_KEYS` (modules the reference holds
+    and never runs, which the port leaves out) are skipped."""
+    skip = getattr(model, "REFERENCE_ONLY_KEYS", ())
+    state = {k: v for k, v in load_state_dict_file(path).items() if not k.startswith(skip)}
     model.load_state_dict(state)
     return len(state)
 

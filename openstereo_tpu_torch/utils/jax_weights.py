@@ -2,8 +2,9 @@
 
 The port's own inverse of `openstereo_tpu/utils/torch_convert.py`
 (`conv_kernel`, `deconv_kernel`, `TreeBuilder`, `convert_lightstereo`,
-`convert_sttr`, `convert_gwcnet`, `convert_psmnet`); it copies none of that
-code by import. Layout rules, inverted:
+`convert_sttr`, `convert_gwcnet`, `convert_psmnet`, `convert_coex`,
+`convert_msnet3d`, `convert_msnet2d`); it copies none of that code by
+import. Layout rules, inverted:
 
 - conv kernel (kh,kw,in,out) → weight (out,in,kh,kw); 3D (kd,kh,kw,in,out)
   → (out,in,kd,kh,kw);
@@ -121,10 +122,12 @@ class FlaxToTorch:
         return self.sd
 
 
-def _trunk(b: FlaxToTorch, fpre: str, tpre: str):
+def _trunk(b: FlaxToTorch, fpre: str, tpre: str, sliced: bool = False):
+    """flax MobileNetV2Features at fpre → the port's trunk keys at tpre, in
+    LightStereo's layout or (`sliced`) CoEx's (`backbones/mobilenetv2.py`)."""
     b.conv(f"{fpre}/stem", f"{tpre}.conv_stem")
     b.bn(f"{fpre}/stem", f"{tpre}.bn1")
-    ds = f"{tpre}.block0.0"
+    ds = f"{tpre}.block0.0" + (".0" if sliced else "")
     b.conv(f"{fpre}/stage0_block0/dw", f"{ds}.conv_dw")
     b.bn(f"{fpre}/stage0_block0/dw", f"{ds}.bn1")
     b.conv(f"{fpre}/stage0_block0/pw_linear", f"{ds}.conv_pw")
@@ -132,8 +135,8 @@ def _trunk(b: FlaxToTorch, fpre: str, tpre: str):
     layout = {"block1": [(1, 2)], "block2": [(2, 3)],
               "block3": [(3, 4), (4, 3)], "block4": [(5, 3)]}
     for blk, stages in layout.items():
-        for si, n in stages:
-            mid = f".{si}" if blk == "block3" else ""
+        for m, (si, n) in enumerate(stages):
+            mid = f".{m}" if sliced else (f".{si}" if blk == "block3" else "")
             for bi in range(n):
                 f, t = f"{fpre}/stage{si}_block{bi}", f"{tpre}.{blk}{mid}.{bi}"
                 for sub, conv, bn in (("pw", "conv_pw", "bn1"), ("dw", "conv_dw", "bn2"),
@@ -389,4 +392,156 @@ def psmnet_state_dict_from_jax(variables) -> Dict[str, torch.Tensor]:
     for j in (1, 2, 3):
         b.convbn(f"classif{j}a", f"{agg}.classif{j}.0")
         b.conv(f"classif{j}b", f"{agg}.classif{j}.1")
+    return b.finish()
+
+
+def basic_conv(b: FlaxToTorch, fpath: str, tkey: str, bn: bool = True, deconv: bool = False):
+    """flax BasicConvBN at fpath (its ConvBlock/DeconvBlock is `conv`) → port
+    BasicConvBN keys tkey.conv, tkey.bn."""
+    b.conv(_join(fpath, "conv"), _join(tkey, "conv", sep="."), deconv=deconv)
+    if bn:
+        b.bn(_join(fpath, "conv"), _join(tkey, "bn", sep="."))
+
+
+def conv2x(b: FlaxToTorch, fpath: str, tkey: str):
+    """flax Conv2x (deconv, BatchNorm) → port Conv2x keys."""
+    basic_conv(b, _join(fpath, "conv1"), _join(tkey, "conv1", sep="."), deconv=True)
+    basic_conv(b, _join(fpath, "conv2"), _join(tkey, "conv2", sep="."))
+
+
+def feature_att(b: FlaxToTorch, fpath: str, tkey: str):
+    """flax FeatureAtt (att0, att1) → port FeatureAtt keys at tkey (its
+    Sequential's name included: `tkey` ends in im_att or feat_att)."""
+    basic_conv(b, _join(fpath, "att0"), f"{tkey}.0")
+    b.conv(_join(fpath, "att1"), f"{tkey}.1", raw=True)
+
+
+def _basic_conv_bn_pair(b: FlaxToTorch, fa: str, fb: str, tkey: str):
+    """flax BasicConvBN fa then fb (relu off) → Sequential(BasicConvBN, conv, BN)."""
+    basic_conv(b, fa, f"{tkey}.0")
+    b.conv(f"{fb}/conv", f"{tkey}.1")
+    b.bn(f"{fb}/conv", f"{tkey}.2")
+
+
+def coex_state_dict_from_jax(variables) -> Dict[str, torch.Tensor]:
+    """flax CoExNet {"params", "batch_stats"} → port state_dict (the
+    reference's key names, as `torch_convert.convert_coex` reads them; the
+    reference-only modules it drops are not in the port). Block counts are
+    read from the variables. Raises if a flax variable is left unconsumed."""
+    b = FlaxToTorch(variables)
+    _trunk(b, "trunk", "Backbone.feat", sliced=True)
+    for name in ("deconv32_16", "deconv16_8", "deconv8_4"):
+        conv2x(b, f"up/{name}", f"Backbone.up.{name}")
+    basic_conv(b, "up/conv4", "Backbone.up.conv4")
+    for s in ("2", "4"):
+        _basic_conv_bn_pair(b, f"stem_{s}a", f"stem_{s}b", f"Backbone.stem_{s}")
+    cp = "CostProcessor"
+    basic_conv(b, "cv_conv", f"{cp}.cost_volume.conv")
+    b.conv("cv_desc", f"{cp}.cost_volume.desc", raw=True)
+    agg = f"{cp}.cost_agg"
+    params = b.trees["params"]
+    basic_conv(b, "conv_stem", f"{agg}.conv_stem")
+    if "att_stem" in params:
+        feature_att(b, "att_stem", f"{agg}.channelAttStem.im_att")
+    for i in range(3):
+        for n in range(_count(params, lambda k: k.startswith(f"down{i}_"))):
+            basic_conv(b, f"down{i}_{n}", f"{agg}.conv_down.{i}.{n}")
+        if f"att_down{i}" in params:
+            feature_att(b, f"att_down{i}", f"{agg}.channelAttDown.{i}.im_att")
+    for j in range(3):
+        basic_conv(b, f"up{j}", f"{agg}.conv_up.{j}", bn=j != 0, deconv=True)
+    for j in (1, 2):
+        basic_conv(b, f"skip{j}", f"{agg}.conv_skip.{j}")
+        basic_conv(b, f"agg{j}a", f"{agg}.conv_agg.{j}.0")
+        basic_conv(b, f"agg{j}b", f"{agg}.conv_agg.{j}.1")
+        if f"att_up{j}" in params:
+            feature_att(b, f"att_up{j}", f"{agg}.channelAtt.{j}.im_att")
+    dp = "DispProcessor"
+    _basic_conv_bn_pair(b, "spx_4a", "spx_4b", f"{dp}.spx_4")
+    conv2x(b, "spx_2", f"{dp}.spx_2")
+    b.conv("spx", f"{dp}.spx.0", deconv=True, raw=True)
+    return b.finish()
+
+
+def msnet_mv2(b: FlaxToTorch, fpath: str, tkey: str):
+    """flax MobileV2Residual / MobileV2Residual3D at fpath → port
+    MobileV2ResidualSeq / MobileV2Residual3D keys tkey.conv.{0,1,3,4,6,7}."""
+    for (ci, bi), sub in (((0, 1), "pw"), ((3, 4), "dw"), ((6, 7), "pw_linear")):
+        b.conv(_join(fpath, sub), _join(tkey, f"conv.{ci}", sep="."))
+        b.bn(_join(fpath, sub), _join(tkey, f"conv.{bi}", sep="."))
+
+
+def msnet_mv1(b: FlaxToTorch, fpath: str, tkey: str):
+    """flax MobileV1Residual at fpath → port MobileV1Residual keys at tkey."""
+    for conv in ("conv1", "conv2"):
+        for (ci, bi), sub in (((0, 1), "dw"), ((3, 4), "pw")):
+            b.conv(_join(fpath, f"{conv}_{sub}"), _join(tkey, f"{conv}.{ci}", sep="."))
+            b.bn(_join(fpath, f"{conv}_{sub}"), _join(tkey, f"{conv}.{bi}", sep="."))
+    if b.has("params", _join(fpath, "downsample")):
+        b.convbn(_join(fpath, "downsample"), _join(tkey, "downsample", sep="."))
+
+
+def msnet_trunk(b: FlaxToTorch, fpre: str, tpre: str, add_relus: bool = False):
+    """flax MobileFeatureTrunk at fpre → port MobileFeatureTrunk keys at tpre."""
+    f, t = (lambda *p: _join(fpre, *p)), (lambda *p: _join(tpre, *p, sep="."))  # noqa: E731
+    for i, ti in enumerate((0, 2, 4) if add_relus else (0, 1, 2)):
+        msnet_mv2(b, f(f"firstconv{i}"), t(f"firstconv.{ti}"))
+    for layer, n in (("layer1", 3), ("layer2", 16), ("layer3", 3), ("layer4", 3)):
+        for i in range(n):
+            msnet_mv1(b, f(f"{layer}_{i}"), t(f"{layer}.{i}"))
+
+
+def msnet_hourglass(b: FlaxToTorch, fpre: str, tpre: str):
+    """flax Hourglass2D / Hourglass3DMobile at fpre → port Hourglass keys."""
+    f, t = (lambda *p: _join(fpre, *p)), (lambda *p: _join(tpre, *p, sep="."))  # noqa: E731
+    for name in ("conv1", "conv2", "conv3", "conv4", "redir1", "redir2"):
+        msnet_mv2(b, f(name), t(name))
+    for name in ("conv5", "conv6"):
+        b.convbn(f(name), t(name), deconv=True)
+
+
+def msnet_compressor(b: FlaxToTorch, fpre: str, tpre: str):
+    """flax InterlacedCompressor at fpre → port `conv3d`, `volume11` keys under tpre."""
+    for i, ti in enumerate((0, 3, 6)):
+        b.conv(_join(fpre, f"c{i}"), _join(tpre, f"conv3d.{ti}", sep="."))
+        b.bn(_join(fpre, f"c{i}"), _join(tpre, f"conv3d.{ti + 1}", sep="."))
+    b.convbn(_join(fpre, "volume11"), _join(tpre, "volume11.0", sep="."))
+
+
+def _msnet_heads(b: FlaxToTorch):
+    for i in (1, 2, 3):
+        msnet_hourglass(b, f"hg{i}", f"encoder_decoder{i}")
+    for j in range(4):
+        b.convbn(f"classif{j}a", f"classif{j}.0")
+        b.conv(f"classif{j}b", f"classif{j}.2")
+
+
+def msnet3d_state_dict_from_jax(variables) -> Dict[str, torch.Tensor]:
+    """flax MSNet3D {"params", "batch_stats"}, drawn with the training heads
+    (classif0-classif3), → port state_dict (the reference's key names, as
+    `torch_convert.convert_msnet3d` reads them). Raises if a flax variable is
+    left unconsumed."""
+    b = FlaxToTorch(variables)
+    msnet_trunk(b, "trunk", "feature_extraction")
+    for f, t in (("dres0a", "dres0.0"), ("dres0b", "dres0.1"),
+                 ("dres1a", "dres1.0"), ("dres1b", "dres1.1")):
+        msnet_mv2(b, f, t)
+    _msnet_heads(b)
+    return b.finish()
+
+
+def msnet2d_state_dict_from_jax(variables) -> Dict[str, torch.Tensor]:
+    """flax MSNet2D {"params", "batch_stats"}, drawn with the training heads,
+    → port state_dict (as `torch_convert.convert_msnet2d` reads it). Raises
+    if a flax variable is left unconsumed."""
+    b = FlaxToTorch(variables)
+    msnet_trunk(b, "trunk", "feature_extraction", add_relus=True)
+    for i, t in enumerate((0, 2, 4)):
+        b.convbn(f"preconv{i}", f"preconv11.{t}")
+    b.conv("preconv3", "preconv11.6", raw=True)
+    msnet_compressor(b, "compressor", "")
+    for f, t in (("dres0a", "dres0.0"), ("dres0b", "dres0.2"),
+                 ("dres1a", "dres1.0"), ("dres1b", "dres1.2")):
+        msnet_mv2(b, f, t)
+    _msnet_heads(b)
     return b.finish()

@@ -20,6 +20,7 @@ import torch.nn.functional as F
 import chip_smoke as cs
 from openstereo_tpu_torch import ops
 from openstereo_tpu_torch.ops.rel_attention import rel_index
+from torch_port_threads import torch_threads_per_worker  # noqa: F401 (autouse fixture)
 
 CPU = torch.device("cpu")
 

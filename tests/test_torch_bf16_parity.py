@@ -31,15 +31,21 @@ import jax
 import jax.numpy as jnp
 
 from openstereo_tpu.models import layers as jl
+from openstereo_tpu.models.igev import blocks as jblocks
 from openstereo_tpu.ops import cost_volume as jcv
 from openstereo_tpu.ops import upsample as jup
 
 from openstereo_tpu_torch import ops
 from openstereo_tpu_torch.models import layers as tl
 from openstereo_tpu_torch.models import set_kernels
-from openstereo_tpu_torch.utils.jax_weights import FlaxToTorch, mv2_residual
+from openstereo_tpu_torch.models.coex.coex import cosine_normalize
+from openstereo_tpu_torch.models.igev.blocks import BasicConvBN, FeatureAtt
+from openstereo_tpu_torch.utils.jax_weights import (FlaxToTorch, basic_conv, feature_att,
+                                                    msnet_mv1, msnet_mv2, mv2_residual)
 
+from test_torch_coex import _variables
 from test_torch_layers import _random_variables
+from torch_port_threads import torch_threads_per_worker  # noqa: F401 (autouse fixture)
 
 FLIP_SHARE = 1e-3
 
@@ -284,3 +290,178 @@ def test_k2_kernel_path_folds_bn_before_rounding():
     set_kernels(tm, False)
     with torch.no_grad():
         assert_bf16_rule(tm(to_torch(x)), ref, "the same block, eager")
+
+
+# --------------------------------------------------- CoEx and MSNet module types
+
+def assert_stages_bf16(fm, v, x, stages, what):
+    """Each stage of a port block on JAX's own input of that stage (the flax
+    block's captured outputs), under the rule: (flax submodule, the
+    submodule whose output feeds it or None for x, the port's stage)."""
+    _, mut = fm.apply(v, x, train=False, capture_intermediates=True, mutable=["intermediates"])
+    out = lambda name: mut["intermediates"][name]["__call__"][0]  # noqa: E731
+    for name, src, stage in stages:
+        with torch.no_grad():
+            got = stage(to_torch(x if src is None else out(src)))
+        assert_bf16_rule(got, out(name), f"{what}: {name}")
+    return out
+
+
+@pytest.mark.parametrize("stride,dilation,cout", [(1, 2, 16), (2, 1, 32), (1, 1, 24)],
+                         ids=["dilation 2", "stride 2, downsample", "downsample 16 -> 24"])
+def test_mobilev1residual_bf16(stride, dilation, cout):
+    """Op by op (each dw and pw stage, the downsample, the residual sum on
+    JAX's own inputs) under the rule; the whole block at most FLIP_SHARE of
+    the elements off (a one-unit flip inside becomes more where the sum
+    cancels)."""
+    x = captured_input((2, 24, 20, 16), 20)
+    fm = jl.MobileV1Residual(cout, strides=stride, dilation=dilation, dtype=BF16)
+    tm = tl.MobileV1Residual(16, cout, stride, dilation)
+    got, ref = _pair(fm, tm, x, 21, lambda b: msnet_mv1(b, "", ""))
+    what = f"MobileV1Residual stride {stride}, dilation {dilation}, {16} -> {cout}"
+    v = _random_variables(fm, x, 21)
+    stages = [("conv1_dw", None, lambda t: tl.run_seq(t, tm.conv1[:3])),
+              ("conv1_pw", "conv1_dw", lambda t: tl.run_seq(t, tm.conv1[3:])),
+              ("conv2_dw", "conv1_pw", lambda t: tl.run_seq(t, tm.conv2[:3])),
+              ("conv2_pw", "conv2_dw", lambda t: tl.run_seq(t, tm.conv2[3:]))]
+    if tm.downsample is not None:
+        stages.append(("downsample", None, lambda t: tl.run_seq(t, tm.downsample)))
+    out = assert_stages_bf16(fm, v, x, stages, what)
+    skip = x if tm.downsample is None else out("downsample")
+    assert_bf16_rule(to_torch(out("conv2_pw")) + to_torch(skip), ref, f"{what}: the sum")
+    assert_bf16_rule(got, ref, f"{what}: whole block", max_units=None)
+
+
+def test_mobilev2residual_seq_eager_bf16():
+    """MSNet's key layout of the 2D block, eager path."""
+    x = captured_input((2, 24, 20, 16), 22)
+    fm = jl.MobileV2Residual(16, strides=1, expanse_ratio=3, dtype=BF16)
+    tm = set_kernels(tl.MobileV2ResidualSeq(16, 16, 1, 3), False)
+    got, ref = _pair(fm, tm, x, 23, lambda b: msnet_mv2(b, "", ""))
+    assert_bf16_rule(got, ref, "MobileV2ResidualSeq eager, ratio 3")
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+def test_mobilev2residual3d_bf16(native_3d, stride):
+    """Op by op (pw, dw, pw-linear, each with its BN, on JAX's own inputs)
+    under the rule; the whole block at most FLIP_SHARE of the elements off
+    (a one-unit flip before the last BN becomes many units where BN's
+    shift cancels the conv's output)."""
+    x = captured_input((1, 6, 17, 30, 16), 24, ndim=3)
+    fm = jl.MobileV2Residual3D(16, strides=stride, expanse_ratio=2, dtype=BF16)
+    tm = tl.MobileV2Residual3D(16, 16, stride, 2)
+    got, ref = _pair(fm, tm, x, 25, lambda b: msnet_mv2(b, "", ""))
+    what = f"MobileV2Residual3D stride {stride} (native)"
+    v = _random_variables(fm, x, 25)
+    assert_stages_bf16(fm, v, x, [("pw", None, lambda t: tl.run_seq(t, tm.conv[:3])),
+                                  ("dw", "pw", lambda t: tl.run_seq(t, tm.conv[3:6])),
+                                  ("pw_linear", "dw", lambda t: tl.run_seq(t, tm.conv[6:]))],
+                       what)
+    assert_bf16_rule(got, ref, f"{what}: whole block", max_units=None)
+
+
+@pytest.mark.parametrize("case", ["2D", "2D deconv", "3D stride (2,2,2)", "3D no bn, no relu"])
+def test_basic_conv_bn_bf16(native_3d, case):
+    """BasicConvBN: conv (or the k4 s2 deconv), BN, leaky_relu 0.01."""
+    ndim = 3 if case.startswith("3D") else 2
+    deconv = "deconv" in case or case.endswith("relu")
+    plain = case.endswith("relu")
+    shape = (1, 4, 9, 15, 16) if ndim == 3 else (2, 12, 20, 16)
+    x = captured_input(shape, 26, ndim=ndim)
+    kw = dict(bn=not plain, relu=not plain)
+    k, s = (4, 2) if deconv else (3, (2, 2, 2) if ndim == 3 else 1)
+    fm = jblocks.BasicConvBN(8, k, s, deconv=deconv, ndim=ndim, dtype=BF16, **kw)
+    tm = BasicConvBN(16, 8, k, s, deconv=deconv, ndim=ndim, **kw)
+    got, ref = _pair(fm, tm, x, 27, lambda b: basic_conv(b, "", "", bn=not plain, deconv=deconv))
+    assert_bf16_rule(got, ref, f"BasicConvBN {case}")
+
+
+def test_feature_att_bf16():
+    """FeatureAtt op by op: the 1×1 conv with bias rounds its conv, then its
+    sum with the bias, as flax's `nn.Conv` does (ROADMAP 3i; the fused bias,
+    one rounding, fails the rule); the sigmoid is 3j as it stands: the port
+    rounds the f32 sigmoid once, XLA:CPU's bf16 `logistic` rounds exp(-x),
+    1 + exp(-x) and the quotient, and lies further from the exact value. The
+    whole module against the flax program with that one sigmoid rounded once."""
+    cv = captured_input((1, 4, 9, 15, 8), 28, ndim=3)
+    feat = captured_input((1, 9, 15, 24), 29)
+    fm = jblocks.FeatureAtt(8, dtype=BF16)
+    v = _variables(fm, (cv, feat), 30)
+    b = FlaxToTorch(v)
+    feature_att(b, "", "im_att")
+    tm = FeatureAtt(8, 24)
+    tm.load_state_dict(b.finish())
+    ref, mut = fm.apply(v, cv, feat, train=False, capture_intermediates=True,
+                        mutable=["intermediates"])
+    a0, a1 = (mut["intermediates"][k]["__call__"][0] for k in ("att0", "att1"))
+    conv = tm.im_att[1]
+    with torch.no_grad():
+        att1 = tl.run_conv(to_torch(a0), conv)
+        fused = F.conv2d(to_torch(a0), conv.weight.bfloat16(), conv.bias.bfloat16())
+        sig = torch.sigmoid(to_torch(a1))
+        whole = tm.eval()(to_torch(cv), to_torch(feat))
+    assert_bf16_rule(att1, a1, "FeatureAtt: 1x1 conv + bias")
+    share = float((bf16_units(to_jax_layout(fused), np.asarray(a1, np.float32)) > 0).mean())
+    print(f"FeatureAtt: the bias fused into the conv (one rounding): {share:.3g} differ")
+    assert share > FLIP_SHARE
+    exact = torch.sigmoid(to_torch(a1).double())
+    assert_bf16_rule(sig, to_jax_layout(exact.bfloat16()), "port sigmoid vs its f32 value")
+    jsig = jax.nn.sigmoid(a1)
+    units = bf16_units(to_jax_layout(sig), np.asarray(jsig, np.float32))
+    err_jax = np.abs(np.asarray(jsig, np.float64) - to_jax_layout(exact)).max()
+    err_port = np.abs(to_jax_layout(sig).astype(np.float64) - to_jax_layout(exact)).max()
+    print(f"XLA:CPU bf16 sigmoid differs from the port at {(units > 0).mean():.3g} of the "
+          f"elements; off the exact value by {err_jax:.3g}, the port by {err_port:.3g}")
+    assert (units > 0).mean() > 0.05 and err_jax > err_port
+    once = jnp.asarray(jax.nn.sigmoid(a1.astype(jnp.float32))).astype(BF16)
+    assert_bf16_rule(whole, once[:, None] * cv, "FeatureAtt: whole module, sigmoid rounded once")
+
+
+def test_coex_cosine_volume_bf16():
+    """CoEx's descriptors over their norm (`coex.py:110-111`) and K1's mean
+    product × 48 (`:113`: the mean rounded to bf16, then the product rounded
+    again), JAX op by op."""
+    x, y = (captured_input((1, 6, 40, 48), s) for s in (31, 32))
+    xj, yj = (a / (jnp.linalg.norm(a, axis=-1, keepdims=True) + 1e-12) for a in (x, y))
+    assert xj.dtype == jnp.bfloat16
+    ref = jcv.correlation_volume(xj, yj, 12) * 48
+    xt, yt = cosine_normalize(to_torch(x)), cosine_normalize(to_torch(y))
+    assert_bf16_rule(xt, xj, "CoEx cosine normalisation")
+    # the control: each square rounded to bf16, as the program reads unjitted (3i)
+    xb = to_torch(x)
+    rounded = xb / (torch.sqrt((xb * xb).sum(1, keepdim=True, dtype=torch.float32).bfloat16())
+                    + 1e-12)
+    share = float((bf16_units(to_jax_layout(rounded), np.asarray(xj, np.float32)) > 0).mean())
+    print(f"CoEx cosine normalisation with the squares rounded: {share:.3g} differ")
+    assert share > FLIP_SHARE
+    got = ops.corr_volume(xt, yt, 12) * 48
+    assert got.dtype == torch.bfloat16 and ref.dtype == jnp.bfloat16
+    assert_bf16_rule(got, ref, "CoEx K1 volume x 48")
+    # the control: the x 48 folded into the mean, one rounding instead of two
+    once = (ops.correlation_volume(xt.float(), yt.float(), 12) * 48).bfloat16()
+    share = float((bf16_units(to_jax_layout(once), np.asarray(ref, np.float32)) > 0).mean())
+    print(f"one rounding of the f32 sum: {share:.3g} of the elements differ")
+    assert share > FLIP_SHARE
+
+
+def test_coex_topk_head_on_bf16_costs():
+    """The top-k head on a bf16 cost cast to f32 (`coex.py:174-178`): the
+    bf16 grid makes ties common, and the port picks the lower index first,
+    as `jax.lax.top_k` does."""
+    cost = captured_input((1, 12, 20, 24), 33)  # [B,H,W,D], bf16
+    c32 = cost.astype(jnp.float32)
+    topv, topi = jax.lax.top_k(c32, 3)
+    ties = int(np.sum(np.asarray(topv[..., 1] == topv[..., 2])))
+    print(f"bf16 costs: {ties} of {topv[..., 0].size} pixels tie between the 2nd and 3rd value")
+    assert ties > 0
+    prob = jax.nn.softmax(topv[..., :2], axis=-1)
+    ref = np.asarray(jnp.sum(prob * topi[..., :2].astype(jnp.float32), axis=-1))
+    c = to_torch(cost).float()
+    got = ops.topk_disparity_regression(c, 2)
+    # atol: the f32 softmax summed in another order (~2e-6); a tie taken in the
+    # other order moves a pixel by p·|i - j| >= ~0.3
+    np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=1e-5)
+    # the control: ties taken higher index first
+    d = c.shape[1]
+    flipped = (d - 1) - ops.topk_disparity_regression(c.flip(1), 2)
+    assert np.abs(flipped.numpy() - ref).max() > 0.1

@@ -18,6 +18,7 @@ from openstereo_tpu_torch.config import Config
 from openstereo_tpu_torch.data import readers
 from openstereo_tpu_torch.data.loader import StereoDataLoader, batch_to_device
 from openstereo_tpu_torch.data.transforms import build_transforms
+from torch_port_threads import torch_threads_per_worker  # noqa: F401 (autouse fixture)
 
 NORM = {"NAME": "NormalizeImage", "MEAN": [0.485, 0.456, 0.406], "STD": [0.229, 0.224, 0.225]}
 

@@ -39,6 +39,7 @@ from openstereo_tpu_torch.utils import jax_weights as jw
 
 from test_torch_layers import _random_variables
 from test_torch_ops import to_nchw
+from torch_port_threads import torch_threads_per_worker  # noqa: F401 (autouse fixture)
 
 ROOT = Path(__file__).resolve().parents[1]
 CFG = ROOT / "cfgs/gwcnet/gwcnet_sceneflow.yaml"

@@ -74,3 +74,12 @@ def test_scan_covers_the_training_modules():
                 "models/losses.py", "utils/seeds.py", "utils/logging.py", "registry.py",
                 "tools/train.py", "tools/overfit_check.py"):
         assert f"openstereo_tpu_torch/{rel}" in scanned, rel
+
+
+def test_scan_covers_the_coex_and_msnet_modules():
+    scanned = {str(p.values[0].relative_to(ROOT)) for p in _sources()}
+    for rel in ("models/coex/coex.py", "models/coex/__init__.py", "models/msnet/msnet.py",
+                "models/msnet/__init__.py", "models/igev/blocks.py", "models/igev/__init__.py",
+                "models/layers.py", "models/backbones/mobilenetv2.py", "ops/upsample.py",
+                "ops/disp_regression.py", "utils/jax_weights.py", "tools/bench.py"):
+        assert f"openstereo_tpu_torch/{rel}" in scanned, rel

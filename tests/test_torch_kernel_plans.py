@@ -18,6 +18,7 @@ import torch
 
 import chip_smoke
 from openstereo_tpu_torch import ops
+from torch_port_threads import torch_threads_per_worker  # noqa: F401 (autouse fixture)
 
 MASK = -1e30
 # K2's bf16 tiling (csrc/fused_mbconv.cu, namespace tc): output tile rows x cols
@@ -199,11 +200,12 @@ def launcher_splits(b, h, w, ch, sms):
 
 
 def test_k2_split_counts_at_main_path_shapes():
-    """The split count the launcher picks at each of LightStereo-S's 9 K2
-    shapes on a 132-SM H100 (chip_smoke.py's K2_SPLITS_132, which the card
-    run holds the launcher to), and that every split has chunks."""
+    """The split count the launcher picks at each K2 shape of the
+    LightStereo-S, CoEx, MSNet3D and MSNet2D paths on a 132-SM H100
+    (chip_smoke.py's K2_SPLITS_132, which the card run holds the launcher
+    to), and that every split has chunks."""
     want = chip_smoke.K2_SPLITS_132
-    assert set(want) == {(sh[0], sh[1], sh[2], sh[4]) for sh in chip_smoke.K2_SHAPES}
+    assert set(want) == {(sh[0], sh[1], sh[2], sh[4]) for sh in chip_smoke.K2_ALL_SHAPES}
     for (b, h, w, ch), s in want.items():
         assert launcher_splits(b, h, w, ch, 132) == s, (b, h, w, ch)
         tiles = b * math.ceil(h / TILE_H) * math.ceil(w / TILE_W)
@@ -216,6 +218,8 @@ def test_k2_split_counts_at_main_path_shapes():
     ((1, 9, 21, 24, 80, 24), True, 1),     # ragged tiles and last chunk, Cin 24 padded to 32
     ((1, 9, 21, 24, 80, 40), False, 3),    # a split per chunk
     ((2, 5, 17, 16, 64, 16), True, 2),
+    ((1, 9, 17, 48, 144, 48), True, 2),    # MSNet2D dres: Ch 144, 4 1/2 chunks, S as at 136x240
+    ((1, 3, 9, 192, 384, 192), True, 12),  # MSNet2D conv4: Cin and Cout 192, a split per chunk
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_k2_tile_plan_matches_plain(shape, residual, splits, dtype):
@@ -316,17 +320,23 @@ def cv_walk(left, right, max_disp, groups, cs, twc, cc, **_):
 
 
 def test_cv_plan_at_main_path_shapes():
-    """What `make_plan` picks on a 132-SM H100: K3 (GwcNet) one tile per group
-    row, 180 of 192 threads, no channel split; K1 (LightStereo-S) two lanes per
-    item and 64-column tiles, so that its 24,480 items fill the card."""
+    """What `make_plan` picks on a 132-SM H100: K3 (GwcNet, MSNet3D) one tile
+    per group row, 180 of 192 threads, no channel split; K1 (LightStereo-S,
+    CoEx) two lanes per item and 64-column tiles, so that its 24,480 items
+    fill the card."""
     assert cv_plan(*chip_smoke.K3_SHAPE, sms=132) == dict(cs=1, twc=30, cc=8, nt=192, n_wt=1)
     b, c, h, w, d = chip_smoke.K1_SHAPE
     assert cv_plan(b, c, h, w, d, 1, sms=132) == dict(cs=2, twc=8, cc=24, nt=96, n_wt=4)
+    # CoEx's cosine volume, C 48: the same tiles, channels staged 32 then 16
+    b, c, h, w, d = chip_smoke.COEX_K1_SHAPE
+    assert cv_plan(b, c, h, w, d, 1, sms=132) == dict(cs=2, twc=8, cc=32, nt=96, n_wt=4)
 
 
 CV_MAIN_ROWS = [
     ((1, 320, 2, 240, 48, 40), cv_plan(*chip_smoke.K3_SHAPE, sms=132), "K3's plan, cg 8"),
     ((1, 24, 2, 240, 48, 1), cv_plan(*chip_smoke.K1_SHAPE, 1, sms=132), "K1's plan, cg 24"),
+    ((1, 48, 2, 240, 48, 1), cv_plan(*chip_smoke.COEX_K1_SHAPE, 1, sms=132),
+     "K1's plan at C 48 (CoEx), a ragged channel chunk"),
     ((1, 80, 2, 40, 16, 1), cv_plan(1, 80, 2, 40, 16, 1, sms=132), "cg 80: three chunks"),
 ]
 CV_EDGES = [(shape, cv_plan(*shape, sms=132), what) for shape, what in chip_smoke.K3_EDGES]

@@ -19,6 +19,7 @@ from openstereo_tpu_torch.models import set_kernels
 from openstereo_tpu_torch.utils.jax_weights import FlaxToTorch, mv2_residual
 
 from test_torch_ops import to_nchw, to_nhwc
+from torch_port_threads import torch_threads_per_worker  # noqa: F401 (autouse fixture)
 
 TOL = dict(rtol=1e-4, atol=1e-5)
 

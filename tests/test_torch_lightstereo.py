@@ -28,6 +28,7 @@ from openstereo_tpu_torch.utils.jax_weights import lightstereo_state_dict_from_j
 
 from test_torch_layers import _random_variables
 from test_torch_ops import to_nchw
+from torch_port_threads import torch_threads_per_worker  # noqa: F401 (autouse fixture)
 
 ROOT = Path(__file__).resolve().parents[1]
 H, W, MAX_DISP = 64, 128, 16
@@ -99,7 +100,7 @@ def test_build_model_seeded_and_unported_names():
     b = build_model(Config.from_dict(TINY), device="cpu", seed=3).state_dict()
     assert all(torch.equal(a[k], b[k]) for k in a)
     with pytest.raises(NotImplementedError, match="Slice D"):
-        build_model(Config.from_dict({"NAME": "CoExNet"}), device="cpu")
+        build_model(Config.from_dict({"NAME": "CasPSMNet"}), device="cpu")
 
 
 def test_load_pretrained_reads_reference_checkpoints(tmp_path):

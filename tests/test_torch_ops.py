@@ -23,6 +23,7 @@ from openstereo_tpu.ops.pallas import rel_attention as jra
 from openstereo_tpu_torch import ops
 from openstereo_tpu_torch.ops import kernels
 from openstereo_tpu_torch.ops.fused_mbconv import fold_mbconv
+from torch_port_threads import torch_threads_per_worker  # noqa: F401 (autouse fixture)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 

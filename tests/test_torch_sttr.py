@@ -37,6 +37,7 @@ from openstereo_tpu_torch.models.sttr import transformer as tt
 from openstereo_tpu_torch.utils import jax_weights as jw
 
 from test_torch_ops import to_nchw, to_nhwc
+from torch_port_threads import torch_threads_per_worker  # noqa: F401 (autouse fixture)
 
 ROOT = Path(__file__).resolve().parents[1]
 CFG = ROOT / "cfgs/sttr/sttr_flyingthings3d.yaml"

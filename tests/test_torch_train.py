@@ -57,6 +57,7 @@ from openstereo_tpu_torch.utils.jax_weights import FlaxToTorch, lightstereo_stat
 
 from test_torch_layers import _random_variables
 from test_torch_ops import to_nchw, to_nhwc
+from torch_port_threads import torch_threads_per_worker  # noqa: F401 (autouse fixture)
 
 ROOT = Path(__file__).resolve().parents[1]
 LS_CFG = yaml.safe_load((ROOT / "cfgs/lightstereo/lightstereo_s_sceneflow.yaml").read_text())

@@ -16,6 +16,7 @@ from openstereo_tpu_torch.runtime import Trainer
 from openstereo_tpu_torch.tools import overfit_check, train
 
 from test_torch_data import NORM, _write_dataset
+from torch_port_threads import torch_threads_per_worker  # noqa: F401 (autouse fixture)
 
 ROOT = Path(__file__).resolve().parents[1]
 
