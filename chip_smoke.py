@@ -11,13 +11,14 @@ without the repository around it). Phases, each of which fails the run:
    (one nvcc per source, in parallel), and print ptxas's registers, spills
    and shared memory for the tensor-core kernels of K4 and K2 and for the
    cost-volume kernel of K1 and K3;
-3. K1 (corr_volume) against its plain version at the main-path shape and at
-   CoEx's (C 48), f32 (TF32 off) and bf16, plus a ragged-width and a d >= W
-   case. The bf16 plain version takes the same bf16 inputs and rounds each
-   product to bf16, as JAX does; the kernel must be within `bf16_close`
-   everywhere and bit-equal at all but VOLUME_FLIP_SHARE of the elements
-   (`volume_bf16_check`), and at the main-path and CoEx shapes the unrounded
-   control (products in f32) must fail that check;
+3. K1 (corr_volume) against its plain version at the main-path shape, at
+   CoEx's (C 48) and at FADNet's ([1,128,72,120], D 40), f32 (TF32 off) and
+   bf16, plus a ragged-width and a d >= W case. The bf16 plain version takes
+   the same bf16 inputs and rounds each product to bf16, as JAX does; the
+   kernel must be within `bf16_close` everywhere and bit-equal at all but
+   VOLUME_FLIP_SHARE of the elements (`volume_bf16_check`), and at the
+   main-path, CoEx and FADNet shapes the unrounded control (products in
+   f32) must fail that check;
 4. K2 (fused_mbconv) against its plain version at the 14 distinct shapes of
    the LightStereo-S, CoEx, MSNet3D and MSNet2D paths, f32 (TF32 off) and
    bf16, with and without the residual where
@@ -50,11 +51,13 @@ without the repository around it). Phases, each of which fails the run:
    device time per launch from torch.profiler beside its bound); and a
    torch.profiler pass over STTR frames of both paths (tables under
    `chiprun_out/sttr_profile/`).
-9. K3 (gwc_volume) against its plain version at the GwcNet main-path shape
-   and at edge cases (the JAX test's shape, W ragged against the 8-column
-   chunks, D over six disparity chunks, d >= W, cg = 1, cg = 12), f32 (TF32
-   off) and bf16 (checked as K1's, with the unrounded control at the main
-   shape), and with G = 1 against K1;
+9. K3 (gwc_volume) against its plain version at the GwcNet main-path shape,
+   at CFNet's three (G 40: [1,160,72,120] D 24, [1,320,36,60] D 12,
+   [1,320,18,30] D 6, below the kernel's 8-disparity chunk) and at edge
+   cases (the JAX test's shape, W ragged against the 8-column chunks, D over
+   six disparity chunks, d >= W, cg = 1, cg = 12), f32 (TF32 off) and bf16
+   (checked as K1's, with the unrounded control at the GwcNet and CFNet
+   shapes), and with G = 1 against K1;
 10. the GwcNet path: GwcNet at 544x960 (`cfgs/gwcnet/gwcnet_sceneflow.yaml`),
    b1, bf16, through `run_pair` on the synthetic pairs, with 1 K3 launch
    per frame at the main shape and no other kernel; the kernel path against
@@ -100,6 +103,15 @@ without the repository around it). Phases, each of which fails the run:
    and the host's time to issue a frame), a torch.profiler pass over each
    (tables in `chiprun_out/<model>_profile/`), and each kernel at the
    path's shapes beside its plain version and bound.
+19-22. (run after phase 18) the CFNet, FADNet, CasGwcNet and CasPSMNet paths
+   in the same way, each at its config's EVALUATING size
+   (`cfgs/cfnet/cfnet_sceneflow.yaml` and `cfgs/fadnet/fadnet_sceneflow.yaml`
+   576x960, `cfgs/casnet/casnet_gwc_sceneflow.yaml` and
+   `casnet_psm_sceneflow.yaml` 544x960): CFNet launches K3 3 times a frame at
+   its three shapes, FADNet K1 once, the cascades no kernel. f32 kernel vs
+   eager: max-abs <= 5e-3 px, but CFNet >= 99.9 % of the pixels within 5e-3
+   px (its sample grids are floors, which two K3 sum orders may move by one
+   disparity at a pixel); bf16 mean-abs <= 0.5 px.
 
 The line before the card line is a JSON object with one entry per kernel;
 the last line is {"ok": true, "device": {...}}.
@@ -125,6 +137,10 @@ PSM_CFG = ROOT / "cfgs/psmnet/psmnet_sceneflow.yaml"
 COEX_CFG = ROOT / "cfgs/coex/coex_sceneflow_amp.yaml"
 MSNET3D_CFG = ROOT / "cfgs/msnet/msnet3d_sceneflow.yaml"
 MSNET2D_CFG = ROOT / "cfgs/msnet/msnet2d_sceneflow.yaml"
+CFNET_CFG = ROOT / "cfgs/cfnet/cfnet_sceneflow.yaml"
+FADNET_CFG = ROOT / "cfgs/fadnet/fadnet_sceneflow.yaml"
+CASGWC_CFG = ROOT / "cfgs/casnet/casnet_gwc_sceneflow.yaml"
+CASPSM_CFG = ROOT / "cfgs/casnet/casnet_psm_sceneflow.yaml"
 
 # expected K2 launches per LightStereo-S frame: (batch, H, W, Cin, Ch, Cout, residual) → count
 K2_SHAPES = {
@@ -189,6 +205,10 @@ K4_EDGES = [
 ]
 
 K3_SHAPE = (1, 320, 136, 240, 48, 40)  # B, C, H/4, W/4, D, G of GwcNet at 544x960
+# CFNet at 576x960: K3 at 1/8, 1/16 and 1/32 (D = 192/8, /16, /32), once each a frame
+CFNET_K3_SHAPES = {(1, 160, 72, 120, 24, 40): 1, (1, 320, 36, 60, 12, 40): 1,
+                   (1, 320, 18, 30, 6, 40): 1}
+FADNET_K1_SHAPE = (1, 128, 72, 120, 40)  # FADNet at 576x960: 1/8, D = 192/8 + 16
 # K3 edge cases: ((B, C, H, W, D, G), what)
 K3_EDGES = [
     ((1, 16, 4, 260, 12, 4), "the JAX test's shape"),
@@ -220,6 +240,8 @@ K2_FLIP_SHARE, K4_FLIP_SHARE = 1e-4, 1e-6
 # differ from the plain version's bits (two f32 sum orders of the bf16 products may
 # round the mean to two neighbours); every element stays within `bf16_close`
 VOLUME_FLIP_SHARE = 1e-4
+# a K1/K3 check's figures: f32 max-abs, bf16 max-abs, bf16 share not bit-equal
+VOLUME_ERR_KEYS = ("max_abs_err_f32", "max_abs_err", "not_bit_equal_share")
 
 # dense peaks: (memory bytes/s, bf16 tensor flop/s), NVIDIA data sheets
 CARDS = {"H100 PCIe": (2.0e12, 756e12), "H100 NVL": (3.9e12, 835e12), "H100": (3.35e12, 989e12)}
@@ -506,6 +528,7 @@ def phase_k1(dev):
     g = torch.Generator().manual_seed(1)
     errs = {}
     for (b, c, h, w, d), tag in ((K1_SHAPE, "main"), (COEX_K1_SHAPE, "CoEx"),
+                                 (FADNET_K1_SHAPE, "FADNet"),
                                  ((1, 8, 3, 37, 48), "ragged W"),
                                  ((2, 24, 5, 130, 100), "ragged W, D>64"),
                                  ((1, 4, 2, 6, 10), "d >= W")):
@@ -519,7 +542,7 @@ def phase_k1(dev):
         got16 = ops.corr_volume(lb, rb, d)
         err16, share = volume_bf16_check(got16, ref16, f"K1 bf16 {tag}")
         control = ""
-        if tag in ("main", "CoEx"):  # the unrounded control: products in f32
+        if tag in ("main", "CoEx", "FADNet"):  # the unrounded control: products in f32
             no, c_share = volume_rejected(
                 ops.correlation_volume(lb.float(), rb.float(), d).bfloat16(), ref16)
             check(no, f"K1 bf16 {tag}: the unrounded control passes the check")
@@ -897,30 +920,51 @@ def bound(nbytes, flops, card):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def k1_timing(dev, per_frame, card, g, tag="K1"):
-    """K1 at the one shape a path launched it at (`per_frame`: shape → launches
-    per frame), bf16: CUDA events over back-to-back launches, device time per
-    launch (torch.profiler), the plain version, the bound; summed per frame."""
+def volume_timing(dev, per_frame, card, g, tag, grouped):
+    """K1 (`grouped` False) or K3 at each shape a path launched it at
+    (`per_frame`: shape → launches per frame), bf16: CUDA events over
+    back-to-back launches, device time per launch (torch.profiler), the
+    plain version, the bound; summed per frame with the launch counts."""
     import torch
 
     from openstereo_tpu_torch import ops
 
-    (shape, count), = per_frame.items()
-    b, c, h, w, d = shape
-    left, right = (torch.randn(b, c, h, w, generator=g).to(dev, torch.bfloat16) for _ in range(2))
-    t_k = time_ms(lambda: ops.corr_volume(left, right, d))
-    t_d = device_ms(lambda: ops.corr_volume(left, right, d))
-    t_p = time_ms(lambda: ops.correlation_volume(left, right, d), iters=10)
-    t_b, by = bound(*k1_work(shape, 2), card)
-    print(f"[time] {tag} {shape} x{count} bf16: kernel {t_k:.4f} ms (CUDA events over "
-          f"back-to-back launches), device {t_d:.4f} ms per launch (torch.profiler), plain "
-          f"{t_p:.4f} ms, bound {t_b:.4f} ms ({by}; {t_b / t_d:.1%} of the device time); no "
-          f"single PyTorch call computes it")
-    return {"ms": count * t_k, "device_ms": count * t_d, "plain_ms": count * t_p,
-            "yardstick_ms": None, "bound_ms": count * t_b, "bound_by": by,
-            "bound_share": t_b / t_d, "launches_per_frame": count,
-            "shapes": [{"shape": list(shape), "launches_per_frame": count, "ms": t_k,
-                        "device_ms": t_d, "plain_ms": t_p, "bound_ms": t_b, "bound_by": by}]}
+    out = {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0, "yardstick_ms": None, "bound_ms": 0.0,
+           "launches_per_frame": sum(per_frame.values()), "shapes": []}
+    t_bytes = t_ops = 0.0
+    for shape, count in sorted(per_frame.items(), reverse=True):
+        b, c, h, w, d = shape[:5]
+        left, right = (torch.randn(b, c, h, w, generator=g).to(dev, torch.bfloat16)
+                       for _ in range(2))
+        if grouped:
+            kernel = lambda: ops.gwc_volume(left, right, d, shape[5])  # noqa: E731
+            plain = lambda: ops.build_gwc_volume(left, right, d, shape[5])  # noqa: E731
+            nbytes, flops = k3_work(shape, 2)
+        else:
+            kernel = lambda: ops.corr_volume(left, right, d)  # noqa: E731
+            plain = lambda: ops.correlation_volume(left, right, d)  # noqa: E731
+            nbytes, flops = k1_work(shape, 2)
+        t_k, t_d, t_p = time_ms(kernel), device_ms(kernel), time_ms(plain, iters=10)
+        t_b, by = bound(nbytes, flops, card)
+        t_bytes += count * nbytes / card[0] * 1e3
+        t_ops += count * flops / card[1] * 1e3
+        for key, t in (("ms", t_k), ("device_ms", t_d), ("plain_ms", t_p), ("bound_ms", t_b)):
+            out[key] += count * t
+        out["shapes"].append({"shape": list(shape), "launches_per_frame": count, "ms": t_k,
+                              "device_ms": t_d, "plain_ms": t_p, "bound_ms": t_b, "bound_by": by,
+                              "bytes": nbytes, "flops": flops})
+        print(f"[time] {tag} {shape} x{count} bf16: kernel {t_k:.4f} ms (CUDA events over "
+              f"back-to-back launches), device {t_d:.4f} ms per launch (torch.profiler), plain "
+              f"{t_p:.4f} ms, bound {t_b:.4f} ms ({by}; {nbytes} B, {flops} flop; "
+              f"{t_b / t_d:.1%} of the device time); no single PyTorch call computes it")
+        del left, right
+    out["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    out["bound_share"] = out["bound_ms"] / out["device_ms"]
+    return out
+
+
+def k1_timing(dev, per_frame, card, g, tag="K1"):
+    return volume_timing(dev, per_frame, card, g, tag, grouped=False)
 
 
 def k2_timing(dev, per_frame, card, g, tag="K2"):
@@ -1057,7 +1101,9 @@ def phase_k3(dev):
 
     g = torch.Generator().manual_seed(6)
     errs = {}
-    for (b, c, h, w, d, gr), tag in [(K3_SHAPE, "main path")] + K3_EDGES:
+    cfnet = [(shape, f"CFNet {scale}") for shape, scale in zip(CFNET_K3_SHAPES,
+                                                                ("1/8", "1/16", "1/32"))]
+    for (b, c, h, w, d, gr), tag in [(K3_SHAPE, "main path")] + cfnet + K3_EDGES:
         left, right = (torch.randn(b, c, h, w, generator=g).to(dev) for _ in range(2))
         ref = ops.build_gwc_volume(left, right, d, gr)
         got = ops.gwc_volume(left, right, d, gr)
@@ -1069,7 +1115,7 @@ def phase_k3(dev):
         got16 = ops.gwc_volume(lb, rb, d, gr)
         err16, share = volume_bf16_check(got16, ref16, f"K3 bf16 {tag}")
         control = ""
-        if tag == "main path":  # the unrounded control: products in f32
+        if tag == "main path" or tag.startswith("CFNet"):  # the unrounded control
             no, c_share = volume_rejected(
                 ops.build_gwc_volume(lb.float(), rb.float(), d, gr).bfloat16(), ref16)
             check(no, f"K3 bf16 {tag}: the unrounded control passes the check")
@@ -1088,7 +1134,7 @@ def phase_k3(dev):
     check(err1 <= 1e-6, f"K3 with G = 1 vs K1: max-abs {err1} > 1e-6")
     print(f"[K3] G = 1 vs K1 at (1, 24, 136, 240, D 48), f32: max-abs {err1:.3g} (tol 1e-6)")
     torch.cuda.synchronize()
-    return errs["main path"]
+    return errs
 
 
 def phase_gwcnet(dev):
@@ -1199,37 +1245,18 @@ def phase_timing_3d(dev, gwcnet, psmnet, card, per_frame):
 
 
 def k3_timing(dev, per_frame, card, g, tag="K3"):
-    """K3 at the one shape a path launched it at, bf16, as `k1_timing`."""
-    import torch
-
-    from openstereo_tpu_torch import ops
-
-    (shape, count), = per_frame.items()
-    b, c, h, w, d, gr = shape
-    left, right = (torch.randn(b, c, h, w, generator=g).to(dev, torch.bfloat16) for _ in range(2))
-    t_k = time_ms(lambda: ops.gwc_volume(left, right, d, gr))
-    t_d = device_ms(lambda: ops.gwc_volume(left, right, d, gr))
-    t_p = time_ms(lambda: ops.build_gwc_volume(left, right, d, gr), iters=10)
-    nbytes, flops = k3_work(shape, 2)
-    t_b, by = bound(nbytes, flops, card)
-    print(f"[time] {tag} {shape} x{count} bf16: kernel {t_k:.4f} ms (CUDA events over "
-          f"back-to-back launches), device {t_d:.4f} ms per launch (torch.profiler), plain "
-          f"{t_p:.4f} ms, bound {t_b:.4f} ms ({by}; {nbytes} B, {flops} flop; "
-          f"{t_b / t_d:.1%} of the device time); no single PyTorch call computes it")
-    return {"ms": count * t_k, "device_ms": count * t_d, "plain_ms": count * t_p,
-            "yardstick_ms": None, "bound_ms": count * t_b, "bound_by": by,
-            "bound_share": t_b / t_d, "launches_per_frame": count,
-            "shapes": [{"shape": list(shape), "launches_per_frame": count, "ms": t_k,
-                        "device_ms": t_d, "plain_ms": t_p, "bound_ms": t_b, "bound_by": by,
-                        "bytes": nbytes, "flops": flops}]}
+    return volume_timing(dev, per_frame, card, g, tag, grouped=True)
 
 
 def model_paths():
-    """The CoEx, MSNet3D and MSNet2D paths: (name, config, the kernels each
-    must launch per frame by shape, the module whose output feeds a top-k head
-    or None, the timing protocol). CoEx's top-k head picks 2 of its 48 costs;
-    with random weights the costs are nearly flat, so a bf16 rounding moves
-    the picks and the bf16 disparity of either path lies ~11 px from the f32
+    """The CoEx, MSNet3D, MSNet2D, CFNet, FADNet, CasGwcNet and CasPSMNet
+    paths: (name, config, the kernels each must launch per frame by shape,
+    the f32 rule: the module whose output feeds a top-k head, "share" for a
+    model whose sample grids are floors (CFNet: ≥ 99.9 % of the pixels within
+    5e-3 px, as a floor may move one sample by a disparity at a pixel) or
+    None for max-abs 5e-3 px, the timing protocol). CoEx's top-k head picks 2
+    of its 48 costs; with random weights the costs are nearly flat, so a bf16
+    rounding moves the picks and the bf16 disparity of either path lies ~11 px from the f32
     one (the phase prints both; the flax model's own bf16 lies as far from
     its f32, `tests/coex_bf16_witness.py`): its bf16 check holds the cost
     that feeds the head, and the kernel path's distance from the f32
@@ -1243,34 +1270,41 @@ def model_paths():
         ("MSNet3D", MSNET3D_CFG, {"gwc_volume": {K3_SHAPE: 1}, "fused_mbconv": MSNET3D_K2_SHAPES},
          None, (8, 12, 6)),
         ("MSNet2D", MSNET2D_CFG, {"fused_mbconv": MSNET2D_K2_SHAPES}, None, (8, 20, 10)),
+        ("CFNet", CFNET_CFG, {"gwc_volume": CFNET_K3_SHAPES}, "share", (8, 5, 5)),
+        ("FADNet", FADNET_CFG, {"corr_volume": {FADNET_K1_SHAPE: 1}}, None, (8, 10, 10)),
+        ("CasGwcNet", CASGWC_CFG, {}, None, (8, 6, 6)),
+        ("CasPSMNet", CASPSM_CFG, {}, None, (8, 6, 6)),
     ]
 
 
-def phase_model(dev, name, cfg_file, want, topk_input):
-    """One of the CoEx/MSNet paths at 544x960, b1, bf16, random weights (seed
-    0), through `run_pair` on the synthetic pairs: the launch records, peak
-    memory, and the kernel path against the eager path. f32 (TF32 off):
-    max-abs <= 5e-3 px, or with a top-k head >= 99.9 % of the pixels within
-    5e-3 px. bf16: mean-abs <= 0.5 px; with a top-k head (`topk_input`, the
-    module whose output feeds it), that cost within one bf16 unit of its
-    largest magnitude on average, and the kernel path's disparity no more
-    than 5 % further from the f32 eager one than the eager path's is
-    (`model_paths` says why). Each bf16 path's distance from the f32 eager
-    disparity is printed for every model."""
+def phase_model(dev, name, cfg_file, want, rule):
+    """One of the paths of `model_paths` at its config's EVALUATING size, b1,
+    bf16, random weights (seed 0), through `run_pair` on the synthetic
+    pairs: the launch records, peak memory, and the kernel path against the
+    eager path. f32 (TF32 off): max-abs <= 5e-3 px, or (`rule` "share" or a
+    top-k head) >= 99.9 % of the pixels within 5e-3 px. bf16: mean-abs <=
+    0.5 px; with a top-k head (`rule`, the module whose output feeds it),
+    that cost within one bf16 unit of its largest magnitude on average, and
+    the kernel path's disparity no more than 5 % further from the f32 eager
+    one than the eager path's is (`model_paths` says why). Each bf16 path's
+    distance from the f32 eager disparity is printed for every model."""
     import torch
 
     from openstereo_tpu_torch.config import load_config
     from openstereo_tpu_torch.data.transforms import build_transforms
     from openstereo_tpu_torch.models import build_model, set_kernels
+    from openstereo_tpu_torch.tools.bench import eval_size
     from openstereo_tpu_torch.tools.infer import run_pair
 
     tag = f"[{name.lower()}]"
     cfg = load_config(str(cfg_file))
+    size = eval_size(cfg)
+    topk_input = rule if rule not in (None, "share") else None
     tf = build_transforms(cfg.DATA_CONFIG.DATA_TRANSFORM["EVALUATING"])
-    pairs = list(synthetic_pairs())
+    pairs = list(synthetic_pairs(size))
     model = build_model(cfg.MODEL, dtype=torch.bfloat16, device=dev, seed=0)
     n_params = sum(p.numel() for p in model.parameters())
-    print(f"{tag} {name} ({n_params} parameters), {H}x{W} b1 bf16, {N_PAIRS} pairs")
+    print(f"{tag} {name} ({n_params} parameters), {size[0]}x{size[1]} b1 bf16, {N_PAIRS} pairs")
     run_pair(model, tf, *pairs[0])  # warm-up: kernel build and cuDNN plans
     costs = {"kernels": [], "eager": []}
     if topk_input:
@@ -1290,7 +1324,8 @@ def phase_model(dev, name, cfg_file, want, topk_input):
     if topk_input:
         hook.remove()
     for d in wired + eager:
-        check(d.shape == (H, W) and np.isfinite(d).all(), f"{name} bf16 disparity not finite [H,W]")
+        check(d.shape == size and np.isfinite(d).all(),
+              f"{name} bf16 disparity not finite {list(size)}")
     mean16 = max(float(np.abs(a - b).mean()) for a, b in zip(wired, eager))
 
     model32 = build_model(cfg.MODEL, dtype=torch.float32, device=dev, seed=0)
@@ -1305,17 +1340,20 @@ def phase_model(dev, name, cfg_file, want, topk_input):
     to_f32 = {k: max(float(np.abs(a - b).mean()) for a, b in zip(ds, eager32))
               for k, ds in (("kernels", wired), ("eager", eager))}
     print(f"{tag} f32 kernel vs eager: max-abs {max32:.3g} px, share within 5e-3 px "
-          f"{share32:.6f} (tol {'>= 0.999' if topk_input else 'max-abs 5e-3'}); bf16 kernel vs "
+          f"{share32:.6f} (tol {'max-abs 5e-3' if rule is None else '>= 0.999'}); bf16 kernel vs "
           f"eager: mean-abs {mean16:.4g} px (tol {'-' if topk_input else '0.5'}); bf16 vs the f32 "
           f"eager disparity, mean-abs: kernels {to_f32['kernels']:.4g} px, eager "
           f"{to_f32['eager']:.4g} px; bf16 disparity range {wired[0].min():.2f}.."
           f"{wired[0].max():.2f}")
-    rec = {"launches": launches, "per_frame": per_frame, "peak_bytes": peak,
+    rec = {"size": list(size), "launches": launches, "per_frame": per_frame, "peak_bytes": peak,
            "max_abs_f32": max32, "share_within_5e-3_f32": share32, "mean_abs_bf16": mean16,
            "mean_abs_bf16_to_f32": to_f32}
-    if topk_input:
+    if rule is not None:
         check(share32 >= 0.999, f"{name} f32 kernel vs eager: only {share32} of pixels within "
                                 f"5e-3 px")
+    else:
+        check(max32 <= 5e-3, f"{name} f32 kernel vs eager max-abs {max32} px > 5e-3")
+    if topk_input:
         cost = max(float((a - b).abs().mean() / b.abs().max())
                    for a, b in zip(costs["kernels"], costs["eager"]))
         print(f"{tag} bf16 kernel vs eager, the cost feeding the top-k head ({topk_input}): "
@@ -1326,24 +1364,29 @@ def phase_model(dev, name, cfg_file, want, topk_input):
               f"path {to_f32['eager']} px: more than 5 % further")
         rec["topk_input_mean_abs_rel_bf16"] = cost
     else:
-        check(max32 <= 5e-3, f"{name} f32 kernel vs eager max-abs {max32} px > 5e-3")
         check(mean16 <= 0.5, f"{name} bf16 kernel vs eager mean-abs {mean16} px > 0.5")
     return model, rec
 
 
-def phase_timing_model(dev, name, model, card, per_frame, protocol):
-    """Frames/s of both paths (the bench protocol: `groups` groups of `reps`
+def phase_timing_model(dev, name, model, card, per_frame, protocol, size=(H, W)):
+    """Each kernel of the path at its shapes beside its plain version and its
+    bound (first: its device-time trace is short, and one run's trace of a
+    kernel right after a long model profile recorded no launch three times),
+    frames/s of both paths (the bench protocol: `groups` groups of `reps`
     chained frames, with the spread between groups and the host's issue time
-    per frame), a torch.profiler pass over `frames` frames of each (tables in
-    `chiprun_out/<name>_profile/`), and each kernel of the path at its
-    shapes beside its plain version and its bound."""
+    per frame) and a torch.profiler pass over `frames` frames of each
+    (tables in `chiprun_out/<name>_profile/`)."""
     import torch
 
     from openstereo_tpu_torch.tools.bench import bench_eager_vs_kernels, profile_paths
 
+    g = torch.Generator().manual_seed(9)
+    timing = {"corr_volume": k1_timing, "fused_mbconv": k2_timing, "gwc_volume": k3_timing}
+    kernel_times = {k: timing[k](dev, shapes, card, g, tag=f"{k} ({name})")
+                    for k, shapes in per_frame.items()}
     groups, reps, frames = protocol
-    res = bench_eager_vs_kernels(model, groups=groups, reps=reps)
-    prof = profile_paths(model, frames, str(OUT_DIR / f"{name.lower()}_profile"))
+    res = bench_eager_vs_kernels(model, groups=groups, reps=reps, size=size)
+    prof = profile_paths(model, frames, str(OUT_DIR / f"{name.lower()}_profile"), size=size)
     for path in ("eager", "kernels"):
         r, b = prof[path], res[path]
         ms = b["ms_per_frame"]
@@ -1357,10 +1400,6 @@ def phase_timing_model(dev, name, model, card, per_frame, protocol):
         print(f"[profile] {name} {path}: device busy {r['device_busy_ms_per_frame']:.3f} "
               f"ms/frame over {frames} frames, {r['device_ops_per_frame']:g} device operations "
               f"a frame, idle share {r['idle_share']:.4f}; top: {top}")
-    g = torch.Generator().manual_seed(9)
-    timing = {"corr_volume": k1_timing, "fused_mbconv": k2_timing, "gwc_volume": k3_timing}
-    kernel_times = {k: timing[k](dev, shapes, card, g, tag=f"{k} ({name})")
-                    for k, shapes in per_frame.items()}
     return res, prof, kernel_times
 
 
@@ -1620,7 +1659,7 @@ def phase_overfit():
 
 
 def path_entries(models, kernel, errors):
-    """The `paths` field of a kernel's JSON entry: for each CoEx/MSNet path
+    """The `paths` field of a kernel's JSON entry: for each path of `model_paths`
     that launched it, the launches counted on that path's run, per frame by
     shape, the times per frame at those shapes (`k1/k2/k3_timing`) and the
     errors at those shapes from the kernel phases."""
@@ -1680,7 +1719,7 @@ def main():
         for name, cfg_file, want, rule, protocol in model_paths():
             model, rec = phase_model(dev, name, cfg_file, want, rule)
             rec["bench"], rec["profile"], rec["kernels"] = phase_timing_model(
-                dev, name, model, card, rec["per_frame"], protocol)
+                dev, name, model, card, rec["per_frame"], protocol, tuple(rec["size"]))
             models[name] = rec
             del model
             torch.cuda.empty_cache()
@@ -1697,8 +1736,8 @@ def main():
              launches=launches["corr_volume"], max_abs_err=k1_err["main"][1],
              max_abs_err_f32=k1_err["main"][0], not_bit_equal_share=k1_err["main"][2],
              paths=path_entries(models, "corr_volume",
-                                {"CoEx": dict(zip(("max_abs_err_f32", "max_abs_err",
-                                                   "not_bit_equal_share"), k1_err["CoEx"]))}),
+                                {name: dict(zip(VOLUME_ERR_KEYS, k1_err[name]))
+                                 for name in ("CoEx", "FADNet")}),
              launches_trainer_eval=trained["launches"]["corr_volume"],
              eval_batch=dict(shape=list(K1_EVAL_SHAPE), max_abs_err=k1_eval[1],
                              max_abs_err_f32=k1_eval[0], not_bit_equal_share=k1_eval[2]),
@@ -1710,7 +1749,7 @@ def main():
              paths=path_entries(models, "fused_mbconv", {
                  name: {"max_abs_err_f32": max(k2_err[3][k][0] for k in want["fused_mbconv"]),
                         "max_abs_err": max(k2_err[3][k][1] for k in want["fused_mbconv"])}
-                 for name, _, want, _, _ in model_paths()}),
+                 for name, _, want, _, _ in model_paths() if "fused_mbconv" in want}),
              launches_trainer_eval=trained["launches"]["fused_mbconv"],
              eval_batch=dict(max_abs_err=k2_eval[1], max_abs_err_f32=k2_eval[0],
                              splits=[dict(shape=list(k), splits=v)
@@ -1732,10 +1771,14 @@ def main():
              **k4),
         dict(name="gwc_volume", route="cuda", source="openstereo_tpu_torch/csrc/cost_volume.cu",
              replaces="openstereo_tpu/ops/pallas/corr_volume.py:103",
-             launches=k3_launches, max_abs_err=k3_err[1], max_abs_err_f32=k3_err[0],
-             not_bit_equal_share=k3_err[2], flip_share=VOLUME_FLIP_SHARE, library_ms=None,
-             paths=path_entries(models, "gwc_volume", {"MSNet3D": dict(zip(
-                 ("max_abs_err_f32", "max_abs_err", "not_bit_equal_share"), k3_err))}),
+             launches=k3_launches, max_abs_err=k3_err["main path"][1],
+             max_abs_err_f32=k3_err["main path"][0], not_bit_equal_share=k3_err["main path"][2],
+             flip_share=VOLUME_FLIP_SHARE, library_ms=None,
+             paths=path_entries(models, "gwc_volume", {
+                 "MSNet3D": dict(zip(VOLUME_ERR_KEYS, k3_err["main path"])),
+                 "CFNet": dict(zip(VOLUME_ERR_KEYS, np.max([e for t, e in k3_err.items()
+                                                            if t.startswith("CFNet")], axis=0)
+                                   .tolist()))}),
              ptxas=ptxas["cost_volume"], **k3),
     ]
     print(f"[slice] fps eager {bench['eager']['fps']:.2f}, kernels {bench['kernels']['fps']:.2f}; "

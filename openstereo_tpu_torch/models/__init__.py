@@ -1,8 +1,8 @@
 """Model registry and `build_model` (counterpart of `openstereo_tpu/models/__init__.py:32`).
 
-LightStereo, STTR, GwcNet, PSMNet, CoEx, MSNet3D and MSNet2D are ported;
-the other names of the JAX zoo raise NotImplementedError naming the ROADMAP
-item that brings them.
+LightStereo, STTR, GwcNet, PSMNet, CoEx, MSNet3D, MSNet2D, CFNet, FADNet,
+CasGwcNet and CasPSMNet are ported; the other names of the JAX zoo raise
+NotImplementedError naming the ROADMAP item that brings them.
 """
 
 from __future__ import annotations
@@ -14,7 +14,10 @@ import torch.nn as nn
 
 from ..config import Config, get_valid_kwargs
 from ..device import resolve_device
+from .casnet import CasGwcNet, CasPSMNet
+from .cfnet import CFNet
 from .coex import CoExNet
+from .fadnet import FADNet
 from .gwcnet import GwcNet
 from .layers import set_kernels  # noqa: F401
 from .lightstereo import LightStereo
@@ -26,12 +29,11 @@ from .sttr.sttr import RegressionHead
 from .sttr.transformer import MultiheadAttentionRelative
 
 MODELS = {"LightStereo": LightStereo, "STTR": STTR, "GwcNet": GwcNet, "PSMNet": PSMNet,
-          "CoExNet": CoExNet, "MSNet3D": MSNet3D, "MSNet2D": MSNet2D}
+          "CoExNet": CoExNet, "MSNet3D": MSNet3D, "MSNet2D": MSNet2D, "CFNet": CFNet,
+          "FADNet": FADNet, "CasGwcNet": CasGwcNet, "CasPSMNet": CasPSMNet}
 
 # JAX-zoo names still to be ported → the ROADMAP item (queue 1) that ports them
 NOT_PORTED = {
-    "CasPSMNet": "Slice D, item 12", "CasGwcNet": "Slice D, item 12",
-    "CFNet": "Slice D, item 12", "FADNet": "Slice D, item 12",
     "IGEV": "Slice E, item 14", "IGEVRT": "Slice E, item 14",
     "StereoBase": "Slice E, item 14", "IGEVPP": "Slice E, item 14",
     "FoundationStereo": "Slice E, item 15", "FastFoundationStereo": "Slice E, item 15",
@@ -49,7 +51,8 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     with their biases. BatchNorm affine and running statistics, LayerNorm
     affine and weight-norm gains are near identity but not equal to it, so
     a folded BN or a LayerNorm's affine is exercised. STTR's dustbin cost
-    `phi` is uniform ±0.5. Raises if a parameter or buffer is left undrawn.
+    `phi` is uniform ±0.5, CFNet's range scalars (γ, β per stage) ±0.1.
+    Raises if a parameter or buffer is left undrawn.
     """
     drawn = set()
 
@@ -86,6 +89,9 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
                 draw(m.in_proj_bias, -bound, bound)
             elif isinstance(m, RegressionHead):
                 draw(m.phi, -0.5, 0.5)
+            elif isinstance(m, CFNet):
+                for p in (m.gamma_s3, m.beta_s3, m.gamma_s2, m.beta_s2):
+                    draw(p, -0.1, 0.1)
     missed = [k for k, t in list(model.named_parameters()) + list(model.named_buffers())
               if id(t) not in drawn]
     if missed:
@@ -111,8 +117,8 @@ def init_training_weights(model: nn.Module, generator: torch.Generator) -> nn.Mo
     """flax's default initialisers, which the JAX trainer starts from
     (`runtime/trainer.py:186-194`): conv, deconv and linear kernels
     lecun-normal (truncated normal, variance 1/fan_in), zero biases,
-    BatchNorm scale 1, bias 0, mean 0, var 1, LayerNorm scale 1, bias 0.
-    Drawn from `generator` in module order. Raises on a parameter that flax
+    BatchNorm scale 1, bias 0, mean 0, var 1, LayerNorm scale 1, bias 0,
+    CFNet's range scalars 0. Drawn from `generator` in module order. Raises on a parameter that flax
     would not initialise this way (STTR's weight-normed convs, attention
     projections and dustbin cost: STTR training is ROADMAP item 8)."""
     drawn = set()
@@ -134,6 +140,10 @@ def init_training_weights(model: nn.Module, generator: torch.Generator) -> nn.Mo
                 if not isinstance(m, nn.LayerNorm):
                     m.reset_running_stats()
                     drawn.update(id(t) for t in m.buffers())
+            elif isinstance(m, CFNet):
+                for p in (m.gamma_s3, m.beta_s3, m.gamma_s2, m.beta_s2):
+                    p.zero_()
+                    drawn.add(id(p))
     missed = [k for k, t in list(model.named_parameters()) + list(model.named_buffers())
               if id(t) not in drawn]
     if missed:
@@ -160,7 +170,8 @@ def build_model(model_cfg: Config, dtype: torch.dtype = torch.float32,
     device = resolve_device(device)
     name = model_cfg["NAME"]
     if name in NOT_PORTED:
-        raise NotImplementedError(f"{name} is not ported yet: ROADMAP queue 1, {NOT_PORTED[name]}")
+        raise NotImplementedError(f"{name} is not ported yet (ROADMAP.md queue 1, "
+                                  f"{NOT_PORTED[name]}); ported: {sorted(MODELS)}")
     if name not in MODELS:
         raise KeyError(f"unknown model {name!r}; available: {sorted(MODELS)}")
     cls = MODELS[name]

@@ -20,7 +20,7 @@ Sequential indices (ReLUs included).
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 import torch.nn as nn
@@ -60,19 +60,25 @@ class GwcBackbone(nn.Module):
         return out
 
 
-def convbn_relu_3d(in_ch: int, out_ch: int, stride: int = 1) -> nn.Sequential:
-    return nn.Sequential(convbn(in_ch, out_ch, 3, stride, ndim=3), nn.ReLU())
+def convbn_act_3d(in_ch: int, out_ch: int, stride: int = 1,
+                  act: Optional[nn.Module] = None) -> nn.Sequential:
+    """Sequential(convbn 3D, act), act a ReLU unless given."""
+    return nn.Sequential(convbn(in_ch, out_ch, 3, stride, ndim=3), act or nn.ReLU())
 
 
 class GwcHourglass(nn.Module):
-    """Unshared 3D hourglass with 1×1 redir skips (`gwcnet.py:70-98`)."""
+    """Unshared 3D hourglass with 1×1 redir skips (`gwcnet.py:70-98`). With
+    `act` (an activation module, ReLU by default) it is also CFNet's
+    `MishHourglass` (`cfnet.py:161-187`), which has the same keys."""
 
-    def __init__(self, c: int):
+    def __init__(self, c: int, act: Optional[nn.Module] = None):
         super().__init__()
-        self.conv1 = convbn_relu_3d(c, 2 * c, 2)
-        self.conv2 = convbn_relu_3d(2 * c, 2 * c)
-        self.conv3 = convbn_relu_3d(2 * c, 4 * c, 2)
-        self.conv4 = convbn_relu_3d(4 * c, 4 * c)
+        act = act or nn.ReLU()
+        self.act = act
+        self.conv1 = convbn_act_3d(c, 2 * c, 2, act)
+        self.conv2 = convbn_act_3d(2 * c, 2 * c, 1, act)
+        self.conv3 = convbn_act_3d(2 * c, 4 * c, 2, act)
+        self.conv4 = convbn_act_3d(4 * c, 4 * c, 1, act)
         self.conv5 = deconv_bn(4 * c, 2 * c, 3, "batch", ndim=3)
         self.conv6 = deconv_bn(2 * c, c, 3, "batch", ndim=3)
         self.redir1 = convbn(c, c, 1, ndim=3)
@@ -81,8 +87,8 @@ class GwcHourglass(nn.Module):
     def forward(self, x):
         conv2 = run_seq(run_seq(x, self.conv1), self.conv2)
         conv4 = run_seq(run_seq(conv2, self.conv3), self.conv4)
-        conv5 = torch.relu(run_seq(conv4, self.conv5) + run_seq(conv2, self.redir2))
-        return torch.relu(run_seq(conv5, self.conv6) + run_seq(x, self.redir1))
+        conv5 = run_seq(run_seq(conv4, self.conv5) + run_seq(conv2, self.redir2), [self.act])
+        return run_seq(run_seq(conv5, self.conv6) + run_seq(x, self.redir1), [self.act])
 
 
 class GwcDispProcessor(nn.Module):

@@ -54,17 +54,21 @@ def leaky_relu(negative_slope: float = 0.01) -> Callable:
     return act
 
 
+def _split(out, part: slice):
+    if isinstance(out, torch.Tensor):
+        return out[part]
+    if isinstance(out, dict):
+        return {k: _split(t, part) for k, t in out.items()}
+    return type(out)(_split(t, part) for t in out)
+
+
 def siamese(fn: Callable, left: torch.Tensor, right: torch.Tensor):
     """Run a weight-shared tower over a stereo pair as one 2B batch and split
     each output back into (left, right) (`layers.py:118-139`). `fn` returns
-    a tensor, a list of tensors or a dict of tensors."""
+    a tensor or lists, tuples and dicts of them, nested as a pytree."""
     b = left.shape[0]
     out = fn(torch.cat([left, right], dim=0))
-    if isinstance(out, torch.Tensor):
-        return out[:b], out[b:]
-    if isinstance(out, dict):
-        return {k: t[:b] for k, t in out.items()}, {k: t[b:] for k, t in out.items()}
-    return [t[:b] for t in out], [t[b:] for t in out]
+    return _split(out, slice(None, b)), _split(out, slice(b, None))
 
 
 def compute_weight(p: Optional[torch.Tensor], dtype: torch.dtype) -> Optional[torch.Tensor]:

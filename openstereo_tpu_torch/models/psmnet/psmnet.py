@@ -31,16 +31,17 @@ class ResBlock(nn.Module):
     (`psmnet.py:32-50`). A 1×1 conv-bn `downsample` carries the skip when
     the stride or the width changes.
 
-    Keys: `conv1.{0,1}` (PSMNet), or `conv1.0.{0,1}` with `nested` (GwcNet,
-    whose reference conv1 is Sequential(convbn, ReLU)); `conv2.{0,1}`;
+    Keys: `conv1.{0,1}` (PSMNet), or `conv1.0.{0,1}` with `nested` (GwcNet
+    and CasNet, whose reference conv1 is Sequential(convbn, ReLU), and
+    CFNet's `MishResBlock` with `act` a Mish); `conv2.{0,1}`;
     `downsample.{0,1}`.
     """
 
     def __init__(self, in_ch: int, out_ch: int, stride: int = 1, dilation: int = 1,
-                 nested: bool = False):
+                 nested: bool = False, act: Optional[nn.Module] = None):
         super().__init__()
         conv1 = convbn(in_ch, out_ch, 3, stride, dilation)
-        self.conv1 = nn.Sequential(conv1, nn.ReLU()) if nested else conv1
+        self.conv1 = nn.Sequential(conv1, act or nn.ReLU()) if nested else conv1
         self.nested = nested
         self.conv2 = convbn(out_ch, out_ch, 3, 1, dilation)
         self.downsample = (convbn(in_ch, out_ch, 1, stride)

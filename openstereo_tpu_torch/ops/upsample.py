@@ -90,6 +90,22 @@ def resize_trilinear(x: torch.Tensor, size) -> torch.Tensor:
     return _interpolate(x, size, "trilinear", False)
 
 
+def resize_linear(x: torch.Tensor, size) -> torch.Tensor:
+    """[B,C,*spatial] → [B,C,*size], bi- or trilinear with half-pixel centres
+    over the 2 or 3 trailing axes and no antialiasing, also where an axis
+    shrinks (counterpart of `openstereo_tpu/ops/upsample.py:98`,
+    `resize_linear_torch`, which CasNet uses to shrink its sample grids).
+    Unlike `resize_bilinear`, which stands for `jax.image.resize`, it takes a
+    downsample: a fixed 2-tap kernel at any scale, border taps clamped."""
+    size = tuple(size)
+    mode = {2: "bilinear", 3: "trilinear"}[len(size)]
+    if x.dim() != len(size) + 2:
+        raise ValueError(f"{mode} resize of a {x.dim()}-d tensor to {size}")
+    if size == tuple(x.shape[2:]):
+        return x
+    return _interpolate(x, size, mode, False)
+
+
 def resize_linear_align_corners(x: torch.Tensor, size) -> torch.Tensor:
     """[B,C,*spatial] → [B,C,*size], bi- or trilinear with align_corners=True
     over the 2 or 3 trailing axes (counterpart of

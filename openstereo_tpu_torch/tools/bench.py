@@ -1,9 +1,10 @@
 """Inference throughput on one CUDA card, eager path vs kernel path.
 
     python -m openstereo_tpu_torch.tools.bench [--groups 9] [--reps 25]
-        [--cfg_file cfgs/sttr/sttr_flyingthings3d.yaml --size 540 960]
+        [--cfg_file cfgs/sttr/sttr_flyingthings3d.yaml] [--size 540 960]
 
-LightStereo-S by default, or the MODEL section of `--cfg_file`.
+LightStereo-S by default, or the MODEL section of `--cfg_file`, at the
+config's EVALUATING pad size (RightTopPad) unless `--size` is given.
 
 The protocol of the JAX `bench.py:41-84`: input [1,3,544,960], bf16, random
 weights from a seed; each timing group runs `reps` frames chained by a data
@@ -36,6 +37,12 @@ from ..models import build_model, set_kernels
 H, W = 544, 960
 LIGHTSTEREO_S = Config.from_dict({"NAME": "LightStereo", "MAX_DISP": 192, "EXPANSE_RATIO": 4,
                                   "AGGREGATION_BLOCKS": [1, 2, 4], "LEFT_ATT": True})
+
+
+def eval_size(cfg: Config) -> Tuple[int, int]:
+    """The EVALUATING pad size (RightTopPad's SIZE) of a config, else 544×960."""
+    pads = [t for t in cfg.DATA_CONFIG.DATA_TRANSFORM["EVALUATING"] if t["NAME"] == "RightTopPad"]
+    return tuple(pads[0]["SIZE"]) if pads else (H, W)
 
 
 def pair(device: torch.device, size: Tuple[int, int] = (H, W)) -> Dict[str, torch.Tensor]:
@@ -154,11 +161,13 @@ def main():
     p.add_argument("--profile", default=None,
                    help="directory for torch.profiler tables of both paths (off by default)")
     p.add_argument("--cfg_file", default=None, help="a config whose MODEL to run (LightStereo-S)")
-    p.add_argument("--size", type=int, nargs=2, default=(H, W), help="input height and width")
+    p.add_argument("--size", type=int, nargs=2, default=None,
+                   help="input height and width (default: the config's pad size, else 544 960)")
     args = p.parse_args()
-    model_cfg = load_config(args.cfg_file).MODEL if args.cfg_file else LIGHTSTEREO_S
+    cfg = load_config(args.cfg_file) if args.cfg_file else None
+    model_cfg = cfg.MODEL if cfg else LIGHTSTEREO_S
     model = build_model(model_cfg, dtype=torch.bfloat16, seed=0)
-    size = tuple(args.size)
+    size = tuple(args.size) if args.size else (eval_size(cfg) if cfg else (H, W))
     res = bench_eager_vs_kernels(model, args.groups, args.reps, size)
     name = "lightstereo_s" if args.cfg_file is None else model_cfg.NAME.lower()
     line = {"metric": f"{name}_fps_{size[0]}x{size[1]}_b1_bf16",

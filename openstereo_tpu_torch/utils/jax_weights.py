@@ -545,3 +545,164 @@ def msnet2d_state_dict_from_jax(variables) -> Dict[str, torch.Tensor]:
         msnet_mv2(b, f, t)
     _msnet_heads(b)
     return b.finish()
+
+
+def _seq_convbn(b: FlaxToTorch, fpath: str, tkey: str):
+    """flax ConvBlock with BatchNorm at fpath → Sequential(convbn, act) at tkey (its `.0`)."""
+    b.convbn(fpath, f"{tkey}.0")
+
+
+def _classif(b: FlaxToTorch, fpre: str, tkey: str):
+    """flax `{fpre}a` ConvBlock + `{fpre}b` conv → Sequential(convbn, act, conv) at tkey."""
+    b.convbn(f"{fpre}a", f"{tkey}.0")
+    b.conv(f"{fpre}b", f"{tkey}.2")
+
+
+def _dres_pair(b: FlaxToTorch, fpre: str, t0: str, t1: str):
+    """flax {fpre}_0a/_0b/_1a/_1b → Sequentials t0.{0,2} and t1.{0,2}."""
+    for f, t in (("0a", f"{t0}.0"), ("0b", f"{t0}.2"), ("1a", f"{t1}.0"), ("1b", f"{t1}.2")):
+        b.convbn(f"{fpre}_{f}", t)
+
+
+def cfnet_features(b: FlaxToTorch, fpre: str, tpre: str):
+    """flax CFFeatures at fpre → port CFFeatures keys at tpre."""
+    f, t = (lambda *p: _join(fpre, *p)), (lambda *p: _join(tpre, *p, sep="."))  # noqa: E731
+    for i in range(3):
+        b.convbn(f(f"firstconv{i}"), t(f"firstconv.{2 * i}"))
+    for li in (2, 3, 4, 5, 6):
+        res_block(b, f(f"layer{li}"), t(f"layer{li}.0"), nested=True)
+    for i in range(4):
+        b.convbn(f(f"psp{i}"), t(f"pyramid_pooling.path_module_list.{i}.cbr_unit"))
+    for i in (6, 5, 4, 3):
+        b.convbn(f(f"upconv{i}"), t(f"upconv{i}.1"))
+        _seq_convbn(b, f(f"iconv{i - 1}"), t(f"iconv{i - 1}"))
+    for n in (2, 3, 4, 5, 6):
+        for fname, tname in ((f"gw{n}", f"gw{n}"), (f"cat{n}", f"concat{n}")):
+            b.convbn(f(f"{fname}a"), t(f"{tname}.0"))
+            b.conv(f(f"{fname}b"), t(f"{tname}.2"), raw=True)
+
+
+def cfnet_state_dict_from_jax(variables) -> Dict[str, torch.Tensor]:
+    """flax CFNet {"params", "batch_stats"}, drawn with the training heads,
+    → port state_dict (the reference's key names, as
+    `torch_convert.convert_cfnet` reads them; the reference-only
+    `combine1.combine3`/`redir3` it drops are not in the port). Raises if a
+    flax variable is left unconsumed."""
+    b = FlaxToTorch(variables)
+    cfnet_features(b, "features", "feature_extraction")
+    for fpre, suf in (("dres4", ""), ("dres5", "_5"), ("dres6", "_6")):
+        _dres_pair(b, fpre, f"dres0{suf}", f"dres1{suf}")
+    hu = "combine1"
+    b.conv(f"{hu}/conv1", f"{hu}.conv1", raw=True)
+    b.conv(f"{hu}/conv3", f"{hu}.conv3", raw=True)
+    for name in ("combine1", "combine2", "conv2", "conv4"):
+        _seq_convbn(b, f"{hu}/{name}", f"{hu}.{name}")
+    for name in ("conv8", "conv9"):
+        b.convbn(f"{hu}/{name}", f"{hu}.{name}", deconv=True)
+    for name in ("redir1", "redir2"):
+        b.convbn(f"{hu}/{name}", f"{hu}.{name}")
+    gwc_hourglass(b, "dres3", "dres3")
+    for s in ("s3", "s2"):
+        _dres_pair(b, f"conf_{s}", f"confidence0_{s}", f"confidence1_{s}")
+        gwc_hourglass(b, f"conf2_{s}", f"confidence2_{s}")
+        gwc_hourglass(b, f"conf3_{s}", f"confidence3_{s}")
+        for head in ("classif0", "classif1", "classifmid"):
+            _classif(b, f"conf_{head}_{s}", f"confidence_{head}_{s}")
+    for head in ("classif0", "classif1", "classif2"):
+        _classif(b, head, head)
+    for p in ("gamma_s3", "beta_s3", "gamma_s2", "beta_s2"):
+        b.put(p, np.asarray(b.take("params", p), np.float32).reshape(()))
+    return b.finish()
+
+
+def fad_res(b: FlaxToTorch, fpre: str, tpre: str, dyres: bool = False):
+    """flax FadResBlock at fpre → port FadResBlock keys at tpre (`.conv` under
+    the DynamicConv convs when `dyres`)."""
+    f, t = (lambda *p: _join(fpre, *p)), (lambda *p: _join(tpre, *p, sep="."))  # noqa: E731
+    dyn = ("conv",) if dyres else ()
+    b.conv(f("conv1"), t("conv1", *dyn))
+    b.bn(f("conv1"), t("bn1"))
+    b.conv(f("conv2"), t("conv2"))
+    b.bn(f("conv2"), t("bn2"))
+    if b.has("params", f("shortcut")):
+        b.conv(f("shortcut"), t("shortcut", "0", *dyn))
+        b.bn(f("shortcut"), t("shortcut", "1"))
+
+
+def fad_decoder(b: FlaxToTorch, fpre: str, tpre: str, pred: str):
+    """flax PyramidDecoder at fpre → the port's pyramid keys under tpre
+    (`iconvN` a stride-1 transposed conv, as the reference's)."""
+    f, t = (lambda *p: _join(fpre, *p)), (lambda *p: _join(tpre, *p, sep="."))  # noqa: E731
+    b.conv(f("pred6"), t(f"{pred}6"), raw=True)
+    for k in range(5, -1, -1):
+        b.conv(f(f"upconv{k}"), t(f"upconv{k}", "0"), deconv=True)
+        b.conv(f(f"upflow{k}"), t(f"upflow{k + 1}to{k}"), deconv=True, raw=True)
+        b.conv(f(f"iconv{k}"), t(f"iconv{k}"), deconv=True, raw=True)
+        b.conv(f(f"pred{k}"), t(f"{pred}{k}"), raw=True)
+
+
+def fadnet_state_dict_from_jax(variables) -> Dict[str, torch.Tensor]:
+    """flax FADNet {"params", "batch_stats"} → port state_dict (the
+    reference's key names, as `torch_convert.convert_fadnet` reads them).
+    Raises if a flax variable is left unconsumed."""
+    b = FlaxToTorch(variables)
+    b.conv("conv1", "backbone.conv1.0")
+    fad_res(b, "conv2", "backbone.conv2")
+    fad_res(b, "conv3", "backbone.conv3")
+    cp, dp = "cost_processor", "disp_predictor"
+    fad_res(b, "conv_redir", f"{cp}.conv_redir")
+    fad_res(b, "conv3_1", f"{cp}.conv3_1", dyres=True)
+    b.conv("res_conv1", f"{dp}.conv1.0")
+    for name in ("conv2", "conv3", "conv3_1"):
+        fad_res(b, f"res_{name}", f"{dp}.{name}")
+    for name in ("conv4", "conv4_1", "conv5", "conv5_1", "conv6", "conv6_1"):
+        fad_res(b, f"enc456/{name}", f"{cp}.{name}")
+        fad_res(b, f"res_enc456/{name}", f"{dp}.{name}")
+    fad_decoder(b, "decoder_c", cp, "pred_flow")
+    fad_decoder(b, "decoder_res", dp, "pred_res")
+    return b.finish()
+
+
+def _cas_cost_agg(b: FlaxToTorch, fpre: str, tpre: str):
+    """flax CasCostAggregation at fpre → port CasCostAggregation keys at tpre."""
+    for fname, tname in (("dres0a", "dres0.0"), ("dres0b", "dres0.2"),
+                         ("dres1a", "dres1.0"), ("dres1b", "dres1.2")):
+        b.convbn(f"{fpre}/{fname}", f"{tpre}.{tname}")
+    for hg in ("dres2", "dres3", "dres4"):
+        gwc_hourglass(b, f"{fpre}/{hg}", f"{tpre}.{hg}")
+    for j in range(4):
+        _classif(b, f"{fpre}/classif{j}", f"{tpre}.classif{j}")
+
+
+def casnet_state_dict_from_jax(variables) -> Dict[str, torch.Tensor]:
+    """flax CasPSMNet or CasGwcNet {"params", "batch_stats"}, drawn with the
+    training heads, → port state_dict (the reference's key names, as
+    `torch_convert.convert_casnet` reads them). The variant and the stage
+    count are read from the variables. Raises if a flax variable is left
+    unconsumed."""
+    b = FlaxToTorch(variables)
+    f, t = "features", "feature_extraction"
+    b.convbn(f"{f}/firstconv_a0", f"{t}.firstconv_a.0")
+    b.convbn(f"{f}/firstconv_a1", f"{t}.firstconv_a.2")
+    b.convbn(f"{f}/firstconv_b", f"{t}.firstconv_b.0")
+    _res_layers(b, f, t, nested=True)
+    feats = b.trees["params"][f]
+    # inner1.. carry the finer stages (inner0a/b are CasPSMNet's SPP fusion)
+    n_stage = 1 + _count(feats, lambda k: k[:5] == "inner" and k[5:].isdigit() and k != "inner0")
+    if "branch0" in feats:  # CasPSMNet: SPP + inner0/lastconv
+        for k in range(1, 5):
+            b.convbn(f"{f}/branch{k - 1}", f"{t}.branch{k}.1")
+        b.convbn(f"{f}/inner0a", f"{t}.inner0.0")
+        b.conv(f"{f}/inner0b", f"{t}.inner0.2", raw=True)
+        b.conv(f"{f}/lastconv", f"{t}.lastconv", raw=True)
+    else:  # CasGwcNet: per-stage concat heads
+        b.convbn(f"{f}/out1_cat_a", f"{t}.out1_cat.0")
+        b.conv(f"{f}/out1_cat_b", f"{t}.out1_cat.2", raw=True)
+        for i in range(1, n_stage):
+            b.conv(f"{f}/out{i + 1}_cat", f"{t}.out{i + 1}_cat", raw=True)
+    for i in range(1, n_stage):
+        b.conv(f"{f}/inner{i}", f"{t}.inner{i}", raw=True)
+        b.conv(f"{f}/out{i + 1}", f"{t}.out{i + 1}", raw=True)
+    for si in range(n_stage):
+        _cas_cost_agg(b, f"cost_agg{si}", f"cost_agg.{si}")
+    return b.finish()

@@ -31,20 +31,30 @@ import jax
 import jax.numpy as jnp
 
 from openstereo_tpu.models import layers as jl
+from openstereo_tpu.models.casnet import casnet as jcas
+from openstereo_tpu.models.cfnet import cfnet as jcfnet
+from openstereo_tpu.models.fadnet import fadnet as jfadnet
 from openstereo_tpu.models.igev import blocks as jblocks
 from openstereo_tpu.ops import cost_volume as jcv
+from openstereo_tpu.ops import sampler as jsampler
 from openstereo_tpu.ops import upsample as jup
 
 from openstereo_tpu_torch import ops
 from openstereo_tpu_torch.models import layers as tl
 from openstereo_tpu_torch.models import set_kernels
+from openstereo_tpu_torch.models.casnet import casnet as tcas
+from openstereo_tpu_torch.models.cfnet.cfnet import Mish, mish, mish_res_block
+from openstereo_tpu_torch.models.cfnet.cfnet import warped_volumes as cfnet_warped_volumes
 from openstereo_tpu_torch.models.coex.coex import cosine_normalize
+from openstereo_tpu_torch.models.fadnet.fadnet import FADNet, FadResBlock
+from openstereo_tpu_torch.models.gwcnet.gwcnet import GwcHourglass
 from openstereo_tpu_torch.models.igev.blocks import BasicConvBN, FeatureAtt
-from openstereo_tpu_torch.utils.jax_weights import (FlaxToTorch, basic_conv, feature_att,
-                                                    msnet_mv1, msnet_mv2, mv2_residual)
+from openstereo_tpu_torch.utils.jax_weights import (FlaxToTorch, basic_conv, fad_res,
+                                                    feature_att, gwc_hourglass, msnet_mv1,
+                                                    msnet_mv2, mv2_residual, res_block)
 
 from test_torch_coex import _variables
-from test_torch_layers import _random_variables
+from test_torch_layers import _random_like, _random_variables
 from torch_port_threads import torch_threads_per_worker  # noqa: F401 (autouse fixture)
 
 FLIP_SHARE = 1e-3
@@ -246,13 +256,14 @@ def test_bf16_resize_rounds_once(align_corners, hw, size):
 
 def test_jit_changes_jax_bf16_volume():
     """3c: jitted, JAX's bf16 correlation volume keeps its products in f32; op by
-    op it rounds each one, and the port follows op by op, bit for bit."""
+    op it rounds each one, and the port follows op by op, bit for bit. D 12:
+    op by op, JAX compiles one program per disparity slice (D 48 took 22 s)."""
     rng = np.random.RandomState(12)
     l, r = (jnp.asarray(rng.randn(1, 8, 64, 24).astype(np.float32)).astype(BF16)
             for _ in range(2))
-    op_by_op = np.asarray(jcv.correlation_volume(l, r, 48), np.float32)
-    jitted = np.asarray(jax.jit(jcv.correlation_volume, static_argnums=2)(l, r, 48), np.float32)
-    got = to_jax_layout(ops.correlation_volume(to_torch(l), to_torch(r), 48))
+    op_by_op = np.asarray(jcv.correlation_volume(l, r, 12), np.float32)
+    jitted = np.asarray(jax.jit(jcv.correlation_volume, static_argnums=2)(l, r, 12), np.float32)
+    got = to_jax_layout(ops.correlation_volume(to_torch(l), to_torch(r), 12))
     np.testing.assert_array_equal(got, op_by_op)
     share = float((jitted != op_by_op).mean())
     print(f"jitted vs op-by-op JAX bf16 volume: {share:.3g} of the elements differ")
@@ -465,3 +476,159 @@ def test_coex_topk_head_on_bf16_costs():
     d = c.shape[1]
     flipped = (d - 1) - ops.topk_disparity_regression(c.flip(1), 2)
     assert np.abs(flipped.numpy() - ref).max() > 0.1
+
+
+# ------------------------------------------------------ CFNet, FADNet and the cascades
+
+def test_mish_bf16():
+    """3k: the port's Mish rounds where the JAX program does: softplus as
+    max(x, 0) + log1p(exp(−|x|)) op by op (`jnp.logaddexp`), then tanh,
+    then the product, each in bf16: bit-equal. The control, one rounding of
+    the f32 Mish (`F.mish`), leaves the rule."""
+    x = captured_input((2, 24, 20, 16), 40)
+    x = x - jnp.asarray(1.5, BF16)  # negative values too
+    ref = jcfnet.mish(x)
+    assert_bf16_rule(mish(to_torch(x)), ref, "Mish", max_units=0)
+    once = F.mish(to_torch(x).float()).bfloat16()
+    share = float((bf16_units(to_jax_layout(once), np.asarray(ref, np.float32)) > 0).mean())
+    print(f"one rounding of the f32 Mish: {share:.3g} of the elements differ")
+    assert share > 0.05
+
+
+def test_mish_res_block_bf16():
+    """CFNet's residual block (stride 2, 16 → 32): conv1 with its Mish, conv2
+    and the downsample each on JAX's own input under the rule; the whole
+    block at most FLIP_SHARE of the elements off."""
+    x = captured_input((2, 12, 20, 16), 41)
+    fm = jcfnet.MishResBlock(32, strides=2, dtype=BF16)
+    tm = mish_res_block(16, 32, 2, Mish())
+    got, ref = _pair(fm, tm, x, 42, lambda b: res_block(b, "", "0", nested=True))
+    v = _random_variables(fm, x, 42)
+    blk = tm[0]
+    out = assert_stages_bf16(fm, v, x, [
+        ("conv2", "conv1", lambda t: tl.run_seq(t, blk.conv2)),
+        ("downsample", None, lambda t: tl.run_seq(t, blk.downsample))], "MishResBlock")
+    # conv1 ends in the Mish: a one-unit flip at its BN may become two after it
+    # where Mish shrinks the value (the leaky_relu case of 3a)
+    with torch.no_grad():
+        conv1 = tl.run_seq(to_torch(x), blk.conv1)
+    assert_bf16_rule(conv1, out("conv1"), "MishResBlock: conv1 with its Mish", max_units=None)
+    assert_bf16_rule(got, ref, "MishResBlock: whole block", max_units=None)
+
+
+def test_mish_hourglass_bf16(native_3d):
+    """CFNet's hourglass (the port's GwcHourglass with Mish), 3D under "native"."""
+    x = captured_input((1, 4, 8, 12, 8), 43, ndim=3)
+    fm = jcfnet.MishHourglass(8, dtype=BF16)
+    tm = GwcHourglass(8, Mish())
+    got, ref = _pair(fm, tm, x, 44, lambda b: gwc_hourglass(b, "", ""))
+    assert_bf16_rule(got, ref, "MishHourglass (native)", max_units=None)
+
+
+def _warp_inputs(seed, c, w=23):
+    """bf16 features [1,5,w,c] ×2 and f32 samples [1,4,5,w] over [-2, w+1],
+    half of them integers (CFNet's grids are)."""
+    rng = np.random.RandomState(seed)
+    feats = [jnp.asarray(rng.randn(1, 5, w, c).astype(np.float32)).astype(BF16) for _ in (0, 1)]
+    s = rng.rand(1, 4, 5, w) * (w + 3) - 2
+    s[:, :2] = np.floor(s[:, :2])
+    return feats, s.astype(np.float32)
+
+
+def test_cfnet_warped_volumes_bf16():
+    """CFNet's warped volume on bf16 features and f32 integer samples (the
+    linear warp `sample_along_w` in bf16: fraction, weights, products and
+    sum each rounded): the group mean of bf16 products accumulated in f32
+    and rounded once, the concatenation promoted to f32 by the samples
+    plane."""
+    (l, r), s = _warp_inputs(47, 16)
+    (cl, cr), _ = _warp_inputs(48, 4)
+    s = np.floor(s)
+    ref = jcfnet.warped_volumes(l, r, cl, cr, jnp.asarray(s), 4)
+    got = cfnet_warped_volumes(to_torch(l), to_torch(r), to_torch(cl), to_torch(cr),
+                               torch.from_numpy(s), 4)
+    assert got.dtype == torch.float32 and ref.dtype == jnp.float32
+    np.testing.assert_array_equal(np.moveaxis(got.numpy(), 1, -1), np.asarray(ref))
+
+
+def test_cascade_warped_volumes_bf16():
+    """CasGwcNet's volume: the warped group-wise correlation and the concat
+    volume with the left half zeroed out of frame, in bf16."""
+    (l, r), s = _warp_inputs(49, 16)
+    ref = jnp.concatenate([jcas.build_warped_gwc_volume(l, r, jnp.asarray(s), 4),
+                           jcas.build_warped_concat_volume(l, r, jnp.asarray(s), zero_left=True)],
+                          -1)
+    got = torch.cat([tcas.build_warped_gwc_volume(to_torch(l), to_torch(r), torch.from_numpy(s), 4),
+                     tcas.build_warped_concat_volume(to_torch(l), to_torch(r),
+                                                     torch.from_numpy(s), zero_left=True)], 1)
+    assert_bf16_rule(got, ref, "CasGwcNet warped volume", max_units=0)
+
+
+def test_fad_res_block_bf16():
+    """FADNet's residual block with biased convs (3i: each bias added after
+    the conv's rounding) and a 1×1 biased shortcut, stride 2: conv1 (conv,
+    bias, BN, relu) and the shortcut on JAX's own input under the rule; the
+    whole block at most FLIP_SHARE of the elements off."""
+    x = captured_input((2, 12, 20, 16), 50)
+    fm = jfadnet.FadResBlock(24, strides=2, dtype=BF16)
+    tm = FadResBlock(16, 24, 2)
+    got, ref = _pair(fm, tm, x, 51, lambda b: fad_res(b, "", ""))
+    v = _random_variables(fm, x, 51)
+    def stage(conv, bn, act):
+        return lambda t: act(tl.apply_norm(tl.run_conv(t, conv), bn))
+
+    assert_stages_bf16(fm, v, x, [("conv1", None, stage(tm.conv1, tm.bn1, F.relu)),
+                                  ("conv2", "conv1", stage(tm.conv2, tm.bn2, lambda t: t)),
+                                  ("shortcut", None, stage(tm.shortcut[0], tm.shortcut[1],
+                                                           lambda t: t))],
+                       "FadResBlock")
+    assert_bf16_rule(got, ref, "FadResBlock: whole block", max_units=None)
+
+
+def test_fadnet_iconv_bf16():
+    """FADNet's `iconvN`: the reference's stride-1 transposed conv with bias
+    (the port keeps it) against flax's plain conv with the mirrored kernel,
+    the bias added after the rounding (3i)."""
+    x = captured_input((1, 12, 20, 9), 52)
+    fm = nn.Conv(8, (3, 3), padding="SAME", use_bias=True, dtype=BF16)
+    v = _random_like(jax.eval_shape(lambda a: fm.init(jax.random.key(0), a), x), 53)
+    b = FlaxToTorch(v)
+    b.conv("", "iconv", deconv=True, raw=True)
+    tm = torch.nn.ConvTranspose2d(9, 8, 3, 1, 1)
+    tm.load_state_dict({k.split(".", 1)[1]: t for k, t in b.finish().items()})
+    with torch.no_grad():
+        got = tl.run_conv(to_torch(x), tm)
+    assert_bf16_rule(got, fm.apply(v, x), "FADNet iconv (stride-1 transposed conv, bias)")
+
+
+def test_fadnet_warp_coordinates_bf16():
+    """FADNet's stage-2 warp in bf16 (`fadnet.py:183-198`): the pixel grids
+    are bf16 aranges and the weakly typed W/(W−1) and H/(H−1) round to bf16
+    (W/(W−1) to 1.0 here) before they scale; the sampler forms its tap
+    weights in bf16 and tests the frame against W−1 rounded to bf16 (300
+    here), as `bilinear_sampler`'s packed form does; the JAX expressions as
+    written, op by op, against `FADNet.warp_inputs`."""
+    rng = np.random.RandomState(54)
+    hh, ww = 6, 300  # bf16 rounds the arange above 256
+    left, right = (rng.randn(1, hh, ww, 3).astype(np.float32) for _ in (0, 1))
+    flow = jnp.asarray((rng.rand(1, hh, ww, 1) * 20 - 2).astype(np.float32)).astype(BF16)
+    flow_c = flow[..., 0]
+    xs = jnp.arange(ww, dtype=flow_c.dtype)[None, None, :]
+    ys = jnp.arange(hh, dtype=flow_c.dtype)[None, :, None]
+    src_x = (xs - flow_c) * (ww / max(ww - 1, 1)) - 0.5
+    src_y = (ys * (hh / max(hh - 1, 1)) - 0.5) + jnp.zeros_like(flow_c)
+    warped = jsampler.bilinear_sampler(jnp.asarray(right), jnp.stack([src_x, src_y], axis=-1))
+    diff = left - warped
+    ref = jnp.concatenate([left, right, warped, flow,
+                           jnp.sqrt(jnp.sum(diff * diff, axis=-1, keepdims=True) + 1e-8)], -1)
+    # coordinates at W in bf16, where the rounded bound W−1 (300) keeps the edge tap
+    assert np.any(np.asarray(src_x.astype(jnp.float32)) == ww)
+    t_left, t_right = (torch.from_numpy(np.moveaxis(a, -1, 1).copy()) for a in (left, right))
+    got = FADNet.warp_inputs(None, t_left, t_right, to_torch(flow))
+    # the bf16 coordinates and weights bit-equal; the four f32 taps summed in
+    # another order than JAX's einsum: ulps
+    np.testing.assert_allclose(np.moveaxis(got.numpy(), 1, -1), np.asarray(ref), rtol=0,
+                               atol=1e-6)
+    # the control: the same bf16 flow, the warp formed in f32
+    f32 = FADNet.warp_inputs(None, t_left, t_right, to_torch(flow).float())
+    assert np.abs(np.moveaxis(f32.numpy(), 1, -1) - np.asarray(ref)).max() > 1e-2

@@ -30,6 +30,27 @@ def _random_variables(module, x, seed, train=False):
     `train=True` draws the variables of the training graph (GwcNet's
     training heads)."""
     shapes = jax.eval_shape(lambda a: module.init(jax.random.key(0), a, train=train), x)
+    return _random_like(shapes, seed)
+
+
+def _random_variables_via(convert, port_model, seed):
+    """flax variables drawn as `_random_variables` draws them, in the tree
+    that the JAX package's converter `convert` makes of `port_model`'s
+    state_dict: the training graph's variables, without tracing flax's
+    init (seconds per whole model)."""
+    tree = convert({k: v.numpy() for k, v in port_model.state_dict().items()})
+    return _random_like(tree, seed)
+
+
+def run_jitted_fast(fn, *args):
+    """fn(*args) jitted, its XLA:CPU backend at optimisation level 0: a
+    whole model compiles in about half the time and runs a little slower;
+    the same HLO, so the same sums in f32 up to the machine code's order."""
+    return jax.jit(fn).lower(*args).compile(
+        compiler_options={"xla_backend_optimization_level": 0})(*args)
+
+
+def _random_like(shapes, seed):
     rng = np.random.RandomState(seed)
 
     def fill(path, s):
@@ -40,7 +61,7 @@ def _random_variables(module, x, seed, train=False):
             a = rng.rand(*s.shape) + 0.5
         else:
             a = rng.randn(*s.shape) * 0.1
-        return a.astype(np.float32)
+        return np.asarray(a, np.float32)  # a 0-d draw (CFNet's range scalars) is a float
 
     return jax.tree_util.tree_map_with_path(fill, shapes)
 
