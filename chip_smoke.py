@@ -112,11 +112,42 @@ without the repository around it). Phases, each of which fails the run:
    eager: max-abs <= 5e-3 px, but CFNet >= 99.9 % of the pixels within 5e-3
    px (its sample grids are floors, which two K3 sum orders may move by one
    disparity at a pixel); bf16 mean-abs <= 0.5 px.
+23. (run after phase 15) K4 under autograd (`ops/rel_attention.py:
+   rel_attention_trainable`: K4's forward, the PyTorch backward) at STTR's
+   three training shapes (W' 213 of the 360x640 crop; 240 and 120 lines),
+   f32 with TF32 off, against autograd through the plain version: out, raw
+   and the five input gradients for random cotangents, within 2e-4 +
+   1e-4·|ref| (the JAX package's gradient test); a control whose `_unskew`
+   is shifted by one column must fail that check. Prints each gradient's
+   error against the exact (f64) gradient beside the plain version's, and
+   times K4's forward, the backward, both paths' forward + backward and
+   their bounds at f32 rates;
+24. STTR training: a synthetic FlyingThings3D-subset set (8 + 4 random-dot
+   pairs at 540x960: PNG views, left and right PFM disparities, occlusion
+   PNGs derived from them, under `chiprun_out/sttr_train_smoke/`, deleted
+   afterwards), `cfgs/sttr/sttr_flyingthings3d.yaml` through
+   `tools/train.py` with NUM_EPOCHS 1 (8 steps at b1 360x640, f32, RMSprop,
+   clip 35): finite losses; K4 18 times a train step at the three training
+   shapes and 18 times an evaluation frame at W 320, nothing else; one step
+   of the same weights and batch with kernels and eager: the loss terms
+   within 1e-5 relative, and each parameter's gradient no further from the
+   same step in f64 than 2x the eager path's error + 1e-4·max|g| of the
+   tensor + 1e-6·max|g| of the model (f32 itself puts the eager gradients
+   of the full-resolution convs ~1e-2·max|g| from f64); the evaluation's
+   EPE within 0.5 px of an eager evaluation; a resumed Trainer bit-equal to
+   the checkpoint, RMSprop's nu included; ms/step (CUDA events, median of
+   the steps after the first), samples/s, the backward's share, peak memory,
+   device busy and idle share of both paths;
+25. STTR's learning check: the port's `tools/overfit_check.py --model STTR`,
+   200 steps on one batch of 2 random-dot pairs at 192x384, f32, RMSprop
+   1e-4 constant, clip by norm 35: the mean loss of the last 20 steps must
+   fall below 0.8 of the first 5 steps'.
 
 The line before the card line is a JSON object with one entry per kernel;
 the last line is {"ok": true, "device": {...}}.
 """
 
+import copy
 import json
 import subprocess
 import sys
@@ -243,8 +274,23 @@ VOLUME_FLIP_SHARE = 1e-4
 # a K1/K3 check's figures: f32 max-abs, bf16 max-abs, bf16 share not bit-equal
 VOLUME_ERR_KEYS = ("max_abs_err_f32", "max_abs_err", "not_bit_equal_share")
 
-# dense peaks: (memory bytes/s, bf16 tensor flop/s), NVIDIA data sheets
-CARDS = {"H100 PCIe": (2.0e12, 756e12), "H100 NVL": (3.9e12, 835e12), "H100": (3.35e12, 989e12)}
+# STTR training (phases 23-25). K4 launches per train step at the config's 360x640 crop
+# (H' 120, W' 213): 6 self layers on left+right (240 lines), 12 cross calls on 120 lines,
+# the last masked and with the raw attention; its evaluation at 540x960 launches K4_SHAPES
+K4_TRAIN_SHAPES = {
+    (240, 213, 128, 8, False, False): 6,
+    (120, 213, 128, 8, False, False): 11,
+    (120, 213, 128, 8, True, True): 1,
+}
+STTR_TRAIN_PAIRS, STTR_EVAL_PAIRS, STTR_PAIR_MAX_DISP = 8, 4, 192
+STTR_TRAIN_DIR = OUT_DIR / "sttr_train_smoke"
+STTR_OVERFIT_ARGS = ["--model", "STTR", "--steps", "200", "--batch", "2", "--size", "192", "384",
+                     "--max_disp", "64", "--lr", "1e-4", "--device", "cuda"]
+
+# dense peaks: (memory bytes/s, bf16 tensor flop/s, f32 flop/s outside the tensor
+# cores), NVIDIA data sheets
+CARDS = {"H100 PCIe": (2.0e12, 756e12, 51e12), "H100 NVL": (3.9e12, 835e12, 60e12),
+         "H100": (3.35e12, 989e12, 67e12)}
 
 
 class SmokeFailure(Exception):
@@ -1608,11 +1654,12 @@ def run_training(dev, data_root):
             "eval_batches": n_eval, "profile": prof}
 
 
-def profile_train_steps(trainer, untraced_ms, steps=2):
+def profile_train_steps(trainer, untraced_ms, steps=2, label="b24 320x736 bf16",
+                        table=TRAIN_DIR / "profile_train_step.txt"):
     """torch.profiler over `steps` train steps of `trainer` on one batch of its
     loader: device busy ms per step (the kernel rows summed; one stream), its
-    idle share against `untraced_ms` per step, and the top kernels (table in
-    `chiprun_out/train_smoke/profile_train_step.txt`)."""
+    idle share against `untraced_ms` per step, and the top kernels (the table
+    in `table`)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1631,12 +1678,11 @@ def profile_train_steps(trainer, untraced_ms, steps=2):
     events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     events.sort(key=lambda e: -e.self_device_time_total)
     busy = sum(e.self_device_time_total for e in events) / 1e3 / steps
-    (TRAIN_DIR / "profile_train_step.txt").write_text(
-        prof.key_averages().table(sort_by="self_device_time_total", row_limit=40))
+    table.write_text(prof.key_averages().table(sort_by="self_device_time_total", row_limit=40))
     top = [{"kernel": e.key[:90], "ms_per_step": e.self_device_time_total / 1e3 / steps,
             "calls_per_step": e.count / steps} for e in events[:10]]
     idle = 1.0 - busy / untraced_ms
-    print(f"[profile] train step (b24 320x736 bf16): device busy {busy:.2f} ms/step, idle share "
+    print(f"[profile] train step ({label}): device busy {busy:.2f} ms/step, idle share "
           f"{idle:.4f} (against {untraced_ms:.2f} ms/step untraced); top: " + "; ".join(
               f"{t['kernel'][:60]} {t['ms_per_step']:.2f} ms x{t['calls_per_step']:g}"
               for t in top[:8]))
@@ -1656,6 +1702,542 @@ def phase_overfit():
     print(f"[overfit] trajectory (step, loss, train EPE px): {traj}; {took:.1f} s")
     check(res["final_epe"] < 3.0, f"overfit check: final train EPE {res['final_epe']} px >= 3.0")
     return res
+
+
+def bound_f32(nbytes, flops, card):
+    """As `bound`, against the f32 peak outside the tensor cores (TF32 is off)."""
+    t_bytes, t_ops = nbytes / card[0] * 1e3, flops / card[2] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def k4_backward_work(shape):
+    """f32 bytes and flops of K4's backward (`rel_attention_backward`): it reads
+    q, k, v, dout, both tables (and draw) once and writes the five gradients;
+    per line 5 W x W products (the recomputed q.k^T, dv, dp, dq, dk) and 6
+    products with the 2W-1 tables, each 2 flops a multiply-add."""
+    b, w, e, _, _, need_raw = shape
+    r = 2 * w - 1
+    nbytes = 4 * (7 * b * w * e + 4 * r * e + (b * w * w if need_raw else 0))
+    return nbytes, b * (10 * w * w * e + 12 * w * r * e)
+
+
+def k4_train_grads(fn, args, nh, masked, need_raw, d_out, d_raw):
+    """Outputs and the five input gradients of `fn` (the trainable K4 or the
+    plain version) under autograd, for the cotangents d_out (and d_raw)."""
+    import torch
+
+    leaves = [a.clone().requires_grad_(True) for a in args]
+    out, raw = fn(*leaves, nh, masked, need_raw)
+    outs, cots = ([out, raw], [d_out, d_raw]) if need_raw else ([out], [d_out])
+    grads = torch.autograd.grad(outs, leaves, cots)
+    return [o.detach() for o in outs], list(grads)
+
+
+def k4_train_close(got, ref):
+    """|got - ref| <= 2e-4 + 1e-4·|ref| (the JAX package's gradient test) at
+    every element, the masked raw entries (< -1e29 in both) left out."""
+    fin = ref.abs() < 1e20
+    if not bool((got[~fin] < -1e29).all()):
+        return False
+    return bool(((got[fin] - ref[fin]).abs() <= 2e-4 + 1e-4 * ref[fin].abs()).all())
+
+
+def phase_k4_train(dev, card):
+    """K4 under autograd at the three training shapes, f32 (TF32 off): the
+    trainable Function (K4's forward, the PyTorch backward) against autograd
+    through the plain version, out, raw and the five gradients for random
+    cotangents; a control whose `_unskew` is shifted by one column must fail
+    the same check. Times (CUDA events): K4's forward, the backward alone,
+    the Function's forward + backward, the plain version's and the eager
+    einsum path's forward + backward, and the bounds of the forward and the
+    backward at f32 rates."""
+    import importlib
+
+    import torch
+
+    from openstereo_tpu_torch.models.sttr.transformer import rel_attention_eager
+    from openstereo_tpu_torch.ops import kernels
+
+    k4mod = importlib.import_module("openstereo_tpu_torch.ops.rel_attention")
+    g = torch.Generator().manual_seed(23)
+    res = {"shapes": [], "max_abs_err": 0.0, "max_grad_err": 0.0, "control": {}}
+    for key in ("ms", "plain_ms", "bound_ms", "backward_ms", "backward_bound_ms", "fwd_bwd_ms",
+                "plain_fwd_bwd_ms", "yardstick_fwd_bwd_ms"):
+        res[key] = 0.0
+    t_bytes = t_ops = 0.0
+    for shape, count in sorted(K4_TRAIN_SHAPES.items(), reverse=True):
+        b, w, e, nh, masked, need_raw = shape
+        args = k4_inputs(shape, dev, g)
+        d_out = torch.randn(b, w, e, generator=g).to(dev)
+        d_raw = torch.randn(b, w, w, generator=g).to(dev) if need_raw else None
+        _, exact = k4_train_grads(k4mod.rel_attention_plain, [a.double() for a in args], nh,
+                                  masked, need_raw, d_out.double(),
+                                  None if d_raw is None else d_raw.double())
+        kernels.reset_launch_counts()
+        outs, grads = k4_train_grads(k4mod.rel_attention_trainable, args, nh, masked, need_raw,
+                                     d_out, d_raw)
+        torch.cuda.synchronize()
+        check(kernels.launch_counts["rel_attention"] == 1,
+              f"K4-train {shape}: {kernels.launch_counts} launches for one forward + backward")
+        ref_outs, ref_grads = k4_train_grads(k4mod.rel_attention_plain, args, nh, masked,
+                                             need_raw, d_out, d_raw)
+        errs = {}
+        for name, a, r in zip(("out", "raw")[:len(outs)] + ("dq", "dk", "dv", "dke", "dqe"),
+                              outs + grads, ref_outs + ref_grads):
+            fin = r.abs() < 1e20
+            errs[name] = (a[fin] - r[fin]).abs().max().item()
+            check(k4_train_close(a, r), f"K4-train {shape} {name}: max-abs {errs[name]} beyond "
+                                        f"atol 2e-4, rtol 1e-4 of autograd through the plain version")
+        # against the exact gradient (autograd through the plain version in f64), for scale
+        vs64 = {n: ((a.double() - r).abs().max() / r.abs().max()).item()
+                for n, a, r in zip(("dq", "dk", "dv", "dke", "dqe"), grads, exact)}
+        vs64_plain = {n: ((a.double() - r).abs().max() / r.abs().max()).item()
+                      for n, a, r in zip(("dq", "dk", "dv", "dke", "dqe"), ref_grads, exact)}
+        res["max_abs_err"] = max(res["max_abs_err"], errs["out"])
+        res["max_grad_err"] = max(res["max_grad_err"], *(errs[n] for n in ("dq", "dk", "dv",
+                                                                            "dke", "dqe")))
+        real = k4mod._unskew
+        k4mod._unskew = lambda da, w_: real(da, w_).roll(1, dims=-1)
+        try:
+            _, bad = k4_train_grads(k4mod.rel_attention_trainable, args, nh, masked, need_raw,
+                                    d_out, d_raw)
+        finally:
+            k4mod._unskew = real
+        caught = [n for n, a, r in zip(("dq", "dk", "dv", "dke", "dqe"), bad, ref_grads)
+                  if not k4_train_close(a, r)]
+        check(bool(caught), f"K4-train {shape}: the control with _unskew shifted by one column "
+                            "passes the check")
+        res["control"][str(shape)] = caught
+        del outs, grads, ref_outs, ref_grads, bad, exact
+
+        fwd = lambda: k4mod.rel_attention(*args, nh, masked, need_raw)  # noqa: E731
+        t_f = time_ms(fwd, iters=10, warmup=2)
+        t_pf = time_ms(lambda: k4mod.rel_attention_plain(*args, nh, masked, need_raw), iters=3,
+                       warmup=1)
+        t_b = time_ms(lambda: k4mod.rel_attention_backward(*args, d_out, d_raw, nh, masked),
+                      iters=5, warmup=1)
+        t_fb = time_ms(lambda: k4_train_grads(k4mod.rel_attention_trainable, args, nh, masked,
+                                              need_raw, d_out, d_raw), iters=5, warmup=1)
+        t_pfb = time_ms(lambda: k4_train_grads(k4mod.rel_attention_plain, args, nh, masked,
+                                               need_raw, d_out, d_raw), iters=3, warmup=1)
+        t_yfb = time_ms(lambda: k4_train_grads(
+            lambda *a: rel_attention_eager(*a[:6], masked=a[6]), args, nh, masked, need_raw,
+            d_out, d_raw), iters=3, warmup=1)
+        fb, ff, _ = k4_work(shape, 4)
+        t_bound, by = bound_f32(fb, ff, card)
+        bb, bf = k4_backward_work(shape)
+        t_bbound, bby = bound_f32(bb, bf, card)
+        t_bytes += count * fb / card[0] * 1e3
+        t_ops += count * ff / card[2] * 1e3
+        for key, t in (("ms", t_f), ("plain_ms", t_pf), ("bound_ms", t_bound),
+                       ("backward_ms", t_b), ("backward_bound_ms", t_bbound),
+                       ("fwd_bwd_ms", t_fb), ("plain_fwd_bwd_ms", t_pfb),
+                       ("yardstick_fwd_bwd_ms", t_yfb)):
+            res[key] += count * t
+        res["shapes"].append({"shape": list(shape), "launches_per_step": count, "ms": t_f,
+                              "plain_ms": t_pf, "bound_ms": t_bound, "bound_by": by,
+                              "backward_ms": t_b, "backward_bound_ms": t_bbound,
+                              "backward_bound_by": bby, "fwd_bwd_ms": t_fb,
+                              "plain_fwd_bwd_ms": t_pfb, "yardstick_fwd_bwd_ms": t_yfb,
+                              "bytes": fb, "flops": ff, "backward_bytes": bb,
+                              "backward_flops": bf, "errors": errs, "control_caught": caught,
+                              "grad_err_vs_f64": vs64, "plain_grad_err_vs_f64": vs64_plain})
+        print(f"[K4-train] {shape} x{count} f32: errors vs autograd through the plain version "
+              f"{ {k: float(f'{v:.3g}') for k, v in errs.items()} } (tol 2e-4 + 1e-4·|ref|); "
+              f"against the f64 gradient, per max|g|: Function "
+              f"{ {k: float(f'{v:.3g}') for k, v in vs64.items()} }, plain version in f32 "
+              f"{ {k: float(f'{v:.3g}') for k, v in vs64_plain.items()} }; "
+              f"shifted-_unskew control caught in {caught}; K4 forward {t_f:.4f} ms (bound "
+              f"{t_bound:.4f}, {by}), backward {t_b:.4f} ms (bound {t_bbound:.4f}, {bby}), "
+              f"Function fwd+bwd {t_fb:.4f} ms; plain fwd {t_pf:.4f}, fwd+bwd {t_pfb:.4f} ms; "
+              f"eager einsum path fwd+bwd {t_yfb:.4f} ms")
+        del args, d_out, d_raw
+        torch.cuda.empty_cache()
+    res["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    print(f"[K4-train] per train step ({sum(K4_TRAIN_SHAPES.values())} launches): K4 forward {res['ms']:.3f} ms (bound "
+          f"{res['bound_ms']:.4f}), backward {res['backward_ms']:.3f} ms (bound "
+          f"{res['backward_bound_ms']:.4f}), Function fwd+bwd {res['fwd_bwd_ms']:.3f} ms; plain "
+          f"fwd+bwd {res['plain_fwd_bwd_ms']:.3f} ms, eager einsum fwd+bwd "
+          f"{res['yardstick_fwd_bwd_ms']:.3f} ms")
+    return res
+
+
+def occlusions_from_disparity(disp):
+    """(disp_right, occ_left, occ_right) of a left disparity map [H, W] > 0:
+    every left pixel lands at x - d in the right view and the nearer (larger
+    d) wins; a right pixel that nothing lands on is occluded and takes its
+    row's disparity interpolated from the filled pixels; a left pixel is
+    occluded where its match falls left of the frame or a nearer pixel
+    covers it."""
+    h, w = disp.shape
+    xr = np.rint(np.arange(w)[None, :] - disp).astype(np.int64)
+    inside = xr >= 0
+    rows = np.broadcast_to(np.arange(h)[:, None], (h, w))
+    right = np.full((h, w), -np.inf, np.float32)
+    np.maximum.at(right, (rows[inside], xr[inside]), disp[inside])
+    occ_right = ~np.isfinite(right)
+    occ_left = ~inside
+    occ_left[inside] = right[rows[inside], xr[inside]] > disp[inside] + 0.5
+    for y in range(h):
+        filled = np.flatnonzero(~occ_right[y])
+        right[y] = np.interp(np.arange(w), filled, right[y, filled]) if filled.size else 0.0
+    return right, occ_left, occ_right
+
+
+def write_things_set(root, n, first, hw, max_disp):
+    """`n` random-dot stereograms in the FlyingThings3D-subset layout that
+    `FlyingThings3DSubsetDataset` reads: left/, right/ PNG, disparity/ and
+    disparity_right/ PFM, occlusion/ and occlusion_right/ PNG (255 where
+    occluded); returns the split lines."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from PIL import Image
+
+    from openstereo_tpu_torch.data.readers import write_pfm
+    from openstereo_tpu_torch.tools.overfit_check import make_stereogram
+
+    subs = ("left", "right", "disparity", "disparity_right", "occlusion", "occlusion_right")
+    for sub in subs:
+        (root / sub).mkdir(parents=True, exist_ok=True)
+
+    def one(i):
+        left, right, disp = make_stereogram(np.random.RandomState(i), *hw, max_disp)
+        disp_right, occ, occ_right = occlusions_from_disparity(disp)
+        paths = [f"{sub}/{i:04d}.{'pfm' if sub.startswith('disp') else 'png'}" for sub in subs]
+        for path, img in zip(paths[:2], (left, right)):
+            Image.fromarray(np.clip(np.round(img), 0, 255).astype(np.uint8)).save(root / path)
+        write_pfm(str(root / paths[2]), disp)
+        write_pfm(str(root / paths[3]), disp_right)
+        for path, mask in zip(paths[4:], (occ, occ_right)):
+            Image.fromarray(mask.astype(np.uint8) * 255).save(root / path)
+        return " ".join(paths)
+
+    with ThreadPoolExecutor(8) as pool:
+        return list(pool.map(one, range(first, first + n)))
+
+
+def phase_sttr_train(dev, card, k4_train):
+    """`run_sttr_training` on a FlyingThings3D-subset set written for it under
+    `chiprun_out/`, which is deleted afterwards with the run's checkpoints."""
+    import shutil
+
+    shutil.rmtree(STTR_TRAIN_DIR, ignore_errors=True)
+    data_root = STTR_TRAIN_DIR / "FlyingThings3D"
+    try:
+        return run_sttr_training(dev, card, data_root, k4_train)
+    finally:
+        shutil.rmtree(data_root, ignore_errors=True)
+        for ckpt in STTR_TRAIN_DIR.glob("runs/**/ckpt"):
+            shutil.rmtree(ckpt, ignore_errors=True)
+
+
+def sttr_step_grads(model, batch, use_kernels):
+    """One forward, loss and backward of `model` in training on `batch` through
+    the kernel or the eager path: (loss terms, gradients by name, K4 launches)."""
+    import torch
+
+    from openstereo_tpu_torch.models import set_kernels
+    from openstereo_tpu_torch.ops import kernels
+
+    set_kernels(model, use_kernels)
+    model.train()
+    model.zero_grad(set_to_none=True)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    loss, info = model.get_loss(model(batch), batch)
+    loss.backward()
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts["rel_attention"]
+    grads = {k: p.grad.detach().clone() for k, p in model.named_parameters() if p.grad is not None}
+    model.zero_grad(set_to_none=True)
+    set_kernels(model, True)
+    return {k: float(v) for k, v in info.items()}, grads, launches
+
+
+def compare_step_grads(grads_k, grads_e, grads_64):
+    """One step's gradients of the kernel and the eager path in f32 against the
+    same step in f64, tensor by tensor: the worst (name, max-abs / max|g| of
+    the tensor) of kernels vs eager, kernels vs f64 and eager vs f64 (tensors
+    above 1e-4 of the largest gradient), and the worst (name, ratio) of the
+    kernel path's error against 2x the eager path's plus 1e-4·max|g| of the
+    tensor plus 1e-6·max|g| of the model (the floor for gradients that vanish
+    in exact arithmetic: a bias that an InstanceNorm cancels gets rounding
+    noise). f32 itself sets the eager path's error (far above 1e-4·max|g| in
+    the full-resolution convs); the kernel path must be no worse."""
+    gmax = max(g.abs().max().item() for g in grads_64.values())
+    scale = {k: g.abs().max().item() for k, g in grads_64.items()}
+    err = {tag: {k: (g[k].double() - grads_64[k]).abs().max().item() for k in grads_64}
+           for tag, g in (("k", grads_k), ("e", grads_e))}
+    k_vs_e = {k: (grads_k[k] - grads_e[k]).abs().max().item() for k in grads_64}
+    big = [k for k in grads_64 if scale[k] > 1e-4 * gmax]
+
+    def worst(d):
+        k = max(big, key=lambda n: d[n] / scale[n])
+        return k, d[k] / scale[k]
+
+    ratio = {k: err["k"][k] / (2 * err["e"][k] + 1e-4 * scale[k] + 1e-6 * gmax) for k in grads_64}
+    w = max(ratio, key=ratio.get)
+    return {"k_vs_e": worst(k_vs_e), "k_vs_64": worst(err["k"]), "e_vs_64": worst(err["e"]),
+            "ratio": (w, ratio[w])}
+
+
+def timed_train_steps(trainer, batch, steps=4):
+    """`Trainer.train_step` on `batch` `steps` times, its parts (forward and
+    loss, backward, optimizer) between CUDA events: per step (total, forward,
+    backward, optimizer) ms, and the peak memory over the steps."""
+    import torch
+
+    dev = trainer.device
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    events = []
+    for _ in range(steps):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        trainer._set_train_mode()
+        ev[0].record()
+        loss, _ = trainer.model.get_loss(trainer.model(batch), batch)
+        ev[1].record()
+        trainer.state.optimizer.zero_grad()
+        loss.backward()
+        ev[2].record()
+        trainer.state.optimizer.step()
+        trainer.state.step += 1
+        ev[3].record()
+        events.append(ev)
+    torch.cuda.synchronize()
+    times = [(ev[0].elapsed_time(ev[3]), ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2]),
+              ev[2].elapsed_time(ev[3])) for ev in events]
+    return times, torch.cuda.max_memory_allocated(dev)
+
+
+def run_sttr_training(dev, card, data_root, k4_train):
+    """The port's training entry point (`tools/train.py`) on
+    `cfgs/sttr/sttr_flyingthings3d.yaml` as it is (RandomCrop 360x640, b1, f32,
+    RMSprop 1e-3, MultiStepLR on epochs with 100 warm-up steps, clip by norm
+    35; evaluation at 540x960) but for the data paths and NUM_EPOCHS 1 (8
+    steps on a synthetic set). K4 must launch 18 times a train step at the
+    three training shapes and 18 times an evaluation frame at W 320, and no
+    other kernel; then one step of the same weights and batch through both
+    paths, the evaluation eager, a resumed Trainer, and both paths' step
+    times, peak memory and profiles."""
+    import torch
+    import yaml
+
+    from openstereo_tpu_torch.config import Config
+    from openstereo_tpu_torch.data.loader import batch_to_device
+    from openstereo_tpu_torch.models import set_kernels
+    from openstereo_tpu_torch.ops import kernels
+    from openstereo_tpu_torch.runtime import Trainer
+    from openstereo_tpu_torch.tools import train
+
+    t0 = time.perf_counter()
+    split = {}
+    for mode, n, first in (("train", STTR_TRAIN_PAIRS, 0),
+                           ("test", STTR_EVAL_PAIRS, STTR_TRAIN_PAIRS)):
+        split[mode] = STTR_TRAIN_DIR / f"things_{mode}.txt"
+        split[mode].write_text("\n".join(write_things_set(data_root, n, first, PAIR_HW,
+                                                           STTR_PAIR_MAX_DISP)))
+    print(f"[sttr-train] wrote {STTR_TRAIN_PAIRS} + {STTR_EVAL_PAIRS} random-dot pairs at "
+          f"{PAIR_HW[0]}x{PAIR_HW[1]} (PNG views and occlusions, PFM disparities left and right) "
+          f"in {time.perf_counter() - t0:.1f} s")
+
+    cfg = yaml.safe_load(STTR_CFG.read_text())
+    info = cfg["DATA_CONFIG"]["DATA_INFOS"][0]
+    info["DATA_SPLIT"] = {"TRAINING": str(split["train"]), "EVALUATING": str(split["test"]),
+                          "TESTING": str(split["test"])}
+    info["DATA_PATH"] = str(data_root)
+    cfg["OPTIMIZATION"]["NUM_EPOCHS"] = 1  # the cut: 8 pairs at batch 1 = 8 steps
+    cfg_file = STTR_TRAIN_DIR / "sttr_flyingthings3d.yaml"
+    cfg_file.write_text(yaml.safe_dump(cfg))
+    paths = STTR_TRAIN_DIR / "data_paths.yaml"
+    paths.write_text(yaml.safe_dump({info["DATASET"]: str(data_root)}))
+    opt = cfg["OPTIMIZATION"]
+    print(f"[sttr-train] config: crop {cfg['DATA_CONFIG']['DATA_TRANSFORM']['TRAINING'][0]['SIZE']}, "
+          f"batch {opt['BATCH_SIZE_PER_GPU']}, AMP {opt['AMP']}, {opt['OPTIMIZER']['NAME']} "
+          f"{opt['OPTIMIZER']['LR']}, {opt['SCHEDULER']['NAME']} warm-up "
+          f"{opt['SCHEDULER']['WARMUP']}, clip {opt['CLIP_GRAD']}, NUM_EPOCHS {opt['NUM_EPOCHS']}")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    trainer = train.main(["--cfg_file", str(cfg_file), "--save_root", str(STTR_TRAIN_DIR / "runs"),
+                          "--data_paths", str(paths), "--workers", "8", "--device", "cuda"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.launch_counts)
+    shapes = dict(kernels.launch_shapes["rel_attention"])
+    peak_run = torch.cuda.max_memory_allocated(dev)
+    steps, n_eval = trainer.state.step, trainer.eval_loader.steps_per_epoch
+    check(steps == STTR_TRAIN_PAIRS and n_eval == STTR_EVAL_PAIRS,
+          f"{steps} train steps, {n_eval} evaluation frames")
+    losses, step_ms = trainer.epoch_losses, trainer.epoch_step_ms
+    check(len(losses) == steps and all(np.isfinite(v) for v in losses), f"losses {losses}")
+    per_step, per_frame = sum(K4_TRAIN_SHAPES.values()), sum(K4_SHAPES.values())
+    want = {**{k: n * steps for k, n in K4_TRAIN_SHAPES.items()},
+            **{k: n * n_eval for k, n in K4_SHAPES.items()}}
+    print(f"[sttr-train] launches over the run ({steps} train steps, {n_eval} evaluation "
+          f"frames): {launches}; K4 by shape {shapes}")
+    check(launches == {"corr_volume": 0, "fused_mbconv": 0, "gwc_volume": 0,
+                       "rel_attention": per_step * steps + per_frame * n_eval},
+          f"launches {launches} != K4 {per_step} per train step and {per_frame} per evaluation "
+          "frame, nothing else")
+    check(shapes == want, f"K4 launch shapes {shapes} != {want}")
+    records = [json.loads(ln) for ln in open(trainer.metrics_file)]
+    wired = [r for r in records if r["phase"] == "eval"][-1]
+    check(all(np.isfinite(v) for k, v in wired.items() if k != "phase"), f"{wired}")
+
+    batches = trainer.train_loader.epoch(1)
+    batch = batch_to_device(next(batches), dev)
+    batches.close()
+    model = trainer.model
+    info_k, grads_k, n_k = sttr_step_grads(model, batch, True)
+    info_e, grads_e, n_e = sttr_step_grads(model, batch, False)
+    check(n_k == per_step and n_e == 0,
+          f"one step launched K4 {n_k} times (kernels), {n_e} (eager)")
+    check(grads_k.keys() == grads_e.keys(), "the paths give gradients to other parameters")
+    loss_err = {k: abs(info_k[k] - info_e[k]) / max(abs(info_e[k]), 1e-30) for k in info_e}
+    # the same step in f64 (eager: the kernel takes f32 and bf16), the exact gradient that
+    # both f32 paths are held against
+    m64 = copy.deepcopy(model).double()
+    m64.dtype = torch.float64
+    _, grads_64, _ = sttr_step_grads(m64, {k: v.double() if torch.is_tensor(v) and
+                                           v.is_floating_point() else v
+                                           for k, v in batch.items()}, False)
+    del m64
+    grad_cmp = compare_step_grads(grads_k, grads_e, grads_64)
+    print(f"[sttr-train] one step, kernels vs eager (f32, TF32 off): loss terms kernels "
+          f"{ {k: round(v, 6) for k, v in info_k.items()} }, relative differences "
+          f"{ {k: float(f'{v:.3g}') for k, v in loss_err.items()} } (tol 1e-5); gradients of "
+          f"{len(grads_e)} tensors: kernels vs eager worst {grad_cmp['k_vs_e'][1]:.3g}·max|g| at "
+          f"{grad_cmp['k_vs_e'][0]}; against the f64 step, kernels worst "
+          f"{grad_cmp['k_vs_64'][1]:.3g}·max|g| at {grad_cmp['k_vs_64'][0]}, eager worst "
+          f"{grad_cmp['e_vs_64'][1]:.3g}·max|g| at {grad_cmp['e_vs_64'][0]} (of the tensors above "
+          f"1e-4 of the largest gradient); kernels' error over 2x eager's + 1e-4·max|g| + "
+          f"1e-6·max|g| of the model: worst {grad_cmp['ratio'][1]:.3g} at {grad_cmp['ratio'][0]} "
+          f"(tol 1)")
+    check(all(v <= 1e-5 for v in loss_err.values()), f"loss terms differ: {loss_err}")
+    check(grad_cmp["ratio"][1] <= 1.0,
+          f"gradient of {grad_cmp['ratio'][0]}: the kernel path's error against the f64 step is "
+          f"{grad_cmp['ratio'][1]} of 2x the eager path's + 1e-4·max|g| + 1e-6·max|g| (model)")
+    del grads_k, grads_e, grads_64
+
+    set_kernels(model, False)
+    kernels.reset_launch_counts()
+    eager = trainer.evaluate(0)
+    check(sum(kernels.launch_counts.values()) == 0, "the eager evaluation launched kernels")
+    set_kernels(model, True)
+    d_epe = abs(wired["epe"] - eager["epe"])
+    print(f"[sttr-train] evaluation at 540x960 f32 with kernels: "
+          f"{ {k: round(v, 4) for k, v in wired.items() if k not in ('phase', 'epoch')} }; eager: "
+          f"{ {k: round(v, 4) for k, v in eager.items()} }; |EPE difference| {d_epe:.4g} px "
+          f"(tol 0.5)")
+    check(d_epe <= 0.5, f"evaluation with kernels vs eager: EPE differs by {d_epe} px > 0.5")
+
+    check(trainer.saved_epochs() == [0], f"checkpoints {trainer.saved_epochs()}")
+    saved = torch.load(trainer.ckpt_path(0), map_location="cpu", weights_only=True)
+    again = Trainer(Config.from_dict(cfg), trainer.run_dir, device=dev, num_workers=8)
+    start = again.resume_ckpt()
+    state = again.model.state_dict()
+    same = all(torch.equal(state[k].cpu(), v) for k, v in saved["model_state"].items())
+    nu = again.state.optimizer.state_dict()["state"]
+    same_nu = all(torch.equal(nu[k]["nu"].cpu(), st["nu"])
+                  for k, st in saved["optimizer_state"]["state"].items())
+    check(start == 1 and again.state.step == steps and same and same_nu
+          and again.state.optimizer.name == "rmsprop",
+          f"resume: start epoch {start}, step {again.state.step}, parameters bit-equal {same}, "
+          f"RMSprop nu bit-equal {same_nu}")
+    print(f"[sttr-train] resumed Trainer: start epoch {start}, step {again.state.step}, "
+          f"{len(saved['model_state'])} tensors and {len(nu)} RMSprop nu tensors bit-equal to "
+          f"the checkpoint")
+    del trainer, model
+    torch.cuda.empty_cache()
+
+    paths_res = {}
+    for path in ("kernels", "eager"):
+        set_kernels(again.model, path == "kernels")
+        times, peak = timed_train_steps(again, batch)
+        ms = float(np.median([t[0] for t in times[1:]]))
+        fwd, bwd, optim = (float(np.median([t[i] for t in times[1:]])) for i in (1, 2, 3))
+        prof = profile_train_steps(again, ms, label=f"STTR b1 360x640 f32, {path}",
+                                   table=STTR_TRAIN_DIR / f"profile_train_step_{path}.txt")
+        paths_res[path] = {"ms_per_step": ms, "samples_per_s": 1e3 / ms, "step_ms": times,
+                           "forward_ms": fwd, "backward_ms": bwd, "optimizer_ms": optim,
+                           "backward_share": bwd / ms, "peak_bytes": peak, "profile": prof}
+        print(f"[sttr-train] {path}: {ms:.2f} ms/step (median of steps 2-{len(times)}, CUDA "
+              f"events), {1e3 / ms:.3f} samples/s; forward+loss {fwd:.2f} ms, backward {bwd:.2f} "
+              f"ms ({bwd / ms:.1%} of the step), optimizer {optim:.2f} ms; peak memory "
+              f"{peak / 2**30:.3f} GiB; device busy "
+              f"{prof['device_busy_ms_per_step']:.2f} ms/step, idle share "
+              f"{prof['idle_share']:.4f}")
+    set_kernels(again.model, True)
+    ms_k = paths_res["kernels"]["ms_per_step"]
+    shares = {"k4_forward": k4_train["ms"] / ms_k, "k4_backward": k4_train["backward_ms"] / ms_k}
+    print(f"[sttr-train] run: {steps} steps, step ms (CUDA events) {[round(t, 2) for t in step_ms]}; "
+          f"losses {[round(v, 4) for v in losses]}; peak memory over the run "
+          f"{peak_run / 2**30:.3f} GiB; wall {wall:.1f} s; K4's share of the kernel path's step "
+          f"(phase 23's times): forward {shares['k4_forward']:.1%}, backward "
+          f"{shares['k4_backward']:.1%}")
+    del again
+    torch.cuda.empty_cache()
+    return {"losses": losses, "step_ms": step_ms, "peak_bytes_run": peak_run,
+            "train_launches": per_step * steps, "eval_launches": per_frame * n_eval,
+            "eval_frames": n_eval,
+            "eval_kernels": wired, "eval_eager": eager, "loss_err": loss_err,
+            "grads": grad_cmp, "paths": paths_res, "k4_shares": shares}
+
+
+def phase_sttr_overfit():
+    """The learning check of STTR: the port's `tools/overfit_check.py`, 200
+    steps on one batch of 2 random-dot pairs at 192x384, f32, RMSprop 1e-4
+    constant, clip by norm 35; the mean loss of the last 20 steps must fall
+    below 0.8 of the first 5 steps'."""
+    from openstereo_tpu_torch.tools import overfit_check
+
+    t0 = time.perf_counter()
+    res = overfit_check.main(STTR_OVERFIT_ARGS)
+    took = time.perf_counter() - t0
+    traj = [(s, round(l, 4), round(e, 3)) for s, l, e in res["trajectory"]]
+    rr = res["components"]["loss_rr"]
+    rr_ratio = float(np.mean(rr[-20:]) / np.mean(rr[:5]))
+    print(f"[sttr-overfit] trajectory (step, loss, train EPE px): {traj}; loss ratio (last 20 / "
+          f"first 5) {res['loss_ratio']:.4f} (tol < 0.8); rr term ratio {rr_ratio:.4f}; "
+          f"{took:.1f} s")
+    check(res["loss_ratio"] < 0.8, f"STTR overfit check: loss ratio {res['loss_ratio']} >= 0.8")
+    res["rr_ratio"] = rr_ratio
+    return res
+
+
+def k4_train_entry(k4_train, sttr_trained):
+    """The JSON entry of K4 under autograd (`rel_attention_trainable`): the
+    launches of phase 24's train steps, phase 23's times per train step (K4's
+    forward as `ms`, the PyTorch backward beside it) and errors."""
+    return dict(name="rel_attention_trainable", route="cuda",
+                source="openstereo_tpu_torch/csrc/rel_attention.cu",
+                replaces="openstereo_tpu/ops/pallas/rel_attention.py:243",
+                launches=sttr_trained["train_launches"],
+                launches_per_step=sum(K4_TRAIN_SHAPES.values()),
+                launches_trainer_eval=sttr_trained["eval_launches"],
+                max_abs_err=k4_train["max_abs_err"], max_grad_err=k4_train["max_grad_err"],
+                library_ms=None, dtype="float32",
+                backward="PyTorch, openstereo_tpu_torch/ops/rel_attention.py:rel_attention_backward",
+                yardstick="the port's eager einsum path under autograd (forward + backward)",
+                controls=k4_train["control"],
+                **{k: v for k, v in k4_train.items()
+                   if k not in ("max_abs_err", "max_grad_err", "control")})
+
+
+def sttr_train_summary(sttr_trained, sttr_overfit, t0):
+    pk, pe = sttr_trained["paths"]["kernels"], sttr_trained["paths"]["eager"]
+    return (f"[sttr-train] STTR 360x640 b1 f32 RMSprop: kernels {pk['ms_per_step']:.2f} ms/step "
+            f"({pk['samples_per_s']:.3f} samples/s, peak {pk['peak_bytes'] / 2**30:.3f} GiB, idle "
+            f"{pk['profile']['idle_share']:.4f}, backward {pk['backward_share']:.1%}), eager "
+            f"{pe['ms_per_step']:.2f} ms/step ({pe['samples_per_s']:.3f} samples/s, peak "
+            f"{pe['peak_bytes'] / 2**30:.3f} GiB, idle {pe['profile']['idle_share']:.4f}, "
+            f"backward {pe['backward_share']:.1%}); evaluation EPE "
+            f"{sttr_trained['eval_kernels']['epe']:.4f} px with kernels, "
+            f"{sttr_trained['eval_eager']['epe']:.4f} eager; overfit loss ratio "
+            f"{sttr_overfit['loss_ratio']:.4f}; total {time.perf_counter() - t0:.1f} s")
 
 
 def path_entries(models, kernel, errors):
@@ -1726,6 +2308,9 @@ def main():
         k1_eval, k2_eval, k2_eval_splits = phase_eval_batch(dev)
         trained = phase_train(dev)
         overfit = phase_overfit()
+        k4_train = phase_k4_train(dev, card)
+        sttr_trained = phase_sttr_train(dev, card, k4_train)
+        sttr_overfit = phase_sttr_overfit()
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -1769,6 +2354,7 @@ def main():
              controls=[dict(shape=list(shp), control=ctl, beyond=c[0], over_allowance=c[1])
                        for shp, cs in k4_err[2].items() for ctl, c in cs.items()],
              **k4),
+        k4_train_entry(k4_train, sttr_trained),
         dict(name="gwc_volume", route="cuda", source="openstereo_tpu_torch/csrc/cost_volume.cu",
              replaces="openstereo_tpu/ops/pallas/corr_volume.py:103",
              launches=k3_launches, max_abs_err=k3_err["main path"][1],
@@ -1815,6 +2401,7 @@ def main():
           f"{trained['eval_kernels']['epe']:.4f} px with kernels, {trained['eval_eager']['epe']:.4f} "
           f"eager; overfit final train EPE {overfit['final_epe']:.3f} px; total "
           f"{time.perf_counter() - t0:.1f} s")
+    print(sttr_train_summary(sttr_trained, sttr_overfit, t0))
     print(json.dumps({"kernels": entries}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,12 +1,12 @@
 """Split-file stereo datasets: the port's copy of
-`openstereo_tpu/data/datasets.py:31-103` (`DatasetTemplate`,
-`SceneFlowDataset`).
+`openstereo_tpu/data/datasets.py:31-147` (`DatasetTemplate`,
+`SceneFlowDataset`, `FlyingThings3DSubsetDataset`).
 
 A dataset reads a space-separated split file of root-relative paths and
 yields numpy samples {'left' [H,W,3], 'right' [H,W,3], 'disp' [H,W],
-['disp_right'], 'valid', 'index', 'name'}, transformed on the host with the
-sample's numpy Generator. The JAX package's other dataset classes are
-ROADMAP item 8.
+['disp_right'], ['occ_mask', 'occ_mask_right'], 'valid', 'index', 'name'},
+transformed on the host with the sample's numpy Generator. The JAX
+package's other dataset classes are ROADMAP item 8.
 """
 
 from __future__ import annotations
@@ -80,3 +80,54 @@ class SceneFlowDataset(DatasetTemplate):
         if self.data_info.get("RETURN_RIGHT_DISP", False):
             sample["disp_right"] = readers.read_disp_pfm(disp_p.replace("left", "right"))
         return self._finish(sample, idx, left_p, rng)
+
+
+def _left_border_occ(disp: np.ndarray) -> np.ndarray:
+    """Pixels whose match falls left of the frame (`datasets.py:105-108`)."""
+    w = disp.shape[-1]
+    return (np.arange(w, dtype=np.float32)[None, :] - disp) < 0
+
+
+def _right_border_occ(disp_right: np.ndarray) -> np.ndarray:
+    """Right-view pixels whose match falls right of the frame (`datasets.py:111-113`)."""
+    w = disp_right.shape[-1]
+    return (np.arange(w, dtype=np.float32)[None, :] + disp_right) > w
+
+
+@DATASETS.register
+class FlyingThings3DSubsetDataset(DatasetTemplate):
+    """STTR's FlyingThings3D subset (`datasets.py:116-147`): six paths a line
+    (left, right, disp, disp_right, occ, occ_right); NaN disparities become
+    0. RETURN_OCC_MASK reads the occlusion PNGs as bool; ZEROING_OCC zeroes
+    the disparity outside the frame and at the (border-extended) occlusions
+    and drops disp_right."""
+
+    def load(self, idx, rng=None):
+        from PIL import Image
+
+        left_p, right_p, disp_p, disp_r_p, occ_p, occ_r_p = self._paths(idx, 6)
+        sample = {
+            "left": readers.read_image_rgb(left_p),
+            "right": readers.read_image_rgb(right_p),
+            "disp": np.nan_to_num(readers.read_disp_pfm(disp_p), nan=0.0),
+            "disp_right": np.nan_to_num(readers.read_disp_pfm(disp_r_p), nan=0.0),
+        }
+        if self.data_info.get("RETURN_OCC_MASK", False):
+            sample["occ_mask"] = np.array(Image.open(occ_p)).astype(bool)
+            sample["occ_mask_right"] = np.array(Image.open(occ_r_p)).astype(bool)
+        if self.data_info.get("ZEROING_OCC", False):
+            sample = self._zero_occ(sample)
+        return self._finish(sample, idx, left_p, rng)
+
+    @staticmethod
+    def _zero_occ(sample: Dict) -> Dict:
+        disp = sample["disp"]
+        w = disp.shape[-1]
+        disp[(disp > w) | (disp < 0)] = 0
+        sample["occ_mask"] |= _left_border_occ(disp)
+        if "disp_right" in sample:
+            sample["occ_mask_right"] |= _right_border_occ(sample["disp_right"])
+        sample.pop("disp_right", None)
+        disp[sample["occ_mask"]] = 0
+        sample["disp"] = np.ascontiguousarray(disp, np.float32)
+        return sample

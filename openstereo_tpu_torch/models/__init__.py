@@ -113,42 +113,63 @@ def fan_in(m: nn.Module) -> int:
     return w[0].numel()
 
 
+def _trunc_normal(t: torch.Tensor, fan: int, scale: float, generator: torch.Generator):
+    """flax's variance_scaling(scale, "fan_in", "truncated_normal"): a normal
+    truncated at ±2 σ whose variance is scale / fan."""
+    std = (scale / fan) ** 0.5 / _TRUNC_STD
+    nn.init.trunc_normal_(t, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
+
+
 def init_training_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """flax's default initialisers, which the JAX trainer starts from
     (`runtime/trainer.py:186-194`): conv, deconv and linear kernels
     lecun-normal (truncated normal, variance 1/fan_in), zero biases,
     BatchNorm scale 1, bias 0, mean 0, var 1, LayerNorm scale 1, bias 0,
-    CFNet's range scalars 0. Drawn from `generator` in module order. Raises on a parameter that flax
-    would not initialise this way (STTR's weight-normed convs, attention
-    projections and dustbin cost: STTR training is ROADMAP item 8)."""
+    CFNet's range scalars 0. STTR's as its flax modules declare them: each
+    third of the packed attention projection (the q, k and v `nn.Dense`)
+    lecun-normal over its own fan-in, zero biases; the weight-normed convs'
+    directions he-normal (variance 2/fan_in, `blocks.py:184`), gains 1,
+    biases 0; the dustbin cost `phi` 0 (`sttr.py:174`). Drawn from
+    `generator` in module order. Raises on a parameter left undrawn."""
     drawn = set()
+
+    def fill(t: torch.Tensor, value: float):
+        t.fill_(value)
+        drawn.add(id(t))
+
     with torch.no_grad():
         for m in model.modules():
             if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Conv3d, nn.ConvTranspose3d,
                               nn.Linear)):
-                std = fan_in(m) ** -0.5 / _TRUNC_STD
-                nn.init.trunc_normal_(m.weight, 0.0, std, -2.0 * std, 2.0 * std,
-                                      generator=generator)
+                _trunc_normal(m.weight, fan_in(m), 1.0, generator)
                 drawn.add(id(m.weight))
                 if m.bias is not None:
-                    m.bias.zero_()
-                    drawn.add(id(m.bias))
+                    fill(m.bias, 0.0)
             elif isinstance(m, (nn.BatchNorm2d, nn.BatchNorm3d, nn.LayerNorm)):
-                for t, v in ((m.weight, 1.0), (m.bias, 0.0)):
-                    t.fill_(v)
-                    drawn.add(id(t))
+                fill(m.weight, 1.0)
+                fill(m.bias, 0.0)
                 if not isinstance(m, nn.LayerNorm):
                     m.reset_running_stats()
                     drawn.update(id(t) for t in m.buffers())
+            elif isinstance(m, MultiheadAttentionRelative):
+                for third in m.in_proj_weight.chunk(3):
+                    _trunc_normal(third, m.embed_dim, 1.0, generator)
+                drawn.add(id(m.in_proj_weight))
+                fill(m.in_proj_bias, 0.0)
+            elif isinstance(m, WNConv):
+                _trunc_normal(m.weight_v, m.weight_v[0].numel(), 2.0, generator)
+                drawn.add(id(m.weight_v))
+                fill(m.weight_g, 1.0)
+                fill(m.bias, 0.0)
+            elif isinstance(m, RegressionHead):
+                fill(m.phi, 0.0)
             elif isinstance(m, CFNet):
                 for p in (m.gamma_s3, m.beta_s3, m.gamma_s2, m.beta_s2):
-                    p.zero_()
-                    drawn.add(id(p))
+                    fill(p, 0.0)
     missed = [k for k, t in list(model.named_parameters()) + list(model.named_buffers())
               if id(t) not in drawn]
     if missed:
-        raise NotImplementedError(
-            f"no training initialiser for {missed[:8]}; STTR training is ROADMAP item 8")
+        raise NotImplementedError(f"no training initialiser for {missed[:8]}")
     return model
 
 

@@ -6,11 +6,13 @@ Sequences live as [B', W, C], one epipolar line per batch element. Attribute
 names follow the reference STTR state_dict (`self_attn_layers.{i}.self_attn.
 in_proj_weight`, `cross_attn_layers.{i}.norm2`, `transformer.norm`).
 
-`MultiheadAttentionRelative` has two paths. With `use_kernels` on, in eval,
-with a positional table and W == Wk, it runs the relative attention through
-`ops.rel_attention` (the CUDA kernel K4; on the CPU its plain version).
-Otherwise it runs the einsum decomposition against the gathered [W, W, C]
-tables, as the JAX package's non-Pallas path does.
+`MultiheadAttentionRelative` has two paths. With `use_kernels` on and a
+positional table (W == Wk), it runs the relative attention through K4 (the
+CUDA kernel; on the CPU its plain version): `ops.rel_attention` in eval,
+`ops.rel_attention_trainable` (K4's forward, the analytic backward) in
+training. With `use_kernels` off it runs the einsum decomposition against
+the gathered [W, W, C] tables, as the JAX package's non-Pallas path does,
+under autograd in training.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ...ops import rel_attention
+from ...ops import rel_attention, rel_attention_trainable
 from ...ops.rel_attention import rel_index
 from ..layers import compute_weight, head_dtype
 
@@ -35,7 +37,8 @@ def sine_pos_encoding(w: int, channels: int, scale: float, dtype: torch.dtype,
     from (W-1)·scale down to (1-W)·scale; sin on even channels, cos on odd.
 
     Built in float64 with numpy and rounded to f32, then to `dtype`, as the
-    JAX package does (f32 position arguments would cost ~1e-5 in the sines).
+    JAX package does (f32 position arguments would cost ~1e-5 in the sines);
+    an f64 table keeps the f64 values, as the JAX package's under x64.
     Cached per (W, C, scale, dtype, device).
     """
     key = (w, channels, float(scale), dtype, torch.device(device))
@@ -47,7 +50,9 @@ def sine_pos_encoding(w: int, channels: int, scale: float, dtype: torch.dtype,
         out = np.empty_like(pos)
         out[:, 0::2] = np.sin(pos[:, 0::2])
         out[:, 1::2] = np.cos(pos[:, 1::2])
-        _POS_CACHE[key] = torch.from_numpy(out.astype(np.float32)).to(device, dtype)
+        if dtype != torch.float64:
+            out = out.astype(np.float32)
+        _POS_CACHE[key] = torch.from_numpy(out).to(device, dtype)
     return _POS_CACHE[key]
 
 
@@ -129,12 +134,17 @@ class MultiheadAttentionRelative(nn.Module):
         if pos_table is not None:
             ke = self.proj(pos_table, 1)
             qe = self.proj(pos_table, 0) * scaling
-        if self.use_kernels and not self.training and pos_table is not None:
+        if self.use_kernels and pos_table is not None:
             # the kernel takes only the causal mask (as the TPU kernel)
             if attn_mask is not None:
                 raise ValueError("the rel_attention kernel takes no explicit attn_mask; "
                                  "use masked_last or turn use_kernels off")
-            out, raw = rel_attention(q * scaling, k, v, ke, qe, nh, masked_last, need_raw)
+            if self.training:
+                # the kernel takes contiguous inputs (no-op copies for F.linear's outputs)
+                args = [t.contiguous() for t in (q * scaling, k, v, ke, qe)]
+                out, raw = rel_attention_trainable(*args, nh, masked_last, need_raw)
+            else:
+                out, raw = rel_attention(q * scaling, k, v, ke, qe, nh, masked_last, need_raw)
         else:
             out, raw = rel_attention_eager(q * scaling, k, v, ke, qe, nh, masked_last, attn_mask)
         out = F.linear(out, compute_weight(self.out_proj.weight, out.dtype),

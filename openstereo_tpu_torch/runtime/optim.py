@@ -3,16 +3,18 @@ section: the port's copy of `openstereo_tpu/runtime/optim.py`.
 
 It computes what the JAX package's optax chain computes,
 
-    clip (by value | by global norm) → adamw | adam | sgd, lr = schedule(t),
+    clip (by value | by global norm) → adamw | adam | sgd | rmsprop, lr = schedule(t),
 
 with t the number of updates applied before this one (optax's count before
 its increment). `torch.optim` and `torch.optim.lr_scheduler` are not used:
 torch's OneCycleLR ends its phases one step earlier than
 `optax.cosine_onecycle_schedule` and, with Adam, cycles beta1 as well;
 `clip_grad_norm_` adds 1e-6 to the norm it divides by. AdamW decays every
-parameter, BatchNorm scales and biases too, as optax's does.
+parameter, BatchNorm scales and biases too, as optax's does. RMSprop is
+optax's `rmsprop` with its defaults, not `torch.optim.RMSprop` (whose decay
+is 0.99 and whose eps lies outside the square root).
 
-PARAM_GROUPS, RMSprop and Lamb are ROADMAP item 8.
+PARAM_GROUPS and Lamb are ROADMAP item 8.
 """
 
 from __future__ import annotations
@@ -29,6 +31,8 @@ Schedule = Callable[[int], float]
 
 _NOT_PORTED = "ROADMAP item 8"
 B1, B2 = 0.9, 0.999  # optax's Adam defaults, which `_make_tx` (`optim.py:78`) keeps
+RMS_DECAY = 0.9  # optax.rmsprop's default decay, which `_make_tx` (`optim.py:86`) keeps
+_STATE = {"adamw": ("mu", "nu"), "adam": ("mu", "nu"), "sgd": ("trace",), "rmsprop": ("nu",)}
 
 
 # --------------------------------------------------------------- schedules
@@ -155,13 +159,16 @@ def build_schedule(opt_cfg: Config, total_steps: int) -> Schedule:
 # --------------------------------------------------------------- optimizer
 
 class Optimizer:
-    """clip → adamw | adam | sgd over named parameters, updated in place.
+    """clip → adamw | adam | sgd | rmsprop over named parameters, updated in place.
 
     Each step: the gradients are clipped (by value, or by their global norm:
     t / ‖g‖ · max_norm when ‖g‖ ≥ max_norm, with no epsilon), then
     - adamw/adam: mu = (1-b1)·g + b1·mu, nu = (1-b2)·g² + b2·nu,
       u = mu/(1-b1^n) / (sqrt(nu/(1-b2^n)) + eps) [+ wd·p for adamw],
     - sgd: u = g + momentum·u_prev (optax's trace),
+    - rmsprop: nu = (1-d)·g² + d·nu, u = g·rsqrt(nu + eps) with d = 0.9 (optax
+      0.2.6's `rmsprop` defaults: eps inside the root, nu starts at 0, no
+      momentum, no centering, no bias correction),
     and p += -lr(t)·u, with n = t + 1 and t the updates applied so far.
     Parameters change in place (their version counters move), so caches
     keyed on a parameter's version see every update.
@@ -170,9 +177,9 @@ class Optimizer:
     def __init__(self, named_params: Iterable[Tuple[str, torch.nn.Parameter]], name: str,
                  schedule: Schedule, weight_decay: float = 0.0, eps: float = 1e-8,
                  momentum: float = 0.0, clip: Optional[Tuple[str, float]] = None):
-        if name not in ("adamw", "adam", "sgd"):
+        if name not in _STATE:
             raise NotImplementedError(f"optimizer {name!r} is {_NOT_PORTED}"
-                                      if name in ("rmsprop", "lamb") else f"unknown optimizer {name!r}")
+                                      if name == "lamb" else f"unknown optimizer {name!r}")
         if clip is not None and clip[0] not in ("value", "norm"):
             raise ValueError(clip[0])
         self.params = dict(named_params)
@@ -182,9 +189,8 @@ class Optimizer:
         self.count = 0
         self.state: Dict[str, Dict[str, torch.Tensor]] = {}
         for k, p in self.params.items():
-            zeros = lambda: torch.zeros_like(p, memory_format=torch.preserve_format)  # noqa: E731
-            self.state[k] = ({"mu": zeros(), "nu": zeros()} if name != "sgd"
-                             else {"trace": zeros()})
+            self.state[k] = {s: torch.zeros_like(p, memory_format=torch.preserve_format)
+                             for s in _STATE[name]}
 
     def zero_grad(self) -> None:
         for p in self.params.values():
@@ -213,6 +219,9 @@ class Optimizer:
             if self.name == "sgd":
                 st["trace"].mul_(self.momentum).add_(g)
                 u = st["trace"]
+            elif self.name == "rmsprop":
+                st["nu"].copy_((1 - RMS_DECAY) * g * g + RMS_DECAY * st["nu"])
+                u = g * torch.rsqrt(st["nu"] + self.eps)
             else:
                 st["mu"].copy_((1 - B1) * g + B1 * st["mu"])
                 st["nu"].copy_((1 - B2) * g * g + B2 * st["nu"])

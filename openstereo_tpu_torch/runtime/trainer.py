@@ -1,12 +1,14 @@
 """Trainer: the port's counterpart of `openstereo_tpu/runtime/trainer.py:75-428`.
 
 A train step is `model.train()`, the forward and `get_loss`, backward, and
-the optimizer's step (clip, update, schedule: `runtime/optim.py`), eager.
-BatchNorm takes its statistics per view and per batch on the one device;
-with FREEZE_BN it keeps its running statistics (`models/layers.py:freeze_bn`).
-Evaluation is `model.eval()` under `torch.inference_mode()`, through the
-kernels (K1 and K2 on LightStereo), with per-image metrics deduplicated by
-the sample's dataset index. Checkpoints are `torch.save` files of the train
+the optimizer's step (clip, update, schedule: `runtime/optim.py`), eager
+but for the kernels that the model's training forward runs (STTR's K4,
+through its autograd Function). BatchNorm takes its statistics per view
+and per batch on the one device; with FREEZE_BN it keeps its running
+statistics (`models/layers.py:freeze_bn`). Evaluation is `model.eval()`
+under `torch.inference_mode()` on the whole batch (STTR reads its
+occlusion mask), through the kernels (K1 and K2 on LightStereo, K4 on
+STTR), with per-image metrics deduplicated by the sample's dataset index. Checkpoints are `torch.save` files of the train
 state, one per epoch, with the MAX_CKPT_SAVE_NUM rotation; resume restores
 parameters, BatchNorm statistics, optimizer state and step.
 

@@ -2,12 +2,16 @@
 of `tools/overfit_check.py`).
 
 A random texture warped by a smooth disparity field gives pairs with exact
-ground truth; the model trains on one fixed batch in bf16 (AdamW, clip by
+ground truth. LightStereo trains on one fixed batch in bf16 (AdamW, clip by
 value 0.1, as the JAX tool) and the train EPE should fall below 3 px.
+STTR, whose loss needs occlusion masks, gets the border occlusions of the
+stereogram's disparity (as the JAX tool gives them) and trains in f32 with
+its config's optimizer, RMSprop, at a constant rate with its clip by norm
+35; the mean loss of the last 20 steps should fall below 0.8 of the first
+5 steps' (the train EPE is printed beside it).
 
     python -m openstereo_tpu_torch.tools.overfit_check [--steps 400] [--device cpu]
-
-LightStereo only for now.
+    python -m openstereo_tpu_torch.tools.overfit_check --model STTR --steps 200 --batch 2 --lr 1e-4
 """
 
 from __future__ import annotations
@@ -57,11 +61,28 @@ def parse_args(argv):
     return p.parse_args(argv)
 
 
+def border_occlusions(disp: np.ndarray):
+    """(left, right) occlusion masks of disparities [..., W]: a left pixel
+    whose match x - d falls left of the frame, a right pixel whose match
+    x + d falls right of it (the JAX tool's masks, `tools/overfit_check.py:79-87`)."""
+    xs = np.arange(disp.shape[-1], dtype=np.float32)
+    return xs - disp < 0, xs + disp >= disp.shape[-1]
+
+
+# per model: compute dtype, optimizer and clip, and the check on the run
+RECIPES = {"LightStereo": ("bf16", "adamw", ("value", 0.1), "final train EPE < 3 px"),
+           "STTR": ("f32", "rmsprop", ("norm", 35.0), "mean loss of the last 20 steps < 0.8 "
+                                                       "x that of the first 5")}
+
+
 def main(argv: Optional[Sequence[str]] = None):
-    """Returns {'trajectory': [(step, loss, epe)], 'final_epe', 'converged'}."""
+    """Returns {'trajectory': [(step, loss, epe)], 'losses' (every step's),
+    'components' (every step's loss terms by name), 'final_epe',
+    'loss_ratio' (mean of the last 20 losses over the mean of the first 5),
+    'converged'}."""
     args = parse_args(argv)
-    if args.model != "LightStereo":
-        raise NotImplementedError(f"{args.model}: the port trains LightStereo only "
+    if args.model not in RECIPES:
+        raise NotImplementedError(f"{args.model}: the port trains {sorted(RECIPES)} only "
                                   "(ROADMAP item 8)")
     import torch
 
@@ -75,37 +96,53 @@ def main(argv: Optional[Sequence[str]] = None):
     h, w = args.size
     rng = np.random.RandomState(0)
     samples = [make_stereogram(rng, h, w, args.max_disp) for _ in range(args.batch)]
-    batch = batch_to_device({
-        "left": np.stack([(s[0] / 255 - MEAN) / STD for s in samples]).astype(np.float32),
-        "right": np.stack([(s[1] / 255 - MEAN) / STD for s in samples]).astype(np.float32),
-        "disp": np.stack([s[2] for s in samples]).astype(np.float32),
-    }, device)
+    disp = np.stack([s[2] for s in samples]).astype(np.float32)
+    arrays = {"left": np.stack([(s[0] / 255 - MEAN) / STD for s in samples]).astype(np.float32),
+              "right": np.stack([(s[1] / 255 - MEAN) / STD for s in samples]).astype(np.float32),
+              "disp": disp}
+    dtype_name, opt_name, clip, rule = RECIPES[args.model]
+    if args.model == "STTR":
+        occ, occ_right = border_occlusions(disp)
+        arrays.update(occ_mask=occ.astype(np.float32), occ_mask_right=occ_right.astype(np.float32))
+    batch = batch_to_device(arrays, device)
     model_cfg = Config.from_dict({"NAME": args.model, "MAX_DISP": args.max_disp,
                                   **json.loads(args.kwargs)})
-    model = build_model(model_cfg, dtype=torch.bfloat16, device=device, seed=0, init="train")
+    dtype = {"bf16": torch.bfloat16, "f32": torch.float32}[dtype_name]
+    model = build_model(model_cfg, dtype=dtype, device=device, seed=0, init="train")
     model.train()
     schedule = (cosine_decay_schedule(args.lr, args.steps) if args.cosine
                 else constant_schedule(args.lr))
     # optax.adamw's default weight decay, 1e-4, as the JAX tool leaves it
-    opt = Optimizer(model.named_parameters(), "adamw", schedule, weight_decay=1e-4,
-                    clip=("value", 0.1))
-    trajectory = []
+    opt = Optimizer(model.named_parameters(), opt_name, schedule,
+                    weight_decay=1e-4 if opt_name == "adamw" else 0.0, clip=clip)
+    print(f"{args.model} {dtype_name}, {opt_name} lr {args.lr}, clip {clip}, batch "
+          f"{args.batch} at {h}x{w}; check: {rule}", flush=True)
+    trajectory, losses, components = [], [], []
     t0 = time.perf_counter()
     for i in range(args.steps):
         out = model(batch)
-        loss, _ = model.get_loss(out, batch)
+        loss, info = model.get_loss(out, batch)
         opt.zero_grad()
         loss.backward()
         opt.step()
+        losses.append(loss.detach())
+        components.append({k: v.detach() for k, v in info.items()})
         if i % 25 == 0 or i == args.steps - 1:
             lv = float(loss.detach())
             epe = float((out["disp_pred"].detach() - batch["disp"]).abs().mean())
             trajectory.append((i, lv, epe))
             print(f"step {i:4d}  loss {lv:7.3f}  train-EPE {epe:6.2f} px"
                   + (f"  ({time.perf_counter() - t0:.0f}s)" if i else ""), flush=True)
+    losses = [float(v) for v in losses]
+    components = {k: [float(c[k]) for c in components] for k in components[0]}
     final = trajectory[-1][2]
-    print(f"final EPE {final:.2f} px ({'CONVERGED' if final < 3.0 else 'check hyperparameters'})")
-    return {"trajectory": trajectory, "final_epe": final, "converged": final < 3.0}
+    ratio = float(np.mean(losses[-20:]) / np.mean(losses[:5]))
+    converged = final < 3.0 if args.model == "LightStereo" else ratio < 0.8
+    print(f"final EPE {final:.2f} px, loss ratio (last 20 / first 5) {ratio:.4f} "
+          f"({'CONVERGED' if converged else 'check hyperparameters'})")
+    return {"trajectory": trajectory, "losses": losses, "components": components,
+            "final_epe": final,
+            "loss_ratio": ratio, "converged": converged}
 
 
 if __name__ == "__main__":

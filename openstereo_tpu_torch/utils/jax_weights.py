@@ -295,7 +295,7 @@ def sttr_state_dict_from_jax(variables) -> Dict[str, torch.Tensor]:
     sttr_backbone(b, "backbone", "backbone")
     sttr_tokenizer(b, "tokenizer", "tokenizer")
     sttr_transformer(b, "transformer", "transformer")
-    b.put("regression_head.phi", np.asarray(b.take("params", "phi"), np.float32).reshape(()))
+    b.put("regression_head.phi", np.asarray(b.take("params", "phi")).reshape(()))
     sttr_cal(b, "cal", "regression_head.cal")
     return b.finish()
 
