@@ -1,4 +1,4 @@
-"""CoEx eval, NCHW / NCDHW (counterpart of `openstereo_tpu/models/coex/coex.py:36-196`).
+"""CoEx, NCHW / NCDHW (counterpart of `openstereo_tpu/models/coex/coex.py:36-196`).
 
 MobileNetV2 trunk (stem BN without its relu6) + the BatchNorm FeatUp decoder,
 as one siamese 2B batch; a stem_2/stem_4 superpixel branch run on each view;
@@ -6,11 +6,17 @@ the cosine volume (descriptors divided by their norm, then K1's mean product
 over 48 channels, × 48) [B,1,D/4,H/4,W/4]; a 3-level 3D UNet with
 disparity-strided steps and guided cost-volume excitation (FeatureAtt) at
 every scale; the top-k (k 2) soft-argmax and the superpixel upsample.
+Training (`coex.py:78-82`, `:182-196`) runs the trunk and decoder once per
+view and adds a second head, the 1/4 disparity ×4 bilinearly upsampled;
+`get_loss` is 0.77·(smooth-L1 of the full head + 0.3 × the low one's). The
+top-2 head's gradient reaches the two chosen costs only, as
+`jax.lax.top_k`'s does.
 
-With `use_kernels` on (the default) the volume goes through the CUDA kernel
-K1 (`ops.corr_volume`; on a CPU tensor, its plain version) and the trunk's
-stride-1 blocks through K2; off, through the plain builder and cuDNN. Every
-3D conv runs on cuDNN. The JAX model's `@pin_impl3d` only picks a TPU
+With `use_kernels` on (the default) the eval volume goes through the CUDA
+kernel K1 (`ops.corr_volume`; on a CPU tensor, its plain version) and the
+trunk's stride-1 blocks through K2; off, and always in training (neither
+kernel has a backward), through the plain builder and the eager blocks.
+Every 3D conv runs on cuDNN. The JAX model's `@pin_impl3d` only picks a TPU
 lowering and has no counterpart here.
 
 Attribute names follow the reference OpenStereo CoEx state_dict, as
@@ -28,11 +34,12 @@ from typing import Dict, Sequence
 import torch
 import torch.nn as nn
 
-from ...ops import (context_upsample, corr_volume, correlation_volume, resize_nearest,
-                    topk_disparity_regression)
+from ...ops import (context_upsample, corr_volume, correlation_volume, resize_bilinear,
+                    resize_nearest, topk_disparity_regression)
 from ..backbones import MobileNetV2Features
 from ..igev.blocks import BasicConvBN, Conv2x, FeatureAtt
 from ..layers import head_dtype, run_conv, run_seq, siamese
+from ..losses import weighted_heads_loss
 
 
 class FeatUp(nn.Module):
@@ -140,16 +147,17 @@ class CostAggregation(nn.Module):
 def cosine_normalize(x: torch.Tensor) -> torch.Tensor:
     """x / (‖x‖ over channels + 1e-12) in x's dtype, rounding where the JAX
     program does (`coex.py:110-111`): `jnp.linalg.norm` is itself jitted, and
-    XLA keeps its squares in f32 there, so the squares and their sum are f32
+    XLA keeps its squares in f32 there (f64 for an f64 x), so the squares and their sum are f32
     and the sum is rounded to x's dtype; its sqrt, the + 1e-12 and the
     quotient are each rounded."""
-    xf = x.float()
+    xf = x.to(head_dtype(x.dtype))
     sq = (xf * xf).sum(dim=1, keepdim=True).to(x.dtype)
     return x / (torch.sqrt(sq) + 1e-12)
 
 
 class CoExNet(nn.Module):
-    """forward(data) → {'disp_pred': [B,H,W]} (eval).
+    """forward(data) → {'disp_pred': [B,H,W]}, in training also
+    {'disp_preds': [full, low]}.
 
     data['left'] / data['right']: [B,3,H,W] normalized images, H and W
     multiples of 4. `dtype` is the compute dtype (bf16 on the main path);
@@ -195,17 +203,20 @@ class CoExNet(nn.Module):
         return cosine_normalize(run_conv(cv.conv(feat), cv.desc))
 
     def forward(self, data: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        if self.training:
-            raise NotImplementedError("CoEx training is ROADMAP item 8")
         bb = self.Backbone
         left, right = data["left"].to(self.dtype), data["right"].to(self.dtype)
-        feats_l, feats_r = siamese(bb.features, left, right)
+        if self.training:
+            # one call per view: each gets its own BatchNorm batch statistics
+            feats_l, feats_r = bb.features(left), bb.features(right)
+        else:
+            feats_l, feats_r = siamese(bb.features, left, right)
         stem_2x, stem_2y = run_seq(left, bb.stem_2), run_seq(right, bb.stem_2)
         feats_l[0] = torch.cat([feats_l[0], run_seq(stem_2x, bb.stem_4)], dim=1)
         feats_r[0] = torch.cat([feats_r[0], run_seq(stem_2y, bb.stem_4)], dim=1)
 
         x, y = self.descriptors(feats_l[0]), self.descriptors(feats_r[0])
-        corr = corr_volume if self.use_kernels else correlation_volume
+        # K1's wrapper has no backward: training builds the plain volume
+        corr = corr_volume if self.use_kernels and not self.training else correlation_volume
         # the mean over HIDDEN channels rounded, then × HIDDEN rounded again (`coex.py:113`)
         cost = corr(x.contiguous(), y.contiguous(), self.max_disp // 4) * self.HIDDEN
         cost = self.CostProcessor.cost_agg(cost[:, None], feats_l)  # [B,D,H/4,W/4]
@@ -215,4 +226,15 @@ class CoExNet(nn.Module):
         xspx = dp.spx_2(run_seq(feats_l[0], dp.spx_4), stem_2x)
         spx_pred = torch.softmax(run_seq(xspx, dp.spx).to(hd), dim=1)  # [B,9,H,W]
         disp_4 = topk_disparity_regression(cost.to(hd), self.topk)  # [B,H/4,W/4]
-        return {"disp_pred": context_upsample(disp_4 * 4.0, spx_pred)}
+        disp_1 = context_upsample(disp_4 * 4.0, spx_pred)
+        if not self.training:
+            return {"disp_pred": disp_1}
+        low = resize_bilinear((disp_4 * 4.0)[:, None], tuple(left.shape[-2:]))[:, 0]
+        return {"disp_pred": disp_1, "disp_preds": [disp_1, low]}
+
+    def get_loss(self, pred: Dict, data: Dict):
+        """0.77 · (1.0 · smooth-L1 of the full head + 0.3 · the low head's),
+        over 0 < gt < max_disp (`coex.py:187-196`) → (loss, {'loss_disp'})."""
+        loss = weighted_heads_loss(pred["disp_preds"], data["disp"], self.max_disp,
+                                   (1.0, 0.3)) * 0.77
+        return loss, {"loss_disp": loss}

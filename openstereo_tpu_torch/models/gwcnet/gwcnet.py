@@ -1,15 +1,22 @@
-"""GwcNet eval, NCHW / NCDHW (counterpart of `openstereo_tpu/models/gwcnet/gwcnet.py`).
+"""GwcNet, NCHW / NCDHW (counterpart of `openstereo_tpu/models/gwcnet/gwcnet.py`).
 
 Residual backbone (group-wise features of 320 channels at 1/4, and 12-channel
 concat features) → group-wise correlation volume [B,G,D/4,H/4,W/4] ⧺ concat
 volume [B,24,D/4,H/4,W/4] → dres0/dres1 → three hourglasses with redir skips
 → `classif3` → trilinear upsample to [B,D,H,W] → softmax over D →
-soft-argmax. Eval runs only the last classifier; `classif0`-`classif2` are
-kept for the training heads and for loading reference checkpoints.
+soft-argmax. Eval runs only the last classifier. Training (`gwcnet.py:
+119-194`) runs the backbone once per view, so BatchNorm takes each view's
+statistics, and regresses all four classifiers (`classif0` on the
+pre-hourglass cost, `classif1`-`classif3` on the hourglasses'); `get_loss`
+weighs their masked smooth-L1s 0.5, 0.5, 0.7, 1.0. With `remat`
+(MODEL.REMAT) each hourglass and each regression head is recomputed in the
+backward instead of kept (`layers.remat`).
 
-With `use_kernels` on (the default) the group-wise volume goes through the
-CUDA kernel K3 (`ops.gwc_volume`; on a CPU tensor, its plain version);
-off, through the plain PyTorch builder. Every 3D conv runs on cuDNN.
+With `use_kernels` on (the default) the eval group-wise volume goes through
+the CUDA kernel K3 (`ops.gwc_volume`; on a CPU tensor, its plain version);
+off, and always in training (K3 has no backward, and the JAX model trains
+its jnp builder), through the plain PyTorch builder. Every 3D conv runs on
+cuDNN.
 
 Attribute names follow the reference OpenStereo GwcNet state_dict, as
 `openstereo_tpu/utils/torch_convert.py:convert_gwcnet` reads it:
@@ -20,14 +27,15 @@ Sequential indices (ReLUs included).
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn as nn
 
 from ...ops import (build_concat_volume, build_gwc_volume, disparity_regression, gwc_volume,
                     resize_trilinear)
-from ..layers import convbn, deconv_bn, head_dtype, run_seq, siamese
+from ..layers import convbn, deconv_bn, head_dtype, remat, run_seq, siamese
+from ..losses import weighted_heads_loss
 from ..psmnet.psmnet import res_layer
 
 
@@ -106,15 +114,24 @@ class GwcDispProcessor(nn.Module):
             setattr(self, f"classif{j}", nn.Sequential(
                 convbn(c, c, ndim=3), nn.ReLU(), nn.Conv3d(c, 1, 3, padding=1, bias=False)))
 
-    def forward(self, volume):
+    def stages(self, volume, use_remat: bool = False) -> Tuple[torch.Tensor, ...]:
+        """(cost0, out1, out2, out3): the pre-hourglass cost and each
+        hourglass's output, the hourglasses under `remat` with `use_remat`."""
         cost0 = run_seq(volume, self.dres0)
         cost0 = run_seq(cost0, self.dres1) + cost0
-        out3 = self.dres4(self.dres3(self.dres2(cost0)))
-        return run_seq(out3, self.classif3)
+        outs = [cost0]
+        for i in (2, 3, 4):
+            hg = getattr(self, f"dres{i}")
+            outs.append(remat(hg, outs[-1]) if use_remat else hg(outs[-1]))
+        return tuple(outs)
+
+    def forward(self, volume):
+        return run_seq(self.stages(volume)[3], self.classif3)
 
 
 class GwcNet(nn.Module):
-    """forward(data) → {'disp_pred': [B,H,W]} (eval).
+    """forward(data) → {'disp_pred': [B,H,W]}, in training also
+    {'disp_preds': the four heads' [B,H,W]}.
 
     data['left'] / data['right']: [B,3,H,W] normalized images, H and W
     multiples of 16. `dtype` is the compute dtype (bf16 on the main path);
@@ -122,34 +139,60 @@ class GwcNet(nn.Module):
     """
 
     use_kernels = True
+    head_weights = (0.5, 0.5, 0.7, 1.0)
 
     def __init__(self, max_disp: int = 192, num_groups: int = 40,
                  use_concat_volume: bool = True, concat_channels: int = 12,
-                 downsample: int = 4, dtype: torch.dtype = torch.float32):
+                 downsample: int = 4, remat: bool = False, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.max_disp, self.num_groups, self.downsample = max_disp, num_groups, downsample
         self.use_concat_volume = use_concat_volume
+        self.remat = remat
         self.dtype = dtype
         self.Backbone = nn.ModuleDict(
             {"feature_extraction": GwcBackbone(use_concat_volume, concat_channels)})
         in_ch = num_groups + (2 * concat_channels if use_concat_volume else 0)
         self.DispProcessor = GwcDispProcessor(in_ch)
 
+    def regress(self, cost: torch.Tensor, size) -> torch.Tensor:
+        """[B,1,D/4,H/4,W/4] → [B,H,W]: trilinear (half-pixel, the JAX
+        model's `jax.image.resize`) to [B,D,H,W] in the head dtype, softmax
+        over D, soft-argmax."""
+        cost = resize_trilinear(cost.to(head_dtype(self.dtype)), (self.max_disp, *size))
+        return disparity_regression(torch.softmax(cost[:, 0], dim=1), self.max_disp)
+
     def forward(self, data: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        left, right = data["left"].to(self.dtype), data["right"].to(self.dtype)
+        backbone = self.Backbone["feature_extraction"]
         if self.training:
-            raise NotImplementedError("GwcNet training is ROADMAP item 8")
-        left = data["left"].to(self.dtype)
-        feat_l, feat_r = siamese(self.Backbone["feature_extraction"], left,
-                                 data["right"].to(self.dtype))
+            # one call per view: each gets its own BatchNorm batch statistics, and
+            # the running statistics are updated for the left view, then the right
+            feat_l, feat_r = backbone(left), backbone(right)
+        else:
+            feat_l, feat_r = siamese(backbone, left, right)
         d4 = self.max_disp // self.downsample
-        gwc = gwc_volume if self.use_kernels else build_gwc_volume
+        # K3's wrapper has no backward: training builds the plain volume under
+        # autograd, as the JAX model trains its jnp builder
+        gwc = gwc_volume if self.use_kernels and not self.training else build_gwc_volume
         volume = gwc(feat_l["gwc_feature"].contiguous(), feat_r["gwc_feature"].contiguous(),
                      d4, self.num_groups)
         if self.use_concat_volume:
             cat = build_concat_volume(feat_l["concat_feature"], feat_r["concat_feature"], d4)
             volume = torch.cat([volume, cat], dim=1)
-        cost = self.DispProcessor(volume)  # [B,1,D/4,H/4,W/4]
-        h, w = left.shape[-2:]
-        cost = resize_trilinear(cost.to(head_dtype(self.dtype)), (self.max_disp, h, w))
-        prob = torch.softmax(cost[:, 0], dim=1)
-        return {"disp_pred": disparity_regression(prob, self.max_disp)}
+        size = tuple(left.shape[-2:])
+        dp = self.DispProcessor
+        if not self.training:
+            return {"disp_pred": self.regress(dp(volume), size)}  # dp: [B,1,D/4,H/4,W/4]
+        preds: List[torch.Tensor] = []
+        for j, x in enumerate(dp.stages(volume, self.remat)):
+            cost = run_seq(x, getattr(dp, f"classif{j}"))
+            preds.append(remat(self.regress, cost, size) if self.remat
+                         else self.regress(cost, size))
+        return {"disp_pred": preds[3], "disp_preds": preds}
+
+    def get_loss(self, pred: Dict, data: Dict):
+        """Σ head_weights · masked smooth-L1 of the four heads over
+        0 < gt < max_disp (`gwcnet.py:188-194`) → (loss, {'loss_disp'})."""
+        loss = weighted_heads_loss(pred["disp_preds"], data["disp"], self.max_disp,
+                                   self.head_weights)
+        return loss, {"loss_disp": loss}

@@ -19,12 +19,15 @@ lowering and have no counterpart here.
 
 from __future__ import annotations
 
+import threading
+from contextlib import contextmanager, nullcontext
 from functools import lru_cache
 from typing import Callable, Optional
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.fused_mbconv import fold_mbconv, fused_mbconv
 
@@ -107,6 +110,33 @@ def run_conv(x: torch.Tensor, conv: nn.Module) -> torch.Tensor:
     return y + b.reshape((-1,) + (1,) * (y.dim() - 2)) if split else y
 
 
+_BN_STATE = threading.local()
+
+
+@contextmanager
+def running_stats_frozen():
+    """Within it (in this thread), `batch_norm_train` normalises with the batch
+    statistics but leaves the running statistics as they are."""
+    before = getattr(_BN_STATE, "frozen", False)
+    _BN_STATE.frozen = True
+    try:
+        yield
+    finally:
+        _BN_STATE.frozen = before
+
+
+def remat(fn: Callable, *args):
+    """`fn(*args)` with its activations recomputed in the backward instead of
+    kept (`torch.utils.checkpoint`, non-reentrant): the port's `nn.remat` /
+    `jax.checkpoint` (MODEL.REMAT). Flax's remat is functional and updates
+    BatchNorm's running statistics once; here the recomputation runs under
+    `running_stats_frozen`, so they are updated once too, by the forward.
+    The recomputation runs the same operations on the same inputs, so
+    gradients are those of `fn` without it."""
+    return checkpoint(fn, *args, use_reentrant=False,
+                      context_fn=lambda: (nullcontext(), running_stats_frozen()))
+
+
 def batch_norm_train(x: torch.Tensor, norm: nn.Module) -> torch.Tensor:
     """Training BatchNorm as flax's `nn.BatchNorm(momentum=0.9)` computes it
     (`layers.py:276-282` with flax 0.12's `_compute_stats` and `_normalize`):
@@ -115,7 +145,8 @@ def batch_norm_train(x: torch.Tensor, norm: nn.Module) -> torch.Tensor:
       E[x²] − E[x]² clipped at 0 (flax's default `use_fast_variance`);
     - y = (x − µ) · (γ · rsqrt(σ² + eps)) + β in that precision, then x's dtype;
     - the running statistics, as buffers in place, with flax's momentum 0.9
-      (torch's `momentum` 0.1) and the *biased* batch variance. Torch's own
+      (torch's `momentum` 0.1) and the *biased* batch variance, except under
+      `running_stats_frozen` (a `remat` recomputation). Torch's own
       `F.batch_norm(training=True)` would update with the unbiased one, so it
       only ever runs with running statistics here.
     """
@@ -125,14 +156,19 @@ def batch_norm_train(x: torch.Tensor, norm: nn.Module) -> torch.Tensor:
     shape = (1, -1) + (1,) * (x.dim() - 2)
     mean = xf.mean(dims)
     var = ((xf * xf).mean(dims) - mean * mean).clamp(min=0.0)
+    if not getattr(_BN_STATE, "frozen", False):
+        _update_running_stats(norm, mean, var)
+    mul = torch.rsqrt(var + norm.eps) * norm.weight.to(acc)
+    y = (xf - mean.reshape(shape)) * mul.reshape(shape) + norm.bias.to(acc).reshape(shape)
+    return y.to(x.dtype)
+
+
+def _update_running_stats(norm: nn.Module, mean: torch.Tensor, var: torch.Tensor) -> None:
     with torch.no_grad():
         m = norm.momentum
         norm.running_mean.mul_(1.0 - m).add_(mean.detach().to(norm.running_mean.dtype), alpha=m)
         norm.running_var.mul_(1.0 - m).add_(var.detach().to(norm.running_var.dtype), alpha=m)
         norm.num_batches_tracked.add_(1)
-    mul = torch.rsqrt(var + norm.eps) * norm.weight.to(acc)
-    y = (xf - mean.reshape(shape)) * mul.reshape(shape) + norm.bias.to(acc).reshape(shape)
-    return y.to(x.dtype)
 
 
 def apply_norm(x: torch.Tensor, norm: nn.Module) -> torch.Tensor:

@@ -35,6 +35,18 @@ def disp_valid_mask(disp_gt: torch.Tensor, max_disp: float) -> torch.Tensor:
     return (disp_gt > 0) & (disp_gt < max_disp)
 
 
+def weighted_heads_loss(preds, gt: torch.Tensor, max_disp: float, weights) -> torch.Tensor:
+    """Σ weight · masked smooth-L1 of each head's disparity over 0 < gt <
+    max_disp, summed from 0 in head order: the `get_loss` of GwcNet, PSMNet,
+    CoEx and MSNet (`gwcnet.py:188-194`, `psmnet.py:213-219`, `coex.py:
+    187-196`, `msnet.py:181-186`)."""
+    mask = disp_valid_mask(gt, max_disp)
+    loss = 0.0
+    for p, wgt in zip(preds, weights):
+        loss = loss + wgt * masked_smooth_l1(p, gt, mask)
+    return loss
+
+
 # Classification losses (`losses.py:46-81`), mean-reduced.
 
 def bce(probs: torch.Tensor, targets: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:

@@ -1,4 +1,4 @@
-"""MobileStereoNet 3D and 2D eval, NCHW / NCDHW (counterpart of
+"""MobileStereoNet 3D and 2D, NCHW / NCDHW (counterpart of
 `openstereo_tpu/models/msnet/msnet.py`).
 
 A shared mobile trunk (MobileV2 stem, MobileV1 residual stages; concat of
@@ -15,8 +15,15 @@ l2, l3, l4 = 320 channels at 1/4) as one siamese 2B batch, then:
   MobileV2Residual blocks and three 2D hourglasses with the D/4 planes as
   channels, `classif3` and the same head.
 
+Training (`msnet.py:134-186`, `:235-322`) runs the trunk once per view and
+regresses all four classifiers (`classif0` on the pre-hourglass cost,
+`classif1`-`classif3` on the hourglasses'); `get_loss` weighs their masked
+smooth-L1s 0.5, 0.5, 0.7, 1.0.
+
 The stride-1 MobileV2 blocks (the trunk's, and MSNet2D's 2D ones) run the
-CUDA kernel K2 with `use_kernels` on. The JAX model's `impl3d="native"`
+CUDA kernel K2 in eval with `use_kernels` on, and MSNet3D's volume K3; in
+training neither (they have no backward): the eager blocks and the plain
+builder run, as the JAX models train their jnp paths. The JAX model's `impl3d="native"`
 pins only pick a TPU lowering and have no counterpart here.
 
 Attribute names follow the reference OpenStereo MSNet state_dicts, as
@@ -29,7 +36,7 @@ training heads and for loading reference checkpoints).
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, List
 
 import torch
 import torch.nn as nn
@@ -38,6 +45,7 @@ import torch.nn.functional as F
 from ...ops import build_gwc_volume, disparity_regression, gwc_volume, resize_trilinear
 from ..layers import (MobileV1Residual, MobileV2Residual3D, MobileV2ResidualSeq, conv_norm,
                       convbn, deconv_bn, head_dtype, run_seq, siamese)
+from ..losses import weighted_heads_loss
 
 
 class MobileFeatureTrunk(nn.Module):
@@ -103,8 +111,51 @@ def regress(cost: torch.Tensor, max_disp: int, size) -> torch.Tensor:
     return disparity_regression(torch.softmax(cost, dim=1), max_disp)
 
 
-class MSNet3D(nn.Module):
-    """forward(data) → {'disp_pred': [B,H,W]} (eval; `msnet.py:122-179`).
+class MSNetBase(nn.Module):
+    """What MSNet3D and MSNet2D share: the trunk call (per view in training,
+    one siamese batch in eval), the hourglass stack, the heads and the loss.
+    A subclass defines `volume(feat_l, feat_r)` and `classify(x, j)` → the
+    [B,D/4,H/4,W/4] cost of `classif{j}`."""
+
+    head_weights = (0.5, 0.5, 0.7, 1.0)
+
+    def volume(self, feat_l: torch.Tensor, feat_r: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
+
+    def classify(self, x: torch.Tensor, j: int) -> torch.Tensor:
+        raise NotImplementedError
+
+    def forward(self, data: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        left, right = data["left"].to(self.dtype), data["right"].to(self.dtype)
+        trunk = self.feature_extraction
+        if self.training:
+            # one call per view: each gets its own BatchNorm batch statistics
+            feat_l, feat_r = trunk(left), trunk(right)
+        else:
+            feat_l, feat_r = siamese(trunk, left, right)
+        cost0 = run_seq(self.volume(feat_l, feat_r), self.dres0)
+        cost0 = run_seq(cost0, self.dres1) + cost0
+        outs = [cost0]
+        for i in (1, 2, 3):
+            outs.append(getattr(self, f"encoder_decoder{i}")(outs[-1]))
+        size, hd = tuple(left.shape[-2:]), head_dtype(self.dtype)
+        if not self.training:
+            return {"disp_pred": regress(self.classify(outs[3], 3).to(hd), self.max_disp, size)}
+        preds: List[torch.Tensor] = [regress(self.classify(x, j).to(hd), self.max_disp, size)
+                                     for j, x in enumerate(outs)]
+        return {"disp_pred": preds[3], "disp_preds": preds}
+
+    def get_loss(self, pred: Dict, data: Dict):
+        """Σ head_weights · masked smooth-L1 of the four heads over
+        0 < gt < max_disp (`msnet.py:181-186`, `:317-322`) → (loss, {'loss_disp'})."""
+        loss = weighted_heads_loss(pred["disp_preds"], data["disp"], self.max_disp,
+                                   self.head_weights)
+        return loss, {"loss_disp": loss}
+
+
+class MSNet3D(MSNetBase):
+    """forward(data) → {'disp_pred': [B,H,W]}, in training also
+    {'disp_preds': the four heads'} (`msnet.py:122-186`).
 
     data['left'] / data['right']: [B,3,H,W] normalized images, H and W
     multiples of 16. `dtype` is the compute dtype (bf16 on the main path);
@@ -127,22 +178,13 @@ class MSNet3D(nn.Module):
         for j in range(4):
             setattr(self, f"classif{j}", classifier(c, 1, 3))
 
-    def forward(self, data: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        if self.training:
-            raise NotImplementedError("MSNet3D training is ROADMAP item 8")
-        left = data["left"].to(self.dtype)
-        feat_l, feat_r = siamese(self.feature_extraction, left, data["right"].to(self.dtype))
-        gwc = gwc_volume if self.use_kernels else build_gwc_volume
-        volume = gwc(feat_l.contiguous(), feat_r.contiguous(), self.max_disp // 4,
-                     self.num_groups)
-        cost0 = run_seq(volume, self.dres0)
-        cost0 = run_seq(cost0, self.dres1) + cost0
-        out = cost0
-        for i in (1, 2, 3):
-            out = getattr(self, f"encoder_decoder{i}")(out)
-        cost = run_seq(out, self.classif3)[:, 0]  # [B,D/4,H/4,W/4]
-        return {"disp_pred": regress(cost.to(head_dtype(self.dtype)), self.max_disp,
-                                     left.shape[-2:])}
+    def volume(self, feat_l, feat_r):
+        # K3's wrapper has no backward: training builds the plain volume
+        gwc = gwc_volume if self.use_kernels and not self.training else build_gwc_volume
+        return gwc(feat_l.contiguous(), feat_r.contiguous(), self.max_disp // 4, self.num_groups)
+
+    def classify(self, x, j):
+        return run_seq(x, getattr(self, f"classif{j}"))[:, 0]
 
 
 def compressor_layers() -> Dict[str, nn.Sequential]:
@@ -173,8 +215,9 @@ def interlaced_compress(conv3d: nn.Sequential, volume11: nn.Sequential,
     return run_seq(x[:, :, 0], volume11)[:, 0]
 
 
-class MSNet2D(nn.Module):
-    """forward(data) → {'disp_pred': [B,H,W]} (eval; `msnet.py:224-313`).
+class MSNet2D(MSNetBase):
+    """forward(data) → {'disp_pred': [B,H,W]}, in training also
+    {'disp_preds': the four heads'} (`msnet.py:224-322`).
 
     As MSNet3D; the volume is interlaced (module docstring).
     """
@@ -199,6 +242,9 @@ class MSNet2D(nn.Module):
         for j in range(4):
             setattr(self, f"classif{j}", classifier(c, c, 2))
 
+    def volume(self, feat_l, feat_r):
+        return self.interlaced_volume(feat_l, feat_r).contiguous()
+
     def interlaced_volume(self, feat_l: torch.Tensor, feat_r: torch.Tensor) -> torch.Tensor:
         """320-channel features ×2 → [B,D/4,H/4,W/4] (`msnet.py:245-278`):
         every shift through the compressor as one batch of D/4·B, shift-major;
@@ -216,17 +262,5 @@ class MSNet2D(nn.Module):
         volume = volume.masked_fill(cols[None, None, None, :] < shifts[:, None, None, None], 0)
         return volume.transpose(0, 1)
 
-    def forward(self, data: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        if self.training:
-            raise NotImplementedError("MSNet2D training is ROADMAP item 8")
-        left = data["left"].to(self.dtype)
-        feat_l, feat_r = siamese(self.feature_extraction, left, data["right"].to(self.dtype))
-        volume = self.interlaced_volume(feat_l, feat_r).contiguous()
-        cost0 = run_seq(volume, self.dres0)
-        cost0 = run_seq(cost0, self.dres1) + cost0
-        out = cost0
-        for i in (1, 2, 3):
-            out = getattr(self, f"encoder_decoder{i}")(out)
-        cost = run_seq(out, self.classif3)  # [B,D/4,H/4,W/4]
-        return {"disp_pred": regress(cost.to(head_dtype(self.dtype)), self.max_disp,
-                                     left.shape[-2:])}
+    def classify(self, x, j):
+        return run_seq(x, getattr(self, f"classif{j}"))  # D/4 channels: [B,D/4,H/4,W/4]

@@ -1,9 +1,14 @@
-"""PSMNet eval, NCHW / NCDHW (counterpart of `openstereo_tpu/models/psmnet/psmnet.py:32-219`).
+"""PSMNet, NCHW / NCDHW (counterpart of `openstereo_tpu/models/psmnet/psmnet.py:32-219`).
 
 SPP backbone (32 channels at 1/4) → concat volume [B,64,D/4,H/4,W/4] →
 dres0/dres1 → three shared-skip 3D hourglasses → three classifiers, summed
 → align-corners trilinear upsample to [B,D,H,W] → softmax over D →
 soft-argmax. Every 3D conv runs on cuDNN: no TPU kernel lies on this path.
+Training (`psmnet.py:150-219`) runs the backbone once per view and
+regresses the three partial sums (cost1, cost1+cost2, cost1+cost2+cost3);
+`get_loss` weighs their masked smooth-L1s 0.5, 0.7, 1.0. With `remat`
+(MODEL.REMAT) each hourglass and each regression head is recomputed in the
+backward instead of kept (`layers.remat`).
 
 Attribute names follow the reference OpenStereo PSMNet state_dict, as
 `openstereo_tpu/utils/torch_convert.py:convert_psmnet` reads it:
@@ -16,14 +21,15 @@ BatchNorm a bias-free Sequential(conv, bn) with its ReLU applied in forward.
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 from ...ops import build_concat_volume, disparity_regression, resize_linear_align_corners
-from ..layers import convbn, deconv_bn, head_dtype, run_conv, run_seq, siamese
+from ..layers import convbn, deconv_bn, head_dtype, remat, run_conv, run_seq, siamese
+from ..losses import weighted_heads_loss
 
 
 class ResBlock(nn.Module):
@@ -138,46 +144,74 @@ class PSMAggregator(nn.Module):
         seq = getattr(self, f"classif{j}")
         return run_conv(F.relu(run_seq(x, seq[0])), seq[1])
 
-    def forward(self, volume):
+    def costs(self, volume, use_remat: bool = False) -> Tuple[torch.Tensor, ...]:
+        """(cost1, cost1 + cost2, cost1 + cost2 + cost3), each [B,1,D/4,H/4,W/4];
+        the hourglasses under `remat` with `use_remat`."""
         cost0 = F.relu(run_seq(volume, self.dres0[0]))
         cost0 = F.relu(run_seq(cost0, self.dres0[1]))
         res = F.relu(run_seq(cost0, self.dres1[0]))
         cost0 = run_seq(res, self.dres1[1]) + cost0
-        out1, pre1, post1 = self.dres2(cost0)
-        out1 = out1 + cost0
-        out2, pre2, post2 = self.dres3(out1, pre1, post1)
-        out2 = out2 + cost0
-        out3, _, _ = self.dres4(out2, pre2, post2)
-        out3 = out3 + cost0
-        cost = self.classify(out1, 1)
-        cost = self.classify(out2, 2) + cost
-        return self.classify(out3, 3) + cost
+        outs, skips = [], (None, None)
+        x = cost0
+        for i in (2, 3, 4):
+            hg = getattr(self, f"dres{i}")
+            out, *skips = remat(hg, x, *skips) if use_remat else hg(x, *skips)
+            x = out + cost0
+            outs.append(x)
+        cost1 = self.classify(outs[0], 1)
+        cost2 = self.classify(outs[1], 2) + cost1
+        return cost1, cost2, self.classify(outs[2], 3) + cost2
+
+    def forward(self, volume):
+        return self.costs(volume)[2]
 
 
 class PSMNet(nn.Module):
-    """forward(data) → {'disp_pred': [B,H,W]} (eval).
+    """forward(data) → {'disp_pred': [B,H,W]}, in training also
+    {'train_preds': the three heads' [B,H,W]}.
 
     data['left'] / data['right']: [B,3,H,W] normalized images, H and W
     multiples of 16. `dtype` is the compute dtype (bf16 on the main path);
     parameters stay f32 and the regression head runs in at least f32.
     """
 
-    def __init__(self, max_disp: int = 192, dtype: torch.dtype = torch.float32):
+    head_weights = (0.5, 0.7, 1.0)
+
+    def __init__(self, max_disp: int = 192, remat: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.max_disp = max_disp
+        self.remat = remat
         self.dtype = dtype
         self.Backbone = SPPBackbone()
         self.CostProcessor = nn.ModuleDict({"aggregator": PSMAggregator()})
 
-    def forward(self, data: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        if self.training:
-            raise NotImplementedError("PSMNet training is ROADMAP item 8")
-        left = data["left"].to(self.dtype)
-        feat_l, feat_r = siamese(self.Backbone, left, data["right"].to(self.dtype))
-        volume = build_concat_volume(feat_l, feat_r, self.max_disp // 4)
-        cost = self.CostProcessor["aggregator"](volume)  # [B,1,D/4,H/4,W/4]
-        h, w = left.shape[-2:]
+    def regress(self, cost: torch.Tensor, size) -> torch.Tensor:
+        """[B,1,D/4,H/4,W/4] → [B,H,W]: align-corners trilinear to [B,D,H,W]
+        in the head dtype, softmax over D, soft-argmax."""
         cost = resize_linear_align_corners(cost.to(head_dtype(self.dtype)),
-                                           (self.max_disp, h, w))
-        prob = torch.softmax(cost[:, 0], dim=1)
-        return {"disp_pred": disparity_regression(prob, self.max_disp)}
+                                           (self.max_disp, *size))
+        return disparity_regression(torch.softmax(cost[:, 0], dim=1), self.max_disp)
+
+    def forward(self, data: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        left, right = data["left"].to(self.dtype), data["right"].to(self.dtype)
+        if self.training:
+            # one call per view: each gets its own BatchNorm batch statistics
+            feat_l, feat_r = self.Backbone(left), self.Backbone(right)
+        else:
+            feat_l, feat_r = siamese(self.Backbone, left, right)
+        volume = build_concat_volume(feat_l, feat_r, self.max_disp // 4)
+        size = tuple(left.shape[-2:])
+        agg = self.CostProcessor["aggregator"]
+        if not self.training:
+            return {"disp_pred": self.regress(agg(volume), size)}
+        preds = [remat(self.regress, c, size) if self.remat else self.regress(c, size)
+                 for c in agg.costs(volume, self.remat)]
+        return {"disp_pred": preds[2], "train_preds": preds}
+
+    def get_loss(self, pred: Dict, data: Dict):
+        """Σ head_weights · masked smooth-L1 of the three heads over
+        0 < gt < max_disp (`psmnet.py:209-219`) → (loss, {'loss_disp'})."""
+        loss = weighted_heads_loss(pred["train_preds"], data["disp"], self.max_disp,
+                                   self.head_weights)
+        return loss, {"loss_disp": loss}

@@ -72,16 +72,20 @@ def sample_1d_linear(source: torch.Tensor, points: torch.Tensor) -> torch.Tensor
     return g_lo * (1.0 - w_hi) + g_hi * w_hi
 
 
-def low_res_disp(attn: torch.Tensor, occ_mask: Optional[torch.Tensor] = None
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+def low_res_disp(attn: torch.Tensor, occ_mask: Optional[torch.Tensor] = None,
+                 best: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """3-px window regression around the argmax (`sttr.py:91-118`).
 
     attn [N,H,W,W] (dustbins stripped) → (disp [N,H,W], matched attention
     [N,H,W]). The argmax takes the first maximum; a window whose mass is
     below 0.1 (or, given `occ_mask`, an occluded pixel) is not renormalised.
+    `best` [N,H,W,1], if given, replaces the argmax: two evaluations of one
+    step then regress the same windows, where a near-tie could otherwise
+    move a window between them.
     """
     w = attn.shape[-1]
-    best = attn.argmax(dim=-1, keepdim=True)
+    if best is None:
+        best = attn.argmax(dim=-1, keepdim=True)
     window = torch.cat([best - 1, best, best + 1], dim=-1) + 1  # into the padded axis
     padded = torch.nn.functional.pad(attn, (1, 1))
     attn_rw = torch.gather(padded, -1, window)

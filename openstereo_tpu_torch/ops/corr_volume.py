@@ -3,7 +3,9 @@
 Port of the TPU kernel `openstereo_tpu/ops/pallas/corr_volume.py:
 correlation_volume_pallas` (num_groups=1). The plain version is
 `ops.cost_volume.correlation_volume`, which the wrapper runs for a tensor
-on the CPU; a CUDA tensor launches the kernel or raises.
+on the CPU; a CUDA tensor launches the kernel or raises. The result has
+no backward (`kernels.without_backward`): training builds its volume with
+the plain version.
 """
 
 from __future__ import annotations
@@ -31,6 +33,11 @@ def corr_volume(left: torch.Tensor, right: torch.Tensor, max_disp: int) -> torch
         raise ValueError("left and right lie on different devices")
     if max_disp <= 0:
         raise ValueError(f"max_disp must be positive, got {max_disp}")
+    return kernels.without_backward("corr_volume", "ops.cost_volume.correlation_volume",
+                                    lambda lt, rt: _corr_volume(lt, rt, max_disp), left, right)
+
+
+def _corr_volume(left: torch.Tensor, right: torch.Tensor, max_disp: int) -> torch.Tensor:
     if left.device.type == "cpu":
         return corr_volume_plain(left, right, max_disp)
     if left.device.type != "cuda":

@@ -16,6 +16,9 @@ the launcher spreads a tile's chunks over S blocks (its choice,
 `fused_mbconv_splits` in the source, sizes the workspace here), which
 write f32 partial projections that a second kernel sums in a fixed order:
 one call then issues two device kernels, and counts one launch.
+
+The result has no backward (`kernels.without_backward`): the BatchNorms
+are folded, so training runs the eager conv/BatchNorm chain instead.
 """
 
 from __future__ import annotations
@@ -109,6 +112,12 @@ def fused_mbconv(x, w1, b1, dw, b2, w2, b3, residual: bool = True) -> torch.Tens
     same weight arrays; its result is this one's transpose (0,2,3,1).
     """
     _check(x, w1, b1, dw, b2, w2, b3, residual)
+    return kernels.without_backward(
+        "fused_mbconv", "the eager conv/BatchNorm chain (or ops.fused_mbconv.mbconv_plain)",
+        lambda *t: _fused_mbconv(*t, residual=residual), x, w1, b1, dw, b2, w2, b3)
+
+
+def _fused_mbconv(x, w1, b1, dw, b2, w2, b3, residual: bool) -> torch.Tensor:
     if x.device.type == "cpu":
         return mbconv_plain(x, w1, b1, dw, b2, w2, b3, residual)
     if x.device.type != "cuda":

@@ -4,7 +4,8 @@ Port of the TPU kernel `openstereo_tpu/ops/pallas/corr_volume.py:
 build_gwc_volume_pallas` (the `correlation_volume_pallas` call with
 num_groups > 1). The plain version is `ops.cost_volume.build_gwc_volume`,
 which the wrapper runs for a tensor on the CPU; a CUDA tensor launches the
-kernel or raises.
+kernel or raises. The result has no backward (`kernels.without_backward`):
+training builds its volume with the plain version.
 """
 
 from __future__ import annotations
@@ -35,6 +36,13 @@ def gwc_volume(left: torch.Tensor, right: torch.Tensor, max_disp: int,
     if max_disp <= 0 or num_groups <= 0 or left.shape[1] % num_groups:
         raise ValueError(f"need max_disp > 0 and num_groups dividing C={left.shape[1]}, "
                          f"got {max_disp}, {num_groups}")
+    return kernels.without_backward(
+        "gwc_volume", "ops.cost_volume.build_gwc_volume",
+        lambda lt, rt: _gwc_volume(lt, rt, max_disp, num_groups), left, right)
+
+
+def _gwc_volume(left: torch.Tensor, right: torch.Tensor, max_disp: int,
+                num_groups: int) -> torch.Tensor:
     if left.device.type == "cpu":
         return gwc_volume_plain(left, right, max_disp, num_groups)
     if left.device.type != "cuda":

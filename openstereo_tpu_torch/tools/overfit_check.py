@@ -8,10 +8,14 @@ STTR, whose loss needs occlusion masks, gets the border occlusions of the
 stereogram's disparity (as the JAX tool gives them) and trains in f32 with
 its config's optimizer, RMSprop, at a constant rate with its clip by norm
 35; the mean loss of the last 20 steps should fall below 0.8 of the first
-5 steps' (the train EPE is printed beside it).
+5 steps' (the train EPE is printed beside it). GwcNet, PSMNet, CoExNet,
+MSNet3D and MSNet2D train the same way with their SceneFlow configs' dtype,
+optimizer and clip (`RECIPES`) at a constant rate, under the same check.
 
     python -m openstereo_tpu_torch.tools.overfit_check [--steps 400] [--device cpu]
     python -m openstereo_tpu_torch.tools.overfit_check --model STTR --steps 200 --batch 2 --lr 1e-4
+    python -m openstereo_tpu_torch.tools.overfit_check --model GwcNet --steps 200 --batch 2 \
+        --lr 1e-4
 """
 
 from __future__ import annotations
@@ -69,10 +73,16 @@ def border_occlusions(disp: np.ndarray):
     return xs - disp < 0, xs + disp >= disp.shape[-1]
 
 
-# per model: compute dtype, optimizer and clip, and the check on the run
+# per model: compute dtype, optimizer and clip (its config's: `cfgs/<model>/*.yaml`), and
+# the check on the run
+LOSS_RULE = "mean loss of the last 20 steps < 0.8 x that of the first 5"
 RECIPES = {"LightStereo": ("bf16", "adamw", ("value", 0.1), "final train EPE < 3 px"),
-           "STTR": ("f32", "rmsprop", ("norm", 35.0), "mean loss of the last 20 steps < 0.8 "
-                                                       "x that of the first 5")}
+           "STTR": ("f32", "rmsprop", ("norm", 35.0), LOSS_RULE),
+           "GwcNet": ("f32", "rmsprop", ("norm", 35.0), LOSS_RULE),
+           "PSMNet": ("f32", "rmsprop", ("norm", 35.0), LOSS_RULE),
+           "CoExNet": ("bf16", "rmsprop", ("value", 0.1), LOSS_RULE),
+           "MSNet3D": ("f32", "adam", ("norm", 35.0), LOSS_RULE),
+           "MSNet2D": ("f32", "adam", None, LOSS_RULE)}
 
 
 def main(argv: Optional[Sequence[str]] = None):

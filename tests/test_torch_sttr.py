@@ -130,6 +130,35 @@ def test_optimal_transport_and_low_res_disp_match_jax():
         _close(gm.numpy(), np.asarray(rm), tol=dict(rtol=1e-6, atol=1e-6), what="matched")
 
 
+def test_low_res_disp_given_argmax():
+    """`best` replaces the argmax: given the argmax itself, the result is the
+    same bit for bit; given another index at one pixel, that pixel regresses
+    the window around it and no other pixel moves."""
+    rng = np.random.RandomState(2)
+    plan = torch.from_numpy(rng.rand(2, 3, 20, 20).astype(np.float32))
+    occ = torch.from_numpy((rng.rand(2, 3, 20) > 0.7).astype(np.float32))
+    best = plan.argmax(dim=-1, keepdim=True)
+    for mask in (None, occ):
+        want = ts.low_res_disp(plan, mask)
+        got = ts.low_res_disp(plan, mask, best=best)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    n, h, i, k = 1, 2, 9, 4
+    assert best[n, h, i, 0] != k
+    moved = best.clone()
+    moved[n, h, i, 0] = k
+    (disp, matched), (ref_disp, ref_matched) = (ts.low_res_disp(plan, None, best=moved),
+                                                 ts.low_res_disp(plan, None))
+    window = plan[n, h, i, k - 1:k + 2].double()
+    shift = torch.tensor([max(i - j, 0) for j in (k - 1, k, k + 1)], dtype=torch.float64)
+    assert window.sum() >= 0.1
+    assert torch.allclose(disp[n, h, i].double(), (window * shift).sum() / window.sum(),
+                          rtol=1e-6, atol=0)
+    assert torch.allclose(matched[n, h, i].double(), window.sum(), rtol=1e-6, atol=0)
+    keep = torch.ones_like(disp, dtype=torch.bool)
+    keep[n, h, i] = False
+    assert torch.equal(disp[keep], ref_disp[keep]) and torch.equal(matched[keep], ref_matched[keep])
+
+
 def test_nearest_index_matches_jax():
     for n_out, n_in in ((540, 180), (960, 320), (48, 16), (37, 12)):
         ref = np.asarray(jnp.floor(jnp.arange(n_out) * (n_in / n_out)).astype(jnp.int32))

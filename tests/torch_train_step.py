@@ -1,0 +1,375 @@
+"""One train step of a port model against the JAX package's, on the CPU: the
+shared part of `tests/test_torch_train_{gwcnet,psmnet,coex,msnet3d,msnet2d}.py`.
+
+A tiny model (the eval tests' sizes) with flax variables drawn with numpy in
+the tree that the JAX converter makes of the port's state_dict
+(`_random_variables_via`), one batch of 2 drawn from a seed, and the
+model's config's OPTIMIZATION without its warm-up (whose lr at the first
+step is 0), its clip by norm set at half the gradient's global norm so that
+it acts. Both sides run in f64: JAX's `value_and_grad` of the flax model
+with `train=True` and mutable `batch_stats`, then the JAX trainer's optax
+chain, compiled once per file (`run_jitted`); the port's forward,
+`get_loss`, backward and optimizer step.
+
+Tolerances (as `tests/test_torch_train.py` and `tests/test_torch_sttr_train.py`):
+loss rtol 1e-8; each parameter's gradient atol 1e-6·max|g| of its tensor
+plus 1e-12 of the model's largest (the biases of a BatchNorm that feeds
+another BatchNorm have a zero gradient in exact arithmetic); the parameters
+after the clipped step atol 1e-2·lr (Adam's and RMSprop's first steps are
+sign-like where |g| is tiny); BatchNorm running statistics rtol 1e-10, atol
+1e-12, with one update per view for a backbone BatchNorm.
+"""
+
+import sys
+from dataclasses import dataclass
+from pathlib import Path
+from typing import Callable, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+import yaml
+
+import jax
+import jax.numpy as jnp
+import optax
+
+from openstereo_tpu.config import Config as JConfig
+from openstereo_tpu.runtime import optim as joptim
+
+from openstereo_tpu_torch.config import Config
+from openstereo_tpu_torch.models import layers as tl
+from openstereo_tpu_torch.models import set_kernels
+from openstereo_tpu_torch.runtime import optim as toptim
+
+from test_torch_layers import _random_variables_via
+from test_torch_ops import to_nchw
+
+ROOT = Path(__file__).resolve().parents[1]
+TOTAL_STEPS = 100
+
+
+@dataclass
+class Case:
+    """A model under test: its flax and port classes, the tiny constructor
+    arguments both take, the input size, its config, the JAX→port and
+    port→JAX converters, and the sizes of its run through the training CLI."""
+    flax_model: type
+    port_model: type
+    tiny: Dict
+    hw: Tuple[int, int]
+    cfg: str
+    to_port: Callable
+    to_jax: Callable
+    crop: Tuple[int, int] = (32, 64)  # the training CLI's crop and pad
+    pad: Tuple[int, int] = (48, 80)
+    seed: int = 31
+
+    def config(self) -> Dict:
+        return yaml.safe_load((ROOT / self.cfg).read_text())
+
+
+def make_batch(case: Case) -> Dict[str, np.ndarray]:
+    """A batch of 2 (NHWC images): the right view the left shifted by 3 px
+    plus noise; disparities up to max_disp + 1 (some beyond it) with
+    invalid top rows."""
+    rng = np.random.RandomState(11)
+    h, w = case.hw
+    left = rng.randn(2, h, w, 3).astype(np.float32)
+    right = (np.roll(left, -3, axis=2) + 0.3 * rng.randn(2, h, w, 3)).astype(np.float32)
+    disp = (rng.rand(2, h, w) * (case.tiny["max_disp"] + 1)).astype(np.float32)
+    disp[:, :3] = 0.0
+    return {"left": left, "right": right, "disp": disp}
+
+
+def torch_batch(data, dtype=torch.float64):
+    return {"left": to_nchw(data["left"]).to(dtype), "right": to_nchw(data["right"]).to(dtype),
+            "disp": torch.from_numpy(data["disp"]).to(dtype)}
+
+
+def opt_cfg(case: Case, max_norm: Optional[float]) -> Dict:
+    """The config's OPTIMIZATION without the warm-up; a clip by norm at
+    `max_norm`."""
+    opt = case.config()["OPTIMIZATION"]
+    del opt["SCHEDULER"]["WARMUP"]
+    clip = opt.get("CLIP_GRAD")
+    if clip and clip.get("TYPE", "norm") == "norm":
+        clip["MAX_NORM"] = max_norm
+    return opt
+
+
+def run_jitted(fn, *args):
+    """fn(*args) jitted, XLA:CPU's backend at optimisation level 1 without
+    LLVM's expensive passes: for these f64 train steps the fastest compile
+    and run together (level 0 compiles faster but runs the f64 convs ~10x
+    slower, 12 + 24 s against 18 + 3 s for GwcNet's grad; the default
+    compiles slower)."""
+    return jax.jit(fn).lower(*args).compile(compiler_options={
+        "xla_backend_optimization_level": 1, "xla_llvm_disable_expensive_passes": True})(*args)
+
+
+def steps(case: Case) -> Tuple[Dict, Dict]:
+    """(JAX step, port step) in f64 on the same variables and batch. The
+    port's gradients come first: half their global norm is the clip by norm
+    of both optimizers. JAX's: loss, gradients and stepped variables as port
+    state_dicts. The port's: the stepped model, loss, gradients, lr."""
+    variables = _random_variables_via(case.to_jax, case.port_model(**case.tiny), case.seed)
+    data = make_batch(case)
+    got = port_grads(case, {"variables": variables, "data": data})
+    norm = float(torch.sqrt(sum((g ** 2).sum() for g in got["grads"].values() if g is not None)))
+    max_norm = 0.5 * norm
+    opt, schedule = toptim.build_optimizer(Config.from_dict(opt_cfg(case, max_norm)),
+                                           TOTAL_STEPS, got["model"].named_parameters())
+    opt.step()
+    got.update(lr=schedule(0), opt=opt.name)
+
+    with jax.enable_x64(True):
+        flax_model = case.flax_model(**case.tiny, dtype=jnp.float64)
+        v = jax.tree.map(lambda a: jnp.asarray(a, jnp.float64), variables)
+        jdata = {k: jnp.asarray(a, jnp.float64) for k, a in data.items()}
+        tx, _ = joptim.build_optimizer(JConfig.from_dict(opt_cfg(case, max_norm)), TOTAL_STEPS)
+
+        def step(params, bs, batch):
+            def loss_fn(p):
+                out, mut = flax_model.apply({"params": p, "batch_stats": bs}, batch, train=True,
+                                            mutable=["batch_stats"])
+                return flax_model.get_loss(out, batch)[0], mut["batch_stats"]
+
+            (loss, new_bs), g = jax.value_and_grad(loss_fn, has_aux=True)(params)
+            updates, _ = tx.update(g, tx.init(params), params)
+            return loss, g, new_bs, optax.apply_updates(params, updates)
+
+        loss, g, new_bs, after = jax.device_get(
+            run_jitted(step, v["params"], v["batch_stats"], jdata))
+    assert np.asarray(loss).dtype == np.float64
+    ref = dict(variables=variables, data=data, loss=float(loss), norm=norm, max_norm=max_norm,
+               grads=case.to_port({"params": g, "batch_stats": new_bs}),
+               after=case.to_port({"params": after, "batch_stats": new_bs}))
+    return ref, got
+
+
+def port_model(case: Case, variables, **kwargs):
+    """The port's model in f64 and in training mode with `variables`."""
+    m = case.port_model(**case.tiny, **kwargs, dtype=torch.float64).double()
+    m.load_state_dict(case.to_port(variables))
+    return m.train()
+
+
+def port_grads(case: Case, ref: Dict, **kwargs) -> Dict:
+    """The port's forward, loss and backward in f64 on `ref`'s variables and
+    batch: model, loss, gradients (None where a parameter got none)."""
+    model = port_model(case, ref["variables"], **kwargs)
+    batch = torch_batch(ref["data"])
+    loss, _ = model.get_loss(model(batch), batch)
+    loss.backward()
+    return dict(model=model, loss=float(loss.detach()),
+                grads={k: None if p.grad is None else p.grad.clone()
+                       for k, p in model.named_parameters()})
+
+
+def check_loss(ref, got, name):
+    print(f"{name} train loss: port {got['loss']!r}, JAX {ref['loss']!r}")
+    np.testing.assert_allclose(got["loss"], ref["loss"], rtol=1e-8)
+
+
+def check_gradients(ref, got):
+    """Every parameter has a gradient; the names are the JAX gradients';
+    each within 1e-6·max|g| of its tensor + 1e-12 of the model's largest."""
+    params = {k for k, _ in got["model"].named_parameters()}
+    assert set(got["grads"]) == params
+    assert params == {k for k in ref["grads"] if not k.endswith(
+        ("running_mean", "running_var", "num_batches_tracked"))}
+    missing = [k for k, g in got["grads"].items() if g is None]
+    assert not missing, missing
+    scale = max(float(ref["grads"][k].abs().max()) for k in params)
+    worst = 0.0
+    for k, g in got["grads"].items():
+        r = ref["grads"][k].double().numpy()
+        rmax = np.abs(r).max()
+        if rmax > 1e-9 * scale:
+            worst = max(worst, np.abs(g.numpy() - r).max() / rmax)
+        np.testing.assert_allclose(g.numpy(), r, rtol=0, atol=1e-6 * rmax + 1e-12 * scale,
+                                   err_msg=k)
+    print(f"{len(params)} gradients, worst max-abs {worst:.3g}·max|g| of its tensor; global "
+          f"norm {ref['norm']:.4g}, clip by norm at {ref['max_norm']:.4g} where the config clips "
+          f"by norm")
+
+
+def check_updated_parameters(ref, got):
+    for k, p in got["model"].named_parameters():
+        np.testing.assert_allclose(p.detach().numpy(), ref["after"][k].double().numpy(), rtol=0,
+                                   atol=1e-2 * got["lr"], err_msg=k)
+
+
+def check_batchnorm_statistics(ref, got, per_view: str, once: str):
+    """Every running statistic as flax's after the step; `per_view`, a
+    backbone BatchNorm, updated twice (left, then right), `once` once."""
+    sd = got["model"].state_dict()
+    keys = [k for k in sd if k.endswith(("running_mean", "running_var"))]
+    assert len(keys) > 20
+    for k in keys:
+        np.testing.assert_allclose(sd[k].numpy(), ref["after"][k].double().numpy(), rtol=1e-10,
+                                   atol=1e-12, err_msg=k)
+    assert int(sd[f"{per_view}.num_batches_tracked"]) == 2
+    assert int(sd[f"{once}.num_batches_tracked"]) == 1
+
+
+def check_freeze_bn(case: Case, ref, bn: str):
+    """FREEZE_BN: the running statistics stay; the BatchNorm `bn` still gets
+    gradients for its scale and bias."""
+    model = tl.freeze_bn(port_model(case, ref["variables"]))
+    before = {k: v.clone() for k, v in model.state_dict().items() if "running" in k}
+    batch = torch_batch(ref["data"])
+    loss, _ = model.get_loss(model(batch), batch)
+    loss.backward()
+    sd = model.state_dict()
+    for k, v in before.items():
+        assert torch.equal(sd[k], v), k
+    norm = model.get_submodule(bn)
+    assert norm.weight.grad.abs().sum() > 0 and norm.bias.grad.abs().sum() > 0
+
+
+def check_eval_after_step(case: Case, ref, got, atol=1e-4):
+    """The stepped weights in an f32 model, evaluated with kernels on and off
+    (on the CPU the wrappers run their plain versions; K2's with the
+    BatchNorms folded): the same disparities within `atol` px, as
+    `tests/test_torch_train.py` holds LightStereo's; and the step moved them."""
+    model = case.port_model(**case.tiny)
+    model.load_state_dict({k: v.float() if v.is_floating_point() else v
+                           for k, v in got["model"].state_dict().items()})
+    before = case.port_model(**case.tiny)
+    before.load_state_dict(case.to_port(ref["variables"]))
+    batch = torch_batch(ref["data"], torch.float32)
+    out = {}
+    for kernels in (True, False):
+        for m in (model, before):
+            set_kernels(m.eval(), kernels)
+            with torch.inference_mode():
+                out[kernels, m is model] = m(batch)["disp_pred"].clone()
+    wired, eager = out[True, True], out[False, True]
+    moved = (eager - out[False, False]).abs().max().item()
+    print(f"after a step: kernel vs eager max-abs {(wired - eager).abs().max().item():.3g} px, "
+          f"moved {moved:.3g} px")
+    assert moved > 1e-3
+    np.testing.assert_allclose(wired.numpy(), eager.numpy(), rtol=0, atol=atol)
+
+
+def check_remat(case: Case, ref):
+    """MODEL.REMAT: the same step with the hourglasses and regression heads
+    recomputed in the backward gives bit-equal gradients and running
+    statistics, each BatchNorm updated once."""
+    plain = port_grads(case, ref, remat=False)
+    rem = port_grads(case, ref, remat=True)
+    assert rem["model"].remat and not plain["model"].remat
+    assert rem["loss"] == plain["loss"]
+    for k, g in plain["grads"].items():
+        assert torch.equal(rem["grads"][k], g), k
+    sa, sb = plain["model"].state_dict(), rem["model"].state_dict()
+    for k, v in sa.items():
+        if not k.endswith(("weight", "bias")):
+            assert torch.equal(sb[k], v), k
+
+
+def write_sceneflow_set(root: Path, n: int, hw, max_disp: int = 16):
+    """`n` random-dot pairs in the SceneFlow layout (PNG views, PFM left
+    disparities) and a split file listing them: its path."""
+    from PIL import Image
+
+    from openstereo_tpu_torch.data.readers import write_pfm
+    from openstereo_tpu_torch.tools.overfit_check import make_stereogram
+
+    for sub in ("left", "right"):
+        (root / sub).mkdir(parents=True, exist_ok=True)
+    lines = []
+    for i in range(n):
+        left, right, disp = make_stereogram(np.random.RandomState(i), *hw, max_disp)
+        for sub, img in (("left", left), ("right", right)):
+            Image.fromarray(np.clip(np.round(img), 0, 255).astype(np.uint8)).save(
+                root / sub / f"{i:04d}.png")
+        write_pfm(str(root / "left" / f"{i:04d}.pfm"), disp)
+        lines.append(f"left/{i:04d}.png right/{i:04d}.png left/{i:04d}.pfm")
+    split = root / "split.txt"
+    split.write_text("\n".join(lines))
+    return split
+
+
+def check_train_cli(case: Case, tmp_path: Path, monkeypatch, resume: bool = False):
+    """`tools/train.py` on the model's config as it is but for the data paths,
+    the model's size (`case.tiny`), the crop and pad (`case.crop`,
+    `case.pad`), the batch (2, for 2 steps over 4 random-dot pairs) and
+    NUM_EPOCHS 1: 2 steps with the config's optimizer, finite losses, the
+    evaluation and a checkpoint; with `resume`, a resumed Trainer bit-equal
+    to it."""
+    import json
+
+    from openstereo_tpu_torch.config import load_config
+    from openstereo_tpu_torch.runtime import Trainer
+    from openstereo_tpu_torch.tools import train
+
+    # JSONL metrics only: importing TensorBoard's writer takes seconds (tested
+    # in `tests/test_torch_trainer.py`)
+    monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)
+    d = case.config()
+    pair_hw = (case.crop[0] + 8, case.crop[1] + 8)
+    split = write_sceneflow_set(tmp_path / "SceneFlow", 4, pair_hw)
+    info = d["DATA_CONFIG"]["DATA_INFOS"][0]
+    info["DATA_PATH"] = str(split.parent)
+    info["DATA_SPLIT"] = {k: str(split) for k in ("TRAINING", "EVALUATING", "TESTING")}
+    tf = d["DATA_CONFIG"]["DATA_TRANSFORM"]
+    tf["TRAINING"][0]["SIZE"] = list(case.crop)
+    tf["EVALUATING"][0]["SIZE"] = list(case.pad)
+    d["MODEL"].update({k.upper(): v for k, v in case.tiny.items()})
+    d["OPTIMIZATION"].update(NUM_EPOCHS=1, BATCH_SIZE_PER_GPU=2)
+    d["EVALUATOR"]["BATCH_SIZE_PER_GPU"] = 2
+    cfg_file = tmp_path / "cfg.yaml"
+    cfg_file.write_text(yaml.safe_dump(d))
+    trainer = train.main(["--cfg_file", str(cfg_file), "--save_root", str(tmp_path / "runs"),
+                          "--data_paths", str(tmp_path / "none.yaml"), "--device", "cpu",
+                          "--workers", "1"])
+    opt = d["OPTIMIZATION"]["OPTIMIZER"]["NAME"].lower()
+    assert trainer.state.step == 2 and trainer.state.optimizer.name == opt
+    assert trainer.model.dtype == (torch.bfloat16 if d["OPTIMIZATION"]["AMP"] else torch.float32)
+    assert all(np.isfinite(v) for v in trainer.epoch_losses)
+    evals = [r for r in map(json.loads, open(trainer.metrics_file)) if r["phase"] == "eval"]
+    assert len(evals) == 1 and np.isfinite(evals[0]["epe"])
+    assert trainer.saved_epochs() == [0]
+    if resume:
+        saved = torch.load(trainer.ckpt_path(0), weights_only=True)
+        again = Trainer(load_config(str(cfg_file)), trainer.run_dir, device="cpu", num_workers=1)
+        assert again.resume_ckpt() == 1 and again.state.step == 2
+        for k, v in saved["model_state"].items():
+            assert torch.equal(again.model.state_dict()[k], v), k
+    print(f"{d['MODEL']['NAME']} via tools/train.py: losses {trainer.epoch_losses}, "
+          f"evaluation EPE {evals[0]['epe']:.4f} px")
+
+
+def check_overfit_recipe(case: Case, name: str, kwargs: Dict):
+    """The overfit check's recipe for `name` runs 2 steps at the tiny size."""
+    import json
+
+    from openstereo_tpu_torch.tools import overfit_check
+
+    res = overfit_check.main(["--model", name, "--steps", "2", "--batch", "1", "--size",
+                              *map(str, case.crop), "--max_disp", str(case.tiny["max_disp"]),
+                              "--device", "cpu", "--kwargs", json.dumps(kwargs)])
+    assert len(res["losses"]) == 2 and all(np.isfinite(res["losses"]))
+
+
+def check_flax_fan_in(case: Case, pick: Callable) -> int:
+    """`init_training_weights` on the model's config at full width draws the
+    weights of the modules `pick(model)` lists with flax's law: a normal
+    truncated at 2 σ whose variance is 1/fan_in, with flax's fan-in
+    (`models.fan_in`). Over all their draws, scaled by sqrt(fan_in): std
+    within 3 % of 1, mean within 0.02, none beyond 2/0.8796. Returns the
+    number of modules."""
+    from openstereo_tpu_torch.config import load_config
+    from openstereo_tpu_torch.models import build_model, fan_in
+
+    model = build_model(load_config(str(ROOT / case.cfg)).MODEL, device="cpu", seed=0,
+                        init="train")
+    picked = pick(model)
+    x = torch.cat([m.weight.detach().flatten() * fan_in(m) ** 0.5 for m in picked]).double()
+    print(f"{len(picked)} modules, {x.numel()} draws: std {float(x.std()):.4f}, "
+          f"mean {float(x.mean()):.4f}")
+    assert abs(float(x.std()) - 1) < 0.03 and abs(float(x.mean())) < 0.02
+    assert float(x.abs().max()) <= 2.0 / 0.87962566103423978 + 1e-6
+    return len(picked)
