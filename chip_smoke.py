@@ -13,7 +13,9 @@ without the repository around it). Phases, each of which fails the run:
    cost-volume kernel of K1 and K3;
 3. K1 (corr_volume) against its plain version at the main-path shape, at
    CoEx's (C 48) and at FADNet's ([1,128,72,120], D 40), f32 (TF32 off) and
-   bf16, plus a ragged-width and a d >= W case. The bf16 plain version takes
+   bf16, plus a ragged-width and a d >= W case. f32: max-abs <= 1e-5 and,
+   where C/G < 64, bit-equal everywhere (`volume_f32_check`: the kernel sums
+   in the order of PyTorch's CUDA mean). The bf16 plain version takes
    the same bf16 inputs and rounds each product to bf16, as JAX does; the
    kernel must be within `bf16_close` everywhere and bit-equal at all but
    VOLUME_FLIP_SHARE of the elements (`volume_bf16_check`), and at the
@@ -162,17 +164,46 @@ without the repository around it). Phases, each of which fails the run:
    544x960, batch 2. Each asserts finite losses; no launch in training and,
    per evaluation batch, GwcNet K3 1, MSNet3D K3 1 and K2 2, MSNet2D K2 18,
    CoEx K1 1 and K2 11, PSMNet none, at the expected shapes; the evaluation
-   with kernels against the same weights eager (f32 max-abs <= 5e-3 px;
-   CoEx phase 16's rule); for GwcNet a resumed Trainer bit-equal to the
-   checkpoint. Each prints ms/step (median of steps 2-4), samples/s, peak
+   with kernels against the same weights eager, both under cuDNN's
+   deterministic algorithms (f32 max-abs <= 5e-3 px; CoEx phase 16's rule);
+   for GwcNet a resumed Trainer bit-equal to the checkpoint. Each prints ms/step (median of steps 2-4), samples/s, peak
    memory, forward / backward / optimizer ms, device busy and idle share
    over 2 profiled steps and, for GwcNet and PSMNet, the peak with
-   MODEL.REMAT. Each then checks one step at b1 128x256 in f32 (TF32 off)
+   MODEL.REMAT and, for an f32 config, the second of 2 steps with TF32 off
+   (cut from 4 for the script's time). Each then checks one step at b1 128x256 in f32 (TF32 off)
    against the same step in f64 on the card (`zoo_grad_check`), where a
    control that detaches the features before the volume must fail; and
    last GwcNet's learning check (`tools/overfit_check.py --model GwcNet`,
-   200 steps at 192x384, b2, f32, RMSprop 1e-4, clip 35: the mean loss of
-   the last 20 steps below 0.8 of the first 5 steps').
+   100 steps (cut from 200 for the script's time) at 192x384, b2, f32,
+   RMSprop 1e-4, clip 35: the mean loss of the last 20 steps below 0.8 of
+   the first 5 steps').
+31-34. (run after phase 30, in the same loop) training of CFNet, CasGwcNet,
+   CasPSMNet and FADNet: first, with phases 26-30's kernel checks, K3 at
+   CFNet's three evaluation shapes (batch 1), K1 at FADNet's [10,128,72,120]
+   D 40 (f32) and at CoEx's config's evaluation batch, [10,48,136,240] D 48
+   (bf16), both also timed (CUDA events, device ms, plain version, bound at
+   their type's rates); then each main SceneFlow config as written
+   (`cfgs/cfnet/cfnet_sceneflow.yaml`, `cfgs/casnet/casnet_gwc_sceneflow.yaml`,
+   `cfgs/casnet/casnet_psm_sceneflow.yaml`, `cfgs/fadnet/fadnet_sceneflow.yaml`:
+   crops 256x512, 256x512, 256x512, 384x768, batch 4, 4, 4, 1, f32 with cuDNN
+   TF32, RMSprop or Lamb, MultiStepLR with warm-up) through `tools/train.py`
+   for 4 steps, evaluated at the config's own EVALUATOR.BATCH_SIZE_PER_GPU
+   and pad (CFNet 2 pairs at b1, 576x960; the cascades 10 at b10, 544x960;
+   FADNet 10 at b10, 576x960; 32 + 10 pairs written). No launch in training;
+   per evaluation batch CFNet K3 3 at its three shapes, FADNet K1 1 at
+   [10,128,72,120], the cascades none; the evaluation against eager as in
+   phases 26-30 (CFNet f32 >= 99.9 % of the pixels within 5e-3 px, FADNet max-abs <= 5e-3 px, the
+   cascades finite); ms/step, the forward / backward / optimizer split, peak
+   memory, 2 profiled steps; the gradient check as phases 26-30 with each
+   model's bound (`ZOO_NEW_BOUNDS`) and a detach control on its volume
+   builders. Left out against phases 26-30, for the script's time: the
+   TF32-off timing, MODEL.REMAT and the resume check.
+35. FADNet's learning check through Lamb (`tools/overfit_check.py --model
+   FADNet`, 100 steps of b1 at 192x384, f32, Lamb 4e-3 constant): the mean
+   loss of the last 20 steps below 0.8 of the first 5 steps'.
+
+Each phase prints its seconds on a `[phase-time]` line as it ends, and all
+of them once more before the JSON lines.
 
 The line before the card line is a JSON object with one entry per kernel;
 the last line is {"ok": true, "device": {...}}.
@@ -186,6 +217,7 @@ import sys
 import time
 from contextlib import contextmanager
 from pathlib import Path
+from typing import Dict, List, NamedTuple, Optional
 
 import numpy as np
 
@@ -273,6 +305,9 @@ K3_SHAPE = (1, 320, 136, 240, 48, 40)  # B, C, H/4, W/4, D, G of GwcNet at 544x9
 CFNET_K3_SHAPES = {(1, 160, 72, 120, 24, 40): 1, (1, 320, 36, 60, 12, 40): 1,
                    (1, 320, 18, 30, 6, 40): 1}
 FADNET_K1_SHAPE = (1, 128, 72, 120, 40)  # FADNet at 576x960: 1/8, D = 192/8 + 16
+# f32 K1/K3 equal the plain version bit for bit where a group has fewer channels than this
+# (`csrc/cost_volume.cu`); from 64 on PyTorch's CUDA mean splits a sum over warps
+F32_EXACT_CG = 64
 # K3 edge cases: ((B, C, H, W, D, G), what)
 K3_EDGES = [
     ((1, 16, 4, 260, 12, 4), "the JAX test's shape"),
@@ -331,8 +366,24 @@ ZOO_STEPS, ZOO_EVAL_PAIRS, ZOO_EVAL_BATCH, ZOO_TRAIN_PAIRS = 4, 4, 2, 32
 # ZOO_GRAD_FLOOR of the model's largest gradient
 ZOO_GRAD_HW = (128, 256)
 ZOO_GRAD_FLOOR = 1e-3
-ZOO_OVERFIT_ARGS = ["--model", "GwcNet", "--steps", "200", "--batch", "2", "--size", "192", "384",
+# the bounds of phases 31-34, relative to each tensor's largest magnitude: the smallest rel at
+# which every tensor's bound (with ZOO_GRAD_FLOOR) is at least twice its worst f32 error over 3
+# runs on the card, rounded up to the next 0.01 (`zoo_train_paths` says why)
+ZOO_NEW_BOUNDS = {"CFNet": 0.01, "CasGwcNet": 0.25, "CasPSMNet": 0.07, "FADNet": 0.02}
+ZOO_OVERFIT_ARGS = ["--model", "GwcNet", "--steps", "100", "--batch", "2", "--size", "192", "384",
                     "--max_disp", "64", "--lr", "1e-4", "--device", "cuda"]
+# Training of CFNet, CasGwcNet, CasPSMNet and FADNet (phases 31-35): each main SceneFlow config
+# as written through `tools/train.py` for 4 steps, the trainer's evaluation at the config's own
+# EVALUATOR.BATCH_SIZE_PER_GPU and pad (CFNet 2 pairs at b1, 576x960; the cascades and FADNet
+# 10 pairs at b10, 544x960 and 576x960). The set holds ZOO_TRAIN_PAIRS + ZOO_CFG_EVAL_PAIRS
+# pairs; phases 26-30 evaluate the first ZOO_EVAL_PAIRS of the evaluation pairs
+ZOO_CFG_EVAL_PAIRS = 10
+# K1 at the configs' evaluation batch of 10: FADNet's [10,128,72,120] D 40 (phase 34) and
+# CoEx's [10,48,136,240] D 48 (its config's batch; phase 28 evaluates at 2), each checked and
+# timed in the dtype its trainer's evaluation runs (FADNet f32, CoEx bf16)
+K1_EVAL10_SHAPES = {(10,) + FADNET_K1_SHAPE[1:]: "f32", (10,) + COEX_K1_SHAPE[1:]: "bf16"}
+FADNET_OVERFIT_ARGS = ["--model", "FADNet", "--steps", "100", "--batch", "1", "--size", "192",
+                       "384", "--max_disp", "64", "--lr", "4e-3", "--device", "cuda"]
 
 
 # dense peaks: (memory bytes/s, bf16 tensor flop/s, f32 flop/s outside the tensor
@@ -343,6 +394,18 @@ CARDS = {"H100 PCIe": (2.0e12, 756e12, 51e12), "H100 NVL": (3.9e12, 835e12, 60e1
 
 class SmokeFailure(Exception):
     pass
+
+
+PHASE_SECONDS = {}  # phase → seconds, printed as each phase ends and once more at the end
+
+
+def run_phase(label, fn, *args):
+    """fn(*args), its seconds printed on a line of their own and kept in PHASE_SECONDS."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    PHASE_SECONDS[label] = time.perf_counter() - t0
+    print(f"[phase-time] {label}: {PHASE_SECONDS[label]:.1f} s", flush=True)
+    return out
 
 
 def check(cond, msg):
@@ -419,6 +482,20 @@ def volume_bf16_check(got, ref, what):
     share = (got != ref).float().mean().item()
     check(share <= VOLUME_FLIP_SHARE,
           f"{what}: {share:.3g} of the elements not bit-equal (cap {VOLUME_FLIP_SHARE})")
+    return err, share
+
+
+def volume_f32_check(got, ref, cg, what):
+    """f32 K1/K3 against the plain version on the same inputs: max-abs <= 1e-5
+    and, where a group has fewer than F32_EXACT_CG channels, every element bit
+    for bit (the kernel sums in the order of PyTorch's CUDA mean there,
+    `csrc/cost_volume.cu`). Returns (max-abs, share of elements not
+    bit-equal)."""
+    err = (got - ref).abs().max().item()
+    check(err <= 1e-5, f"{what}: max-abs {err} > 1e-5")
+    share = (got != ref).float().mean().item()
+    check(cg >= F32_EXACT_CG or share == 0,
+          f"{what}: {share:.3g} of the elements not bit-equal (cg {cg} < {F32_EXACT_CG})")
     return err, share
 
 
@@ -629,8 +706,7 @@ def phase_k1(dev):
         left, right = (torch.randn(b, c, h, w, generator=g).to(dev) for _ in range(2))
         ref = ops.correlation_volume(left, right, d)
         got = ops.corr_volume(left, right, d)
-        err32 = (got - ref).abs().max().item()
-        check(err32 <= 1e-5, f"K1 f32 {tag} {(b, c, h, w, d)}: max-abs {err32} > 1e-5")
+        err32, bits32 = volume_f32_check(got, ref, c, f"K1 f32 {tag} {(b, c, h, w, d)}")
         lb, rb = left.bfloat16(), right.bfloat16()
         ref16 = ops.correlation_volume(lb, rb, d)
         got16 = ops.corr_volume(lb, rb, d)
@@ -643,8 +719,9 @@ def phase_k1(dev):
             control = f"; unrounded control rejected ({c_share:.3g} not bit-equal)"
         if w < d:
             check(not got16[:, w:].any(), "K1: planes with d >= W are not zero")
-        print(f"[K1] {tag} {(b, c, h, w, d)}: f32 max-abs {err32:.3g} (tol 1e-5), "
-              f"bf16 max-abs {err16:.3g} (tol 8e-3·|ref| + 1e-3), {share:.3g} not bit-equal "
+        print(f"[K1] {tag} {(b, c, h, w, d)}: f32 max-abs {err32:.3g} (tol 1e-5), {bits32:.3g} "
+              f"not bit-equal (cap 0 where C < {F32_EXACT_CG}), bf16 max-abs {err16:.3g} (tol "
+              f"8e-3·|ref| + 1e-3), {share:.3g} not bit-equal "
               f"(cap {VOLUME_FLIP_SHARE}){control}")
         errs[tag] = (err32, err16, share)
     return errs
@@ -1202,8 +1279,7 @@ def phase_k3(dev):
         ref = ops.build_gwc_volume(left, right, d, gr)
         got = ops.gwc_volume(left, right, d, gr)
         check(got.shape == (b, gr, d, h, w), f"K3 {tag}: shape {tuple(got.shape)}")
-        err32 = (got - ref).abs().max().item()
-        check(err32 <= 1e-5, f"K3 f32 {tag} {(b, c, h, w, d, gr)}: max-abs {err32} > 1e-5")
+        err32, bits32 = volume_f32_check(got, ref, c // gr, f"K3 f32 {tag} {(b, c, h, w, d, gr)}")
         lb, rb = left.bfloat16(), right.bfloat16()
         ref16 = ops.build_gwc_volume(lb, rb, d, gr)
         got16 = ops.gwc_volume(lb, rb, d, gr)
@@ -1218,7 +1294,8 @@ def phase_k3(dev):
             check(not got[:, :, w:].any() and not got16[:, :, w:].any(),
                   "K3: planes with d >= W are not zero")
         print(f"[K3] {tag} {(b, c, h, w, d, gr)}: f32 max-abs {err32:.3g} (tol 1e-5), "
-              f"bf16 max-abs {err16:.3g} (tol 8e-3·|ref| + 1e-3), {share:.3g} not bit-equal "
+              f"{bits32:.3g} not bit-equal (cap 0 where C/G < {F32_EXACT_CG}), bf16 max-abs "
+              f"{err16:.3g} (tol 8e-3·|ref| + 1e-3), {share:.3g} not bit-equal "
               f"(cap {VOLUME_FLIP_SHARE}){control}")
         errs[tag] = (err32, err16, share)
     # G = 1 is K1's function: the two kernels against each other
@@ -2325,53 +2402,97 @@ def sttr_train_summary(sttr_trained, sttr_overfit, t0):
             f"{sttr_overfit['loss_ratio']:.4f}; total {time.perf_counter() - t0:.1f} s")
 
 
-def batch2(shapes):
-    """Launch shapes per b1 frame → per evaluation batch of ZOO_EVAL_BATCH (each
-    key leads with its batch)."""
-    return {(s[0] * ZOO_EVAL_BATCH,) + tuple(s[1:]): n for s, n in shapes.items()}
+def batch2(shapes, batch=ZOO_EVAL_BATCH):
+    """Launch shapes per b1 frame → per evaluation batch of `batch` (each key
+    leads with its batch)."""
+    return {(s[0] * batch,) + tuple(s[1:]): n for s, n in shapes.items()}
+
+
+class ZooPath(NamedTuple):
+    """A training path of phases 26-34 (`zoo_train_paths`)."""
+    name: str
+    cfg: Path
+    want: Dict  # the trainer evaluation's launches per batch, by kernel and shape
+    topk_input: Optional[str]  # the module feeding a top-k head (CoEx's bf16 rule) or None
+    targets: List  # the volume builders the detach control patches (`detached_volume`)
+    remat: bool  # whether to measure MODEL.REMAT's peak
+    rel: float  # the gradient check's bound relative to each tensor's largest magnitude
+    eval_batch: Optional[int] = ZOO_EVAL_BATCH  # None: the config's own
+    eval_pairs: int = ZOO_EVAL_PAIRS
+    tf32_off_timing: bool = True  # also time 4 steps with TF32 off (an f32 config)
+    rule: str = "max_abs"  # the evaluation against eager (`zoo_eval_agreement`)
 
 
 def zoo_train_paths():
-    """Phases 26-30: (name, config, the trainer evaluation's launches per batch of
-    2 by kernel and shape, the module whose output feeds a top-k head (CoEx's
-    bf16 rule, `phase_model`) or None for max-abs 5e-3 px, the volume builders
-    that the detach control patches (module, name; module None: a method of the
-    model), whether to measure MODEL.REMAT's peak, the gradient check's bound
-    relative to each tensor's largest magnitude).
+    """Phases 26-34, as `ZooPath`s.
 
-    The bounds are twice the first runs' worst f32 error among the tensors
-    above 1e-4 of the model's largest gradient (GwcNet 0.054, PSMNet 0.031,
-    CoEx 0.14, MSNet3D 0.475, MSNet2D 0.164; two runs within 0.5 % of each
-    other), plus ZOO_GRAD_FLOOR of the model's largest. They are f32's own
-    error, not the port's: a conv weight that a training BatchNorm follows is
-    scale-invariant, so its exact gradient is a difference of near-equal sums,
-    largest in the mobile trunks' stems (MSNet3D's first 1x1 conv, its
-    largest gradient, lies 0.475 of itself from f64 on the card and 0.16 on
-    the CPU), and the f32 3D convs run cuDNN's FFT algorithms. JAX's own f32
-    step lies as far from its f64 step (PERF.md). The check's teeth are the
-    tensor set and the magnitudes: the detach control leaves 5-333 tensors
-    without a gradient."""
+    The bounds of phases 26-30 are twice the first runs' worst f32 error among
+    the tensors above 1e-4 of the model's largest gradient (GwcNet 0.054,
+    PSMNet 0.031, CoEx 0.14, MSNet3D 0.475, MSNet2D 0.164; two runs within
+    0.5 % of each other), plus ZOO_GRAD_FLOOR of the model's largest. They are
+    f32's own error, not the port's: a conv weight that a training BatchNorm
+    follows is scale-invariant, so its exact gradient is a difference of
+    near-equal sums, largest in the mobile trunks' stems (MSNet3D's first 1x1
+    conv, its largest gradient, lies 0.475 of itself from f64 on the card and
+    0.16 on the CPU), and the f32 3D convs run cuDNN's FFT algorithms. JAX's
+    own f32 step lies as far from its f64 step (PERF.md). The check's teeth
+    are the tensor set and the magnitudes: the detach control leaves 5-333
+    tensors without a gradient.
+
+    Phases 31-34 evaluate at their configs' own batch (CFNet 1, the others 10)
+    and skip the TF32-off timing, MODEL.REMAT and the resume check (the
+    script's time). Their bounds (`ZOO_NEW_BOUNDS`) hold twice the worst f32
+    error of 3 runs on the card at every tensor, the floor included: the rel
+    that takes needs CFNet 0 (the floor alone covers twice every error; the
+    worst error is 0.019 of its tensor's largest magnitude, in a tensor below
+    the floor), CasGwcNet 0.246 (its FPN head `out2`, 0.19 of itself: the
+    scale-invariant convs before training BatchNorms, as in phases 26-30),
+    CasPSMNet 0.066 and FADNet 0.0128 (an error of 0.094 of the tensor in
+    `disp_predictor.conv5.conv1`, whose gradient is 0.006 of the model's
+    largest). The rule holds each tensor to the floor where that covers it,
+    not to its own largest magnitude as phases 26-30's do: FADNet's detach
+    control removes no tensor's gradient (the backbone also feeds
+    `conv_redir` and the decoders) and changes the backbone's by 0.056 of
+    each tensor's largest magnitude beyond the floor, which a bound of twice
+    the worst error relative to the tensor (0.19) would let pass. The other
+    controls leave 20 (CFNet), 173 and 186 (the cascades) tensors without a
+    gradient."""
+    cf_eval, fad_eval = 1, 10
     return [
-        ("GwcNet", GWC_CFG, {"gwc_volume": batch2({K3_SHAPE: 1})}, None,
-         [("gwcnet.gwcnet", "build_gwc_volume"), ("gwcnet.gwcnet", "build_concat_volume")],
-         True, 0.11),
-        ("PSMNet", PSM_CFG, {}, None, [("psmnet.psmnet", "build_concat_volume")], True, 0.063),
-        ("CoEx", COEX_CFG, {"corr_volume": batch2({COEX_K1_SHAPE: 1}),
-                            "fused_mbconv": batch2(COEX_K2_SHAPES)},
-         "CostProcessor.cost_agg", [("coex.coex", "correlation_volume")], False, 0.28),
-        ("MSNet3D", MSNET3D_CFG, {"gwc_volume": batch2({K3_SHAPE: 1}),
-                                  "fused_mbconv": batch2(MSNET3D_K2_SHAPES)},
-         None, [("msnet.msnet", "build_gwc_volume")], False, 0.95),
-        ("MSNet2D", MSNET2D_CFG, {"fused_mbconv": batch2(MSNET2D_K2_SHAPES)}, None,
-         [(None, "interlaced_volume")], False, 0.33),
+        ZooPath("GwcNet", GWC_CFG, {"gwc_volume": batch2({K3_SHAPE: 1})}, None,
+                [("gwcnet.gwcnet", "build_gwc_volume"), ("gwcnet.gwcnet", "build_concat_volume")],
+                True, 0.11),
+        ZooPath("PSMNet", PSM_CFG, {}, None, [("psmnet.psmnet", "build_concat_volume")], True,
+                0.063),
+        ZooPath("CoEx", COEX_CFG, {"corr_volume": batch2({COEX_K1_SHAPE: 1}),
+                                   "fused_mbconv": batch2(COEX_K2_SHAPES)},
+                "CostProcessor.cost_agg", [("coex.coex", "correlation_volume")], False, 0.28),
+        ZooPath("MSNet3D", MSNET3D_CFG, {"gwc_volume": batch2({K3_SHAPE: 1}),
+                                         "fused_mbconv": batch2(MSNET3D_K2_SHAPES)},
+                None, [("msnet.msnet", "build_gwc_volume")], False, 0.95),
+        ZooPath("MSNet2D", MSNET2D_CFG, {"fused_mbconv": batch2(MSNET2D_K2_SHAPES)}, None,
+                [(None, "interlaced_volume")], False, 0.33),
+        ZooPath("CFNet", CFNET_CFG, {"gwc_volume": batch2(CFNET_K3_SHAPES, cf_eval)}, None,
+                [("cfnet.cfnet", "build_gwc_volume"), ("cfnet.cfnet", "warped_volumes")], False,
+                ZOO_NEW_BOUNDS["CFNet"], None, 2 * cf_eval, False, "share"),
+        ZooPath("CasGwcNet", CASGWC_CFG, {}, None,
+                [("casnet.casnet", "build_warped_gwc_volume"),
+                 ("casnet.casnet", "build_warped_concat_volume")], False,
+                ZOO_NEW_BOUNDS["CasGwcNet"], None, ZOO_CFG_EVAL_PAIRS, False, "finite"),
+        ZooPath("CasPSMNet", CASPSM_CFG, {}, None,
+                [("casnet.casnet", "build_warped_concat_volume")], False,
+                ZOO_NEW_BOUNDS["CasPSMNet"], None, ZOO_CFG_EVAL_PAIRS, False, "finite"),
+        ZooPath("FADNet", FADNET_CFG, {"corr_volume": batch2({FADNET_K1_SHAPE: 1}, fad_eval)},
+                None, [("fadnet.fadnet", "correlation_volume")], False, ZOO_NEW_BOUNDS["FADNet"],
+                None, ZOO_CFG_EVAL_PAIRS, False),
     ]
 
 
 def check_volume_kernel(dev, kernel, shape, g, tag):
     """K1 (`kernel` "corr_volume", shape (B, C, H, W, D)) or K3 ("gwc_volume",
     (B, C, H, W, D, G)) against its plain version on random inputs: f32 (TF32
-    off) max-abs <= 1e-5, bf16 `volume_bf16_check`. Returns (f32 max-abs, bf16
-    max-abs, bf16 share not bit-equal)."""
+    off) `volume_f32_check`, bf16 `volume_bf16_check`. Returns (f32 max-abs,
+    bf16 max-abs, bf16 share not bit-equal)."""
     import torch
 
     from openstereo_tpu_torch import ops
@@ -2380,13 +2501,15 @@ def check_volume_kernel(dev, kernel, shape, g, tag):
     fn, plain = ((ops.corr_volume, ops.correlation_volume) if kernel == "corr_volume"
                  else (ops.gwc_volume, ops.build_gwc_volume))
     left, right = (torch.randn(b, c, h, w, generator=g).to(dev) for _ in range(2))
-    err32 = (fn(left, right, *rest) - plain(left, right, *rest)).abs().max().item()
-    check(err32 <= 1e-5, f"{tag} f32 {shape}: max-abs {err32} > 1e-5")
+    cg = c // (rest[1] if kernel == "gwc_volume" else 1)
+    err32, bits32 = volume_f32_check(fn(left, right, *rest), plain(left, right, *rest), cg,
+                                     f"{tag} f32 {shape}")
     lb, rb = left.bfloat16(), right.bfloat16()
     err16, share = volume_bf16_check(fn(lb, rb, *rest), plain(lb, rb, *rest),
                                      f"{tag} bf16 {shape}")
-    print(f"{tag} {shape}: f32 max-abs {err32:.3g} (tol 1e-5), bf16 max-abs {err16:.3g} (tol "
-          f"8e-3·|ref| + 1e-3), {share:.3g} not bit-equal (cap {VOLUME_FLIP_SHARE})")
+    print(f"{tag} {shape}: f32 max-abs {err32:.3g} (tol 1e-5), {bits32:.3g} not bit-equal (cap 0 "
+          f"where C/G < {F32_EXACT_CG}), bf16 max-abs {err16:.3g} (tol 8e-3·|ref| + 1e-3), "
+          f"{share:.3g} not bit-equal (cap {VOLUME_FLIP_SHARE})")
     return err32, err16, share
 
 
@@ -2433,40 +2556,77 @@ def check_k2_shapes(dev, shapes, g, tag):
     return worst32, worst16, splits_by_shape
 
 
-def phase_zoo_kernels(dev):
-    """K1, K2 and K3 at the shapes that the trainer's evaluations of phases 26-30
-    launch them at (batch 2 at 544x960; K2 at 4 in the siamese trunks): the
-    checks of phases 3, 4 and 9."""
+def phase_zoo_kernels(dev, card, paths):
+    """K1, K2 and K3 at the shapes that the trainer's evaluations of `paths`
+    (phases 26-34) launch them at (phases 26-30: batch 2 at 544x960, K2 at 4
+    in the siamese trunks; CFNet's K3 at batch 1; FADNet's K1 at 10), and K1
+    at CoEx's config's evaluation batch of 10: the checks of phases 3, 4 and
+    9; then K1 at both batch-10 shapes timed (`k1_eval_timing`)."""
     import torch
 
     g = torch.Generator().manual_seed(10)
-    want = {}
-    for _, _, per_batch, *_ in zoo_train_paths():
-        for kernel, shapes in per_batch.items():
-            want.setdefault(kernel, set()).update(shapes)
+    want = {"corr_volume": set(K1_EVAL10_SHAPES), "gwc_volume": set(), "fused_mbconv": set()}
+    for path in paths:
+        for kernel, shapes in path.want.items():
+            want[kernel].update(shapes)
     k1 = {s: check_volume_kernel(dev, "corr_volume", s, g, "[zoo-eval] K1")
           for s in sorted(want["corr_volume"])}
     k3 = {s: check_volume_kernel(dev, "gwc_volume", s, g, "[zoo-eval] K3")
           for s in sorted(want["gwc_volume"])}
     k2 = check_k2_shapes(dev, sorted(want["fused_mbconv"], reverse=True), g, "[zoo-eval]")
     print(f"[zoo-eval] K2 launcher split counts: {k2[2]}")
-    return {"corr_volume": k1, "gwc_volume": k3, "fused_mbconv": k2}
+    k1_eval10 = [dict(k1_eval_timing(dev, s, dt, card, g), **dict(zip(VOLUME_ERR_KEYS, k1[s])))
+                 for s, dt in K1_EVAL10_SHAPES.items()]
+    return {"corr_volume": k1, "gwc_volume": k3, "fused_mbconv": k2, "k1_eval10": k1_eval10}
 
 
-def zoo_eval(trainer, use_kernels, dtype=None, hook_module=None):
+def k1_eval_timing(dev, shape, dtype, card, g):
+    """K1 at `shape` (B, C, H, W, D) in `dtype` ("f32", TF32 off, or "bf16"):
+    CUDA events over back-to-back launches, device ms per launch
+    (torch.profiler), the plain version, and the bound at that type's rates
+    (`bound`, `bound_f32`)."""
+    import torch
+
+    from openstereo_tpu_torch import ops
+
+    b, c, h, w, d = shape
+    left, right = (torch.randn(b, c, h, w, generator=g).to(
+        dev, {"f32": torch.float32, "bf16": torch.bfloat16}[dtype]) for _ in range(2))
+    kernel = lambda: ops.corr_volume(left, right, d)  # noqa: E731
+    nbytes, flops = k1_work(shape, left.element_size())
+    t_b, by = (bound if dtype == "bf16" else bound_f32)(nbytes, flops, card)
+    rec = dict(shape=list(shape), dtype=dtype, ms=time_ms(kernel), device_ms=device_ms(kernel),
+               plain_ms=time_ms(lambda: ops.correlation_volume(left, right, d), iters=10),
+               bound_ms=t_b, bound_by=by, bytes=nbytes, flops=flops)
+    print(f"[time] [zoo-eval] K1 {shape} {dtype}: kernel {rec['ms']:.4f} ms (CUDA events over "
+          f"back-to-back launches), device {rec['device_ms']:.4f} ms per launch (torch.profiler), "
+          f"plain {rec['plain_ms']:.4f} ms, bound {t_b:.4f} ms ({by}; {nbytes} B, {flops} flop; "
+          f"{t_b / rec['device_ms']:.1%} of the device time)")
+    del left, right
+    torch.cuda.empty_cache()
+    return rec
+
+
+def zoo_eval(trainer, use_kernels, dtype=None, hook_module=None, deterministic=True):
     """The trainer's evaluation set through its model in eval under
-    `torch.inference_mode()`, with kernels or eager, in the model's compute
-    dtype or `dtype`: the disparities [N,H,W] (f32) and, with `hook_module`,
-    that module's outputs."""
+    `torch.inference_mode()` and, with `deterministic`, cuDNN's deterministic
+    algorithms, with kernels or eager, in the model's compute dtype or
+    `dtype`: the disparities [N,H,W] (f32) and, with `hook_module`, that
+    module's outputs."""
     import torch
 
     from openstereo_tpu_torch.data.loader import batch_to_device
     from openstereo_tpu_torch.models import set_kernels
 
     model = trainer.model
-    saved = model.dtype
+    saved, saved_det = model.dtype, torch.backends.cudnn.deterministic
     model.dtype = dtype or saved
     set_kernels(model.eval(), use_kernels)
+    # cuDNN's deterministic algorithms: under its default choice two eager runs of the
+    # same weights differ by rounding, which CFNet's floored sample grids turn into
+    # whole-disparity moves at some pixels (its phase prints the control); that would be
+    # laid to the kernels' account
+    torch.backends.cudnn.deterministic = deterministic
     outs, disps = [], []
     hook = (model.get_submodule(hook_module).register_forward_hook(
         lambda mod, inp, out: outs.append(out.float())) if hook_module else None)
@@ -2478,16 +2638,22 @@ def zoo_eval(trainer, use_kernels, dtype=None, hook_module=None):
         if hook is not None:
             hook.remove()
         model.dtype = saved
+        torch.backends.cudnn.deterministic = saved_det
         set_kernels(model, True)
     return torch.cat(disps), outs
 
 
-def zoo_eval_agreement(name, trainer, topk_input):
+def zoo_eval_agreement(name, trainer, topk_input, rule="max_abs"):
     """The trainer's evaluation with kernels against the same weights run eager,
-    under the model's rule of phases 10-11 and 16-18: f32 max-abs <= 5e-3 px;
-    for CoEx (bf16, a top-k head) the f32 share within 5e-3 px >= 0.999, and in
-    bf16 the cost feeding the top-k head within 2^-7 of its largest magnitude
-    on average and the kernel path's disparity no more than 5 % further from the
+    both under cuDNN's deterministic algorithms (`zoo_eval`; for CFNet two
+    eager runs under its default choice are printed beside, as the control),
+    under the model's rule of phases 10-11 and 16-22: finite disparities, and
+    by `rule`: "max_abs", f32 max-abs <= 5e-3 px; "share" (CFNet, whose sample
+    grids are floors), f32 >= 99.9 % of the pixels within 5e-3 px; "finite"
+    (the cascades: no kernel on the path) nothing more; for CoEx (`topk_input`:
+    bf16, a top-k head) the f32 share within 5e-3 px >= 0.999, and in bf16 the
+    cost feeding the top-k head within 2^-7 of its largest magnitude on
+    average and the kernel path's disparity no more than 5 % further from the
     f32 eager one than the eager path's."""
     import torch
 
@@ -2496,7 +2662,27 @@ def zoo_eval_agreement(name, trainer, topk_input):
     eager, costs_e = zoo_eval(trainer, False, hook_module=topk_input)
     check(bool(torch.isfinite(wired).all()) and bool(torch.isfinite(eager).all()),
           f"{name} evaluation disparities not finite")
-    rec = {"max_abs": float((wired - eager).abs().max())}
+    rec = {"max_abs": float((wired - eager).abs().max()),
+           "share_within_5e-3": float(((wired - eager).abs() <= 5e-3).float().mean())}
+    if rule == "finite":
+        print(f"{tag} evaluation ({trainer.model.dtype}, no kernel on the path): finite; kernels "
+              f"vs eager max-abs {rec['max_abs']:.3g} px")
+        return rec
+    if rule == "share":
+        # the control that shows why both paths run cuDNN's deterministic algorithms: two
+        # eager runs under its default choice (no check)
+        again = [zoo_eval(trainer, False, deterministic=False)[0] for _ in range(2)]
+        rec["eager_default_cudnn_share"] = float(((again[0] - again[1]).abs() <= 5e-3)
+                                                 .float().mean())
+        print(f"{tag} evaluation kernels vs eager ({trainer.model.dtype}): "
+              f"{rec['share_within_5e-3']:.6f} of the pixels within 5e-3 px (tol >= 0.999), "
+              f"max-abs {rec['max_abs']:.3g} px, bit-equal {bool(torch.equal(wired, eager))}; "
+              f"eager vs eager under cuDNN's default algorithms: "
+              f"{rec['eager_default_cudnn_share']:.6f} within 5e-3 px, bit-equal "
+              f"{bool(torch.equal(*again))}")
+        check(rec["share_within_5e-3"] >= 0.999, f"{name} evaluation kernels vs eager: only "
+                                                 f"{rec['share_within_5e-3']} within 5e-3 px")
+        return rec
     if topk_input is None:
         print(f"{tag} evaluation kernels vs eager ({trainer.model.dtype}): max-abs "
               f"{rec['max_abs']:.3g} px (tol 5e-3)")
@@ -2537,7 +2723,8 @@ def detached_volume(model, targets):
             f"openstereo_tpu_torch.models.{mod}")
         patches.append((owner, attr, getattr(owner, attr), mod is None))
     for owner, attr, fn, _ in patches:
-        setattr(owner, attr, lambda l, r, *a, _fn=fn: _fn(l.detach(), r.detach(), *a))
+        setattr(owner, attr,
+                lambda l, r, *a, _fn=fn, **kw: _fn(l.detach(), r.detach(), *a, **kw))
     try:
         yield
     finally:
@@ -2583,10 +2770,12 @@ def grads_within(g32, g64, rel, floor):
     `rel`·max|g| of the tensor + `floor`·max|g| of the model: (ok, the worst
     (name, error / that bound), the worst (name, error / max|g| of the
     tensor) over tensors above 1e-4 of the largest gradient, the worst (name,
-    error / max|g| of the model), the missing and the extra names)."""
+    error / max|g| of the model), the missing and the extra names, and the
+    worst (name, rel needed beyond the floor: (error - floor·max|g| of the
+    model) / max|g| of the tensor, 0 where the floor covers the error))."""
     missing, extra = sorted(set(g64) - set(g32)), sorted(set(g32) - set(g64))
     gmax = max(g.abs().max().item() for g in g64.values())
-    ratio, of_tensor, of_model = {}, {}, {}
+    ratio, of_tensor, of_model, needed = {}, {}, {}, {"": 0.0}
     for k in set(g64) & set(g32):
         scale = g64[k].abs().max().item()
         err = (g32[k] - g64[k]).abs().max().item()
@@ -2594,13 +2783,15 @@ def grads_within(g32, g64, rel, floor):
         of_model[k] = err / gmax
         if scale > 1e-4 * gmax:
             of_tensor[k] = err / scale
+        if err > floor * gmax:
+            needed[k] = (err - floor * gmax) / scale if scale > 0 else float("inf")
 
     def worst(d):
         k = max(d, key=d.get)
         return k, d[k]
 
     ok = not missing and not extra and worst(ratio)[1] <= 1.0
-    return ok, worst(ratio), worst(of_tensor), worst(of_model), missing, extra
+    return ok, worst(ratio), worst(of_tensor), worst(of_model), missing, extra, worst(needed)
 
 
 def zoo_grad_check(dev, name, cfg_file, targets, bound):
@@ -2633,10 +2824,10 @@ def zoo_grad_check(dev, name, cfg_file, targets, bound):
     t64 = time.perf_counter() - t0
     del m64
     loss32, g32 = step_grads(model, batch)
-    ok, worst, of_tensor, of_model, missing, extra = grads_within(g32, g64, *bound)
+    ok, worst, of_tensor, of_model, missing, extra, needed = grads_within(g32, g64, *bound)
     with detached_volume(model, targets):
         _, g_ctl = step_grads(model, batch)
-    ctl_ok, ctl_worst, _, _, ctl_missing, _ = grads_within(g_ctl, g64, *bound)
+    ctl_ok, ctl_worst, _, _, ctl_missing, _, ctl_needed = grads_within(g_ctl, g64, *bound)
     gmax = max(g.abs().max().item() for g in g64.values())
     top = sorted(((g32[k] - g64[k]).abs().max().item() / gmax, k, g64[k].abs().max().item() / gmax)
                  for k in g64 if k in g32)[-6:]
@@ -2647,9 +2838,11 @@ def zoo_grad_check(dev, name, cfg_file, targets, bound):
           f"{of_tensor[1]:.3g}·max|g| of the tensor at {of_tensor[0]} (tensors above 1e-4 of the "
           f"largest), worst {of_model[1]:.3g}·max|g| of the model at {of_model[0]}; against the "
           f"bound ({bound[0]}·max|g| of the tensor + {bound[1]}·max|g| of the model) worst "
-          f"{worst[1]:.3g} at {worst[0]} (tol 1); missing {missing}, extra {extra}; detach control: "
+          f"{worst[1]:.3g} at {worst[0]} (tol 1); rel needed beyond the floor {needed[1]:.3g} at "
+          f"{needed[0] or '-'}; missing {missing}, extra {extra}; detach control: "
           f"{len(ctl_missing)} tensors without a gradient, worst {ctl_worst[1]:.3g} of the bound "
-          f"at {ctl_worst[0]}, rejected {not ctl_ok}; largest errors (of max|g| of the model, "
+          f"at {ctl_worst[0]}, rel needed {ctl_needed[1]:.3g} at {ctl_needed[0] or '-'}, rejected "
+          f"{not ctl_ok}; largest errors (of max|g| of the model, "
           f"tensor, its max|g| of the model's): "
           + "; ".join(f"{e:.3g} {k} {sc:.3g}" for e, k, sc in reversed(top)))
     check(ok, f"{name} f32 gradients vs f64: worst {worst} of the bound, missing {missing}, "
@@ -2657,31 +2850,34 @@ def zoo_grad_check(dev, name, cfg_file, targets, bound):
     check(not ctl_ok, f"{name}: the detach control passes the gradient check")
     return {"loss_f32": loss32, "loss_f64": loss64, "worst_of_tensor": of_tensor,
             "worst_of_model": of_model, "worst_of_bound": worst, "bound": list(bound),
+            "rel_needed": needed, "control_rel_needed": ctl_needed,
             "tensors": len(g64), "control_missing": len(ctl_missing),
             "control_worst_of_bound": ctl_worst, "f64_step_s": t64}
 
 
-def phase_zoo_train(dev):
-    """Phases 26-30 on a SceneFlow-layout set written for them under
-    `chiprun_out/` (deleted afterwards with the runs' checkpoints), then the
-    GwcNet overfit check."""
+def phase_zoo_train(dev, paths):
+    """Phases 26-34 (`paths`, of `zoo_train_paths`) on a SceneFlow-layout set
+    written for them under `chiprun_out/` (deleted afterwards with the runs'
+    checkpoints)."""
     import shutil
 
     shutil.rmtree(ZOO_TRAIN_DIR, ignore_errors=True)
     data_root = ZOO_TRAIN_DIR / "SceneFlow"
     t0 = time.perf_counter()
-    lines = write_stereo_set(data_root, ZOO_TRAIN_PAIRS + ZOO_EVAL_PAIRS, 0, PAIR_HW, 192)
-    print(f"[zoo-train] wrote {ZOO_TRAIN_PAIRS} + {ZOO_EVAL_PAIRS} random-dot pairs at "
+    lines = write_stereo_set(data_root, ZOO_TRAIN_PAIRS + ZOO_CFG_EVAL_PAIRS, 0, PAIR_HW, 192)
+    print(f"[zoo-train] wrote {ZOO_TRAIN_PAIRS} + {ZOO_CFG_EVAL_PAIRS} random-dot pairs at "
           f"{PAIR_HW[0]}x{PAIR_HW[1]} (PNG, PFM) in {time.perf_counter() - t0:.1f} s")
     try:
         out = {}
-        for name, cfg_file, want, topk_input, targets, remat, rel in zoo_train_paths():
+        for path in paths:
             t1 = time.perf_counter()
-            out[name] = run_zoo_training(dev, name, cfg_file, want, topk_input, remat, data_root,
-                                         lines[:ZOO_TRAIN_PAIRS], lines[ZOO_TRAIN_PAIRS:])
-            out[name]["grad_check"] = zoo_grad_check(dev, name, cfg_file, targets,
-                                                     (rel, ZOO_GRAD_FLOOR))
-            out[name]["seconds"] = time.perf_counter() - t1
+            out[path.name] = run_zoo_training(
+                dev, path, data_root, lines[:ZOO_TRAIN_PAIRS],
+                lines[ZOO_TRAIN_PAIRS:ZOO_TRAIN_PAIRS + path.eval_pairs])
+            out[path.name]["grad_check"] = zoo_grad_check(dev, path.name, path.cfg, path.targets,
+                                                          (path.rel, ZOO_GRAD_FLOOR))
+            out[path.name]["seconds"] = time.perf_counter() - t1
+            print(f"[phase-time] {path.name} training: {out[path.name]['seconds']:.1f} s")
         return out
     finally:
         shutil.rmtree(data_root, ignore_errors=True)
@@ -2689,17 +2885,18 @@ def phase_zoo_train(dev):
             shutil.rmtree(ckpt, ignore_errors=True)
 
 
-def run_zoo_training(dev, name, cfg_file, want, topk_input, remat, data_root, train_lines,
-                     eval_lines):
-    """One of phases 26-30: `tools/train.py` on the model's SceneFlow config as it
-    is (crop 256x512, its batch, dtype, optimizer, schedule with warm-up and
-    clip) but for the data paths, NUM_EPOCHS 1 over 4 batches of the synthetic
-    set and an evaluation batch of 2 (4 pairs at 544x960). The evaluation must
-    launch `want` per batch and nothing else may launch in the run; then the
-    evaluation against eager (`zoo_eval_agreement`), for GwcNet a resumed
-    Trainer, and 4 timed train steps (forward, backward, optimizer; no
-    launch), 2 profiled ones, with `remat` 4 with MODEL.REMAT and, for an
-    f32 config, 4 with TF32 off."""
+def run_zoo_training(dev, path, data_root, train_lines, eval_lines):
+    """One of phases 26-34 (`path`, a `ZooPath`): `tools/train.py` on the
+    model's SceneFlow config as it is (its crop, batch, dtype, optimizer,
+    schedule with warm-up and clip) but for the data paths, NUM_EPOCHS 1 over
+    4 batches of the synthetic set and the evaluation of `eval_lines` at the
+    path's batch (phases 26-30: 2; 31-34: the config's) and the config's pad.
+    The evaluation must launch `path.want` per batch and nothing else may
+    launch in the run; then the evaluation against eager
+    (`zoo_eval_agreement`), for GwcNet a resumed Trainer, and 4 timed train
+    steps (forward, backward, optimizer; no launch), 2 profiled ones, with
+    `path.remat` 4 with MODEL.REMAT and with `path.tf32_off_timing` (an f32
+    config) 2 with TF32 off."""
     import torch
     import yaml
 
@@ -2709,6 +2906,7 @@ def run_zoo_training(dev, name, cfg_file, want, topk_input, remat, data_root, tr
     from openstereo_tpu_torch.runtime import Trainer
     from openstereo_tpu_torch.tools import train
 
+    name, cfg_file, want = path.name, path.cfg, path.want
     tag = f"[{name.lower()}-train]"
     run_dir = ZOO_TRAIN_DIR / name.lower()
     run_dir.mkdir(parents=True, exist_ok=True)
@@ -2723,7 +2921,8 @@ def run_zoo_training(dev, name, cfg_file, want, topk_input, remat, data_root, tr
                           "TESTING": str(split["test"])}
     info["DATA_PATH"] = str(data_root)
     opt["NUM_EPOCHS"] = 1  # the cut: 4 steps
-    cfg["EVALUATOR"]["BATCH_SIZE_PER_GPU"] = ZOO_EVAL_BATCH
+    eval_batch = path.eval_batch or cfg["EVALUATOR"]["BATCH_SIZE_PER_GPU"]
+    cfg["EVALUATOR"]["BATCH_SIZE_PER_GPU"] = eval_batch
     cfg_path = run_dir / cfg_file.name
     cfg_path.write_text(yaml.safe_dump(cfg))
     paths = run_dir / "data_paths.yaml"
@@ -2732,8 +2931,9 @@ def run_zoo_training(dev, name, cfg_file, want, topk_input, remat, data_root, tr
     dtype = "bf16" if opt["AMP"] else "f32"
     print(f"{tag} config: crop {crop}, batch {bsz}, {dtype}, {opt['OPTIMIZER']['NAME']} "
           f"{opt['OPTIMIZER']['LR']}, {opt['SCHEDULER']['NAME']} warm-up "
-          f"{opt['SCHEDULER']['WARMUP']}, clip {opt.get('CLIP_GRAD')}, NUM_EPOCHS 1 "
-          f"({ZOO_STEPS} steps); evaluation batch {ZOO_EVAL_BATCH} at "
+          f"{opt['SCHEDULER'].get('WARMUP')}, clip {opt.get('CLIP_GRAD')}, NUM_EPOCHS 1 "
+          f"({ZOO_STEPS} steps); evaluation of {len(eval_lines)} pairs at batch {eval_batch}, "
+          f"{cfg['DATA_CONFIG']['DATA_TRANSFORM']['EVALUATING'][0]['NAME']} "
           f"{cfg['DATA_CONFIG']['DATA_TRANSFORM']['EVALUATING'][0]['SIZE']}")
 
     # the run, its timed and profiled steps in PyTorch's default numerics (f32 convolutions
@@ -2752,12 +2952,12 @@ def run_zoo_training(dev, name, cfg_file, want, topk_input, remat, data_root, tr
     shapes = {k: dict(v) for k, v in kernels.launch_shapes.items()}
     peak_run = torch.cuda.max_memory_allocated(dev)
     steps, n_eval = trainer.state.step, trainer.eval_loader.steps_per_epoch
-    check(steps == ZOO_STEPS and n_eval == ZOO_EVAL_PAIRS // ZOO_EVAL_BATCH,
+    check(steps == ZOO_STEPS and n_eval == len(eval_lines) // eval_batch,
           f"{name}: {steps} train steps, {n_eval} evaluation batches")
     losses, step_ms = trainer.epoch_losses, trainer.epoch_step_ms
     check(len(losses) == steps and all(np.isfinite(v) for v in losses), f"{name} losses {losses}")
     print(f"{tag} launches over the run ({steps} train steps, {n_eval} evaluation batches of "
-          f"{ZOO_EVAL_BATCH}): {launches}")
+          f"{eval_batch}): {launches}")
     for kernel, n in launches.items():
         per_batch = want.get(kernel, {})
         check(n == sum(per_batch.values()) * n_eval,
@@ -2774,7 +2974,7 @@ def run_zoo_training(dev, name, cfg_file, want, topk_input, remat, data_root, tr
           f"{bsz / ms * 1e3:.2f} samples/s; peak memory over the run (max_memory_allocated) "
           f"{peak_run / 2**30:.3f} GiB; wall {wall:.1f} s; evaluation "
           f"{ {k: round(v, 4) for k, v in wired.items() if k not in ('phase', 'epoch')} }")
-    agree = zoo_eval_agreement(name, trainer, topk_input)
+    agree = zoo_eval_agreement(name, trainer, path.topk_input, path.rule)
 
     if name == "GwcNet":
         check(trainer.saved_epochs() == [0], f"checkpoints {trainer.saved_epochs()}")
@@ -2811,14 +3011,14 @@ def run_zoo_training(dev, name, cfg_file, want, topk_input, remat, data_root, tr
     rec = {"ms_per_step": ms, "samples_per_s": bsz / ms * 1e3, "step_ms": step_ms,
            "losses": losses, "peak_bytes_run": peak_run, "peak_bytes_train": peak,
            "split_ms": split_ms, "profile": prof, "eval_kernels": wired, "agreement": agree,
-           "launches": launches, "eval_batches": n_eval, "batch": bsz,
-           "dtype": dtype + (" (cuDNN TF32)" if tf32 else "")}
+           "launches": launches, "eval_batches": n_eval, "eval_batch": eval_batch, "batch": bsz,
+           "crop": crop, "dtype": dtype + (" (cuDNN TF32)" if tf32 else "")}
     line = (f"{tag} 4 timed steps: {split_ms['step']:.2f} ms/step (median of steps 2-4), forward "
             f"+ loss {split_ms['forward']:.2f} ms, backward {split_ms['backward']:.2f} ms, "
             f"optimizer {split_ms['optimizer']:.2f} ms; no kernel launched; peak memory "
             f"{peak / 2**30:.3f} GiB")
     t1 = time.perf_counter()
-    if remat:
+    if path.remat:
         trainer.model.remat = True
         with cudnn_tf32(tf32):
             times_r, peak_r = timed_train_steps(trainer, batch)
@@ -2827,13 +3027,15 @@ def run_zoo_training(dev, name, cfg_file, want, topk_input, remat, data_root, tr
                         "peak_bytes": peak_r}
         line += (f"; with MODEL.REMAT {rec['remat']['ms_per_step']:.2f} ms/step, peak "
                  f"{peak_r / 2**30:.3f} GiB")
-    if tf32:
-        times_t, peak_t = timed_train_steps(trainer, batch)
-        rec["no_tf32"] = {"ms_per_step": float(np.median([t[0] for t in times_t[1:]])),
-                          "peak_bytes": peak_t}
+    if tf32 and path.tf32_off_timing:
+        # 2 steps, the second timed (cut from 4 for the script's time)
+        times_t, peak_t = timed_train_steps(trainer, batch, steps=2)
+        rec["no_tf32"] = {"ms_per_step": times_t[1][0], "peak_bytes": peak_t}
         line += (f"; with TF32 off (f32 convolutions throughout) "
-                 f"{rec['no_tf32']['ms_per_step']:.2f} ms/step, peak {peak_t / 2**30:.3f} GiB")
-    took["remat and TF32-off steps"] = time.perf_counter() - t1
+                 f"{rec['no_tf32']['ms_per_step']:.2f} ms/step (the second of 2 steps), peak "
+                 f"{peak_t / 2**30:.3f} GiB")
+    if path.remat or (tf32 and path.tf32_off_timing):
+        took["remat and TF32-off steps"] = time.perf_counter() - t1
     rec["took_s"] = took
     print(line + "; seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in took.items()))
     del trainer, batch
@@ -2841,25 +3043,27 @@ def run_zoo_training(dev, name, cfg_file, want, topk_input, remat, data_root, tr
     return rec
 
 
-def phase_zoo_overfit():
-    """The GwcNet learning check: the port's `tools/overfit_check.py --model
-    GwcNet`, 200 steps on one batch of 2 random-dot pairs at 192x384, max_disp
-    64, f32, RMSprop 1e-4 constant, clip by norm 35; the mean loss of the last
-    20 steps must fall below 0.8 of the first 5 steps'."""
+def phase_zoo_overfit(name="GwcNet", args=ZOO_OVERFIT_ARGS):
+    """A learning check through the port's `tools/overfit_check.py`: GwcNet's
+    (phase 30: 100 steps on one batch of 2 random-dot pairs at 192x384,
+    max_disp 64, f32, RMSprop 1e-4 constant, clip by norm 35) or FADNet's
+    (phase 35, FADNET_OVERFIT_ARGS: 100 steps of b1 at 192x384, f32, Lamb
+    4e-3 constant, no clip); the mean loss of the last 20 steps must fall
+    below 0.8 of the first 5 steps'."""
     from openstereo_tpu_torch.tools import overfit_check
 
     t0 = time.perf_counter()
-    res = overfit_check.main(ZOO_OVERFIT_ARGS)
+    res = overfit_check.main(args)
     took = time.perf_counter() - t0
     traj = [(s, round(l, 4), round(e, 3)) for s, l, e in res["trajectory"]]
-    print(f"[zoo-overfit] GwcNet trajectory (step, loss, train EPE px): {traj}; loss ratio (last "
+    print(f"[zoo-overfit] {name} trajectory (step, loss, train EPE px): {traj}; loss ratio (last "
           f"20 / first 5) {res['loss_ratio']:.4f} (tol < 0.8); {took:.1f} s")
-    check(res["loss_ratio"] < 0.8, f"GwcNet overfit check: loss ratio {res['loss_ratio']} >= 0.8")
+    check(res["loss_ratio"] < 0.8, f"{name} overfit check: loss ratio {res['loss_ratio']} >= 0.8")
     res["seconds"] = took
     return res
 
 
-def zoo_train_summary(zoo, overfit):
+def zoo_train_summary(zoo, overfits):
     lines = []
     for name, r in zoo.items():
         p, gc = r["profile"], r["grad_check"]
@@ -2868,28 +3072,31 @@ def zoo_train_summary(zoo, overfit):
         if "no_tf32" in r:
             remat += f", TF32 off {r['no_tf32']['ms_per_step']:.2f} ms/step"
         lines.append(
-            f"[zoo-train] {name} 256x512 b{r['batch']} {r['dtype']}: {r['ms_per_step']:.2f} "
-            f"ms/step, {r['samples_per_s']:.2f} samples/s, peak {r['peak_bytes_train'] / 2**30:.3f} "
-            f"GiB{remat}; forward {r['split_ms']['forward']:.2f} / backward "
-            f"{r['split_ms']['backward']:.2f} / optimizer {r['split_ms']['optimizer']:.2f} ms; "
-            f"device busy {p['device_busy_ms_per_step']:.2f} ms/step, idle {p['idle_share']:.4f} "
-            f"(traced {p['idle_share_traced']:.4f}); "
-            f"evaluation EPE {r['eval_kernels']['epe']:.4f} px; gradient f32 vs f64 worst "
+            f"[zoo-train] {name} {r['crop'][0]}x{r['crop'][1]} b{r['batch']} {r['dtype']}: "
+            f"{r['ms_per_step']:.2f} ms/step, {r['samples_per_s']:.2f} samples/s, peak "
+            f"{r['peak_bytes_train'] / 2**30:.3f} GiB{remat}; forward "
+            f"{r['split_ms']['forward']:.2f} / backward {r['split_ms']['backward']:.2f} / optimizer "
+            f"{r['split_ms']['optimizer']:.2f} ms; device busy "
+            f"{p['device_busy_ms_per_step']:.2f} ms/step, idle {p['idle_share']:.4f} "
+            f"(traced {p['idle_share_traced']:.4f}); evaluation (b{r['eval_batch']}) EPE "
+            f"{r['eval_kernels']['epe']:.4f} px; gradient f32 vs f64 worst "
             f"{gc['worst_of_tensor'][1]:.3g}·max|g| of the tensor, "
             f"{gc['worst_of_model'][1]:.3g} of the model's; {r['seconds']:.1f} s")
-    lines.append(f"[zoo-train] GwcNet overfit loss ratio {overfit['loss_ratio']:.4f}")
+    for name, res in overfits.items():
+        lines.append(f"[zoo-train] {name} overfit loss ratio {res['loss_ratio']:.4f}")
     return "\n".join(lines)
 
 
 def trainer_eval_launches(trained, zoo, kernel):
     """A kernel's launches in the trainer's evaluations, by model: LightStereo-S
-    (phase 14, batch 12) and phases 26-30 (batch 2), with the batches run."""
+    (phase 14, batch 12) and phases 26-34 (batch 2 in 26-30, the configs' in
+    31-34), with the batches run."""
     out = {"LightStereo": dict(launches=trained["launches"][kernel],
                                batches=trained["eval_batches"], batch=EVAL_BATCH)}
     for name, r in zoo.items():
         if r["launches"][kernel]:
             out[name] = dict(launches=r["launches"][kernel], batches=r["eval_batches"],
-                             batch=ZOO_EVAL_BATCH)
+                             batch=r["eval_batch"])
     return out
 
 
@@ -2936,42 +3143,50 @@ def main():
     dev = torch.device("cuda")
     t0 = time.perf_counter()
     try:
-        smi, kind = phase_card()
+        smi, kind = run_phase("1 card", phase_card)
         card = peaks(kind)
-        ptxas = phase_build()
-        k1_err = phase_k1(dev)
-        k2_err = phase_k2(dev)
-        k4_err = phase_k4(dev)
-        model, launches, per_frame, max32, mean16 = phase_slice(dev)
-        sttr, k4_launches, k4_per_frame, sttr_agree = phase_sttr(dev)
-        bench, k1, k2 = phase_timing(dev, model, card, per_frame)
-        sttr_bench, sttr_prof, k4 = phase_timing_sttr(dev, sttr, card, k4_per_frame)
+        ptxas = run_phase("2 build", phase_build)
+        k1_err = run_phase("3 K1", phase_k1, dev)
+        k2_err = run_phase("4 K2", phase_k2, dev)
+        k4_err = run_phase("5 K4", phase_k4, dev)
+        model, launches, per_frame, max32, mean16 = run_phase("6 LightStereo", phase_slice, dev)
+        sttr, k4_launches, k4_per_frame, sttr_agree = run_phase("7 STTR", phase_sttr, dev)
+        bench, k1, k2 = run_phase("8 timing", phase_timing, dev, model, card, per_frame)
+        sttr_bench, sttr_prof, k4 = run_phase("8 STTR timing", phase_timing_sttr, dev, sttr, card,
+                                              k4_per_frame)
         del model, sttr
         torch.cuda.empty_cache()
-        k3_err = phase_k3(dev)
-        gwcnet, k3_launches, k3_per_frame, gwc_agree = phase_gwcnet(dev)
-        psmnet = phase_psmnet(dev)
-        gwc_bench, psm_bench, gwc_prof, k3 = phase_timing_3d(dev, gwcnet, psmnet, card,
-                                                             k3_per_frame)
+        k3_err = run_phase("9 K3", phase_k3, dev)
+        gwcnet, k3_launches, k3_per_frame, gwc_agree = run_phase("10 GwcNet", phase_gwcnet, dev)
+        psmnet = run_phase("11 PSMNet", phase_psmnet, dev)
+        gwc_bench, psm_bench, gwc_prof, k3 = run_phase("12 timing", phase_timing_3d, dev, gwcnet,
+                                                       psmnet, card, k3_per_frame)
         del gwcnet, psmnet
         torch.cuda.empty_cache()
         models = {}
         for name, cfg_file, want, rule, protocol in model_paths():
+            t1 = time.perf_counter()
             model, rec = phase_model(dev, name, cfg_file, want, rule)
             rec["bench"], rec["profile"], rec["kernels"] = phase_timing_model(
                 dev, name, model, card, rec["per_frame"], protocol, tuple(rec["size"]))
             models[name] = rec
             del model
             torch.cuda.empty_cache()
-        k1_eval, k2_eval, k2_eval_splits = phase_eval_batch(dev)
-        trained = phase_train(dev)
-        overfit = phase_overfit()
-        k4_train = phase_k4_train(dev, card)
-        sttr_trained = phase_sttr_train(dev, card, k4_train)
-        sttr_overfit = phase_sttr_overfit()
-        zoo_kernels = phase_zoo_kernels(dev)
-        zoo = phase_zoo_train(dev)
-        zoo_overfit = phase_zoo_overfit()
+            PHASE_SECONDS[f"16-22 {name}"] = time.perf_counter() - t1
+            print(f"[phase-time] 16-22 {name}: {PHASE_SECONDS[f'16-22 {name}']:.1f} s")
+        k1_eval, k2_eval, k2_eval_splits = run_phase("13 evaluation batch", phase_eval_batch, dev)
+        trained = run_phase("14 LightStereo training", phase_train, dev)
+        overfit = run_phase("15 LightStereo overfit", phase_overfit)
+        k4_train = run_phase("23 K4 under autograd", phase_k4_train, dev, card)
+        sttr_trained = run_phase("24 STTR training", phase_sttr_train, dev, card, k4_train)
+        sttr_overfit = run_phase("25 STTR overfit", phase_sttr_overfit)
+        paths = zoo_train_paths()
+        zoo_kernels = run_phase("26-34 kernels at the trainer evaluations' shapes",
+                                phase_zoo_kernels, dev, card, paths)
+        zoo = run_phase("26-34 training", phase_zoo_train, dev, paths)
+        overfits = {"GwcNet": run_phase("30 GwcNet overfit", phase_zoo_overfit),
+                    "FADNet": run_phase("35 FADNet overfit (Lamb)", phase_zoo_overfit, "FADNet",
+                                        FADNET_OVERFIT_ARGS)}
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -2988,6 +3203,7 @@ def main():
              eval_batch=dict(shape=list(K1_EVAL_SHAPE), max_abs_err=k1_eval[1],
                              max_abs_err_f32=k1_eval[0], not_bit_equal_share=k1_eval[2]),
              eval_batch2=volume_checks(zoo_kernels["corr_volume"]),
+             eval_batch10=zoo_kernels["k1_eval10"],
              flip_share=VOLUME_FLIP_SHARE, library_ms=None, ptxas=ptxas["cost_volume"], **k1),
         dict(name="fused_mbconv", route="cuda", source="openstereo_tpu_torch/csrc/fused_mbconv.cu",
              replaces="openstereo_tpu/ops/pallas/fused_mbconv.py:53",
@@ -3070,7 +3286,8 @@ def main():
           f"eager; overfit final train EPE {overfit['final_epe']:.3f} px; total "
           f"{time.perf_counter() - t0:.1f} s")
     print(sttr_train_summary(sttr_trained, sttr_overfit, t0))
-    print(zoo_train_summary(zoo, zoo_overfit))
+    print(zoo_train_summary(zoo, overfits))
+    print("[phase-time] " + json.dumps({k: round(v, 1) for k, v in PHASE_SECONDS.items()}))
     print(f"[total] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": entries}))
     print(smi)

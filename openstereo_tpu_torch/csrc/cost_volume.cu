@@ -9,11 +9,22 @@
 //     out[b,g,d,h,w] = (1/cg) * sum_{c<cg} round_T(L[b,g*cg+c,h,w] * R[b,g*cg+c,h,w-d]),
 //     cg = C/G,  0 where w-d < 0 (so planes with d >= W are 0)
 //
-// round_T rounds each product to bf16 for bf16 inputs, as JAX's `l * r` does on
-// bf16 features (`openstereo_tpu/ops/cost_volume.py:correlation_volume` and
-// `groupwise_correlation`, which the JAX models run), and nothing for f32. The
-// sum is f32, divided by cg, and rounded once to T. A [B,1,D,H,W] volume is the
-// same memory as [B,D,H,W], so G = 1 is K1.
+// round_T rounds each product to T, as JAX's `l * r` does
+// (`openstereo_tpu/ops/cost_volume.py:correlation_volume` and
+// `groupwise_correlation`, which the JAX models run) and as the plain version
+// (`ops/cost_volume.py:groupwise_correlation`) does. The sum is f32, divided by
+// cg, and rounded once to T. A [B,1,D,H,W] volume is the same memory as
+// [B,D,H,W], so G = 1 is K1.
+//
+// In f32 the kernel sums in the order of PyTorch's CUDA mean over the group's
+// channels (four partial sums, partial k taking channels c = k mod 4 in
+// channel order, then ((s0 + s1) + s2) + s3) and multiplies by the f32
+// reciprocal of cg, as that mean does, so that it equals the plain version bit
+// for bit where cg < 64 (from 64 on, that mean splits a sum over warps, and
+// the two differ by about an ulp). A model whose sample grids are floors of
+// its prediction (CFNet) then takes the same grids on both paths: one ulp in
+// the volume moves a floor at some pixels. In bf16 the order is the tiling's;
+// the rounding to bf16 hides it at all but a few values.
 //
 // What bounds it on this card: bytes. At GwcNet's shape (C 320, G 40, D 48,
 // 136x240, bf16) it reads 41.8 MB and writes 125.3 MB for 0.90 GFLOP, about 5
@@ -41,12 +52,15 @@
 // - Where the tiles would leave the card's resident threads idle (K1), each
 //   item's channels are split over `cs` adjacent lanes whose partial sums meet
 //   in a butterfly of shuffles; tiles shrink until there are enough of them.
+//   f32 always takes cs = 4: lane k holds the partial sum of channels k mod 4,
+//   and the four meet in lane order (PyTorch's order, above).
 // - Each disparity's 8 results leave as one 16-byte store from registers,
 //   lanes along w, so a warp's stores are runs along W.
 // - The grid is what the card holds at once (SM count x resident blocks per
 //   SM), each block taking tiles a grid apart.
 
 #include <cstdint>
+#include <type_traits>
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -60,6 +74,7 @@ constexpr int DPT = 8;      // disparities per thread
 constexpr int STAGES = 3;   // shared-memory ring
 constexpr int CC_MAX = 32;  // channels per staged chunk
 constexpr int NT_MAX = 192;  // threads per block at most; 2 blocks per SM leave 170 registers
+constexpr int F32_LANES = 4;  // PyTorch's CUDA reduction keeps 4 partial sums a thread
 
 struct Plan {
   int n_dc, n_wc, twc, n_wt, cs, cc, n_chunks, nt, tiles, pad;
@@ -114,6 +129,8 @@ __device__ __forceinline__ void step(float (&acc)[DPT][CW], const Vec8<__nv_bflo
   }
 }
 
+// f32: each product rounded, then added (no FMA), as the plain version's
+// product tensor and mean round
 __device__ __forceinline__ void step(float (&acc)[DPT][CW], const Vec8<float>& l,
                                      const Vec8<float>& ra, const Vec8<float>& rb) {
 #pragma unroll
@@ -121,7 +138,7 @@ __device__ __forceinline__ void step(float (&acc)[DPT][CW], const Vec8<float>& l
 #pragma unroll
     for (int j = 0; j < CW; ++j) {
       const int i = j - k + 8;
-      acc[k][j] = fmaf(l.f[j], i < 8 ? ra.f[i] : rb.f[i - 8], acc[k][j]);
+      acc[k][j] = __fadd_rn(acc[k][j], __fmul_rn(l.f[j], i < 8 ? ra.f[i] : rb.f[i - 8]));
     }
   }
 }
@@ -214,6 +231,7 @@ template <typename T>
 __global__ void __launch_bounds__(NT_MAX, 2)
 cv_kernel(const T* __restrict__ left, const T* __restrict__ right, T* __restrict__ out, int C,
           int H, int W, int D, int G, Plan p, bool vec) {
+  constexpr bool f32 = std::is_same<T, float>::value;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* smem = reinterpret_cast<T*>(smem_raw);
   const int cg = C / G, tw = p.twc * CW, rw = p.pad + tw;
@@ -256,8 +274,11 @@ cv_kernel(const T* __restrict__ left, const T* __restrict__ right, T* __restrict
     const T* sl = smem + (q % STAGES) * p.stage + w0l;
     const T* sr = smem + (q % STAGES) * p.stage + static_cast<size_t>(p.cc) * tw + p.pad +
                   w0l - d0 - CW;
-    const int c_end = min(n, (part + 1) * run);
-    for (int c = part * run; c < c_end; ++c) {
+    // bf16: a run of channels; f32: the chunk's channels c = part mod 4 (cs is 4)
+    const int c_first = f32 ? (part - chunk * p.cc % F32_LANES + F32_LANES) % F32_LANES
+                            : part * run;
+    const int c_end = f32 ? n : min(n, (part + 1) * run), c_step = f32 ? F32_LANES : 1;
+    for (int c = c_first; c < c_end; c += c_step) {
       Vec8<T> l, ra, rb;
       l.load(sl + c * tw);
       ra.load(sr + c * rw);
@@ -267,11 +288,26 @@ cv_kernel(const T* __restrict__ left, const T* __restrict__ right, T* __restrict
     if (chunk + 1 < p.n_chunks) continue;
 
     // the tile's last chunk: the lanes of an item meet, and the item is stored
-    for (int m = 1; m < p.cs; m <<= 1)
+    if constexpr (f32) {
+      // in lane order, ((s0 + s1) + s2) + s3, the same value in each lane
+      const int base = (threadIdx.x & 31) & ~(F32_LANES - 1);
 #pragma unroll
       for (int k = 0; k < DPT; ++k)
 #pragma unroll
-        for (int j = 0; j < CW; ++j) acc[k][j] += __shfl_xor_sync(0xffffffffu, acc[k][j], m);
+        for (int j = 0; j < CW; ++j) {
+          float v = __shfl_sync(0xffffffffu, acc[k][j], base);
+#pragma unroll
+          for (int m = 1; m < F32_LANES; ++m)
+            v = __fadd_rn(v, __shfl_sync(0xffffffffu, acc[k][j], base + m));
+          acc[k][j] = v;
+        }
+    } else {
+      for (int m = 1; m < p.cs; m <<= 1)
+#pragma unroll
+        for (int k = 0; k < DPT; ++k)
+#pragma unroll
+          for (int j = 0; j < CW; ++j) acc[k][j] += __shfl_xor_sync(0xffffffffu, acc[k][j], m);
+    }
     const Tile t = tile_at(blockIdx.x + (q / p.n_chunks) * gridDim.x, p, C, H, W, D, G);
     const int w0 = t.w_s + w0l;
     if (has_item && w0 < W) {
@@ -284,10 +320,11 @@ cv_kernel(const T* __restrict__ left, const T* __restrict__ right, T* __restrict
         float v[CW];
 #pragma unroll
         for (int j = 0; j < CW; ++j) {
-          // the rounded f32 quotient acc / cg, as JAX's mean divides: acc * (1/cg),
-          // exact for a power of two, else refined by one FMA step (Markstein)
-          const float q0 = acc[k][j] * inv;
-          v[j] = pow2 ? q0 : fmaf(fmaf(-q0, cgf, acc[k][j]), inv, q0);
+          // f32: acc * (1/cg), as PyTorch's mean scales; bf16: the rounded f32
+          // quotient acc / cg, as JAX's mean divides: acc * (1/cg), exact for a
+          // power of two, else refined by one FMA step (Markstein)
+          const float q0 = __fmul_rn(acc[k][j], inv);
+          v[j] = f32 || pow2 ? q0 : fmaf(fmaf(-q0, cgf, acc[k][j]), inv, q0);
         }
         store8(orow + k * plane, v, w0, W, vec);
       }
@@ -301,9 +338,10 @@ cv_kernel(const T* __restrict__ left, const T* __restrict__ right, T* __restrict
 }
 
 // The tiling for this card: `cs` lanes per item while the items alone would
-// fill under a quarter of the card's resident threads; tiles of at most NT_MAX
-// threads, halved while there are fewer than 4 per SM; channel chunks of at
-// most CC_MAX that fit the shared memory a block may use.
+// fill under a quarter of the card's resident threads (f32: always 4, so D is
+// at most 8 * NT_MAX / 4 = 384 there); tiles of at most NT_MAX threads, halved
+// while there are fewer than 4 per SM; channel chunks of at most CC_MAX that
+// fit the shared memory a block may use.
 template <typename T>
 cudaError_t make_plan(Plan* p, int B, int C, int H, int W, int D, int G, int* grid) {
   int dev = 0, sms = 0, smem_max = 0, threads_sm = 0;
@@ -323,8 +361,12 @@ cudaError_t make_plan(Plan* p, int B, int C, int H, int W, int D, int G, int* gr
   const long long items = rows * p->n_dc * p->n_wc;
   const long long resident = static_cast<long long>(sms) * threads_sm;
   p->cs = 1;
-  while (p->cs < 8 && 2 * p->cs <= cg && p->n_dc * 2 * p->cs <= NT_MAX &&
-         items * 2 * p->cs <= resident / 4)
+  if (std::is_same<T, float>::value) {
+    p->cs = F32_LANES;
+    if (p->n_dc * p->cs > NT_MAX) return cudaErrorInvalidValue;
+  }
+  while (!std::is_same<T, float>::value && p->cs < 8 && 2 * p->cs <= cg &&
+         p->n_dc * 2 * p->cs <= NT_MAX && items * 2 * p->cs <= resident / 4)
     p->cs *= 2;
   p->twc = p->n_wc;
   while (p->twc > 1 && p->n_dc * p->twc * p->cs > NT_MAX) p->twc = (p->twc + 1) / 2;

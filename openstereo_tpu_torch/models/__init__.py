@@ -1,8 +1,9 @@
 """Model registry and `build_model` (counterpart of `openstereo_tpu/models/__init__.py:32`).
 
 LightStereo, STTR, GwcNet, PSMNet, CoEx, MSNet3D, MSNet2D, CFNet, FADNet,
-CasGwcNet and CasPSMNet are ported; the other names of the JAX zoo raise
-NotImplementedError naming the ROADMAP item that brings them.
+CasGwcNet and CasPSMNet are ported, for inference and for training; the
+other names of the JAX zoo raise NotImplementedError naming the ROADMAP
+item that brings them.
 """
 
 from __future__ import annotations

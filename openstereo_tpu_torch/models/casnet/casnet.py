@@ -1,4 +1,4 @@
-"""CasPSMNet and CasGwcNet eval, NCHW / NCDHW (counterpart of
+"""CasPSMNet and CasGwcNet, NCHW / NCDHW (counterpart of
 `openstereo_tpu/models/casnet/casnet.py`).
 
 Stage 1 samples the whole disparity range coarsely at 1/4; stage 2
@@ -8,8 +8,8 @@ features to every per-pixel disparity sample (`ops.sample_along_w`):
 concat volumes for CasPSMNet, group-wise + concat volumes for CasGwcNet.
 Each runs a redir-skip 3D hourglass stack, upsamples its cost
 trilinearly to (D, H, W) and soft-argmaxes it against the sample grid.
-Eval runs the last head of each stage; `classif0`-`classif2` are kept for
-training and for loading reference checkpoints.
+Eval runs the last head of each stage; training runs all four
+(`classif0`-`classif3`), with the features run once per view.
 
 No kernel of the port lies on these paths: the warped volumes are gathers
 in plain PyTorch, as they are jnp in the JAX package, and every 3D conv
@@ -32,6 +32,7 @@ import torch.nn.functional as F
 from ...ops import resize_bilinear, resize_linear, sample_along_w, upsample_nearest
 from ..gwcnet.gwcnet import GwcHourglass
 from ..layers import convbn, head_dtype, run_conv, run_seq, siamese
+from ..losses import weighted_heads_loss
 from ..psmnet.psmnet import res_layer
 
 
@@ -109,7 +110,8 @@ def _convbn_relu(in_ch: int, out_ch: int, kernel_size: int = 3, stride: int = 1,
 
 class CasCostAggregation(nn.Module):
     """dres0/dres1 + three redir hourglasses + four heads (`casnet.py:129-180`):
-    volume → the expected disparity over `samples` of the last head."""
+    volume → the expected disparity over `samples` of the last head; in
+    training, of each head (`casnet.py:157-164`)."""
 
     def __init__(self, in_ch: int, c: int = 32):
         super().__init__()
@@ -121,16 +123,31 @@ class CasCostAggregation(nn.Module):
             setattr(self, f"classif{j}", nn.Sequential(
                 *_convbn_relu(c, c, ndim=3), nn.Conv3d(c, 1, 3, padding=1, bias=False)))
 
+    def stages(self, volume) -> Tuple[torch.Tensor, ...]:
+        """(cost0, out1, out2, out3): the pre-hourglass cost and each
+        hourglass's output, the inputs of `classif0`..`classif3`."""
+        cost0 = run_seq(volume, self.dres0)
+        outs = [run_seq(cost0, self.dres1) + cost0]
+        for i in (2, 3, 4):
+            outs.append(getattr(self, f"dres{i}")(outs[-1]))
+        return tuple(outs)
+
     def cost(self, volume) -> torch.Tensor:
         """volume → the last head's cost [B,1,D,H,W] in the volume's dtype."""
-        cost0 = run_seq(volume, self.dres0)
-        cost0 = run_seq(cost0, self.dres1) + cost0
-        return run_seq(self.dres4(self.dres3(self.dres2(cost0))), self.classif3)
+        return run_seq(self.stages(volume)[3], self.classif3)
 
-    def forward(self, volume, fine_dhw: Tuple[int, int, int], samples) -> torch.Tensor:
-        cost = self.cost(volume).to(head_dtype(volume.dtype))
-        prob = torch.softmax(resize_linear(cost, fine_dhw)[:, 0], dim=1)
-        return regression_with_samples(prob, samples)
+    def forward(self, volume, fine_dhw: Tuple[int, int, int], samples):
+        """→ the last head's disparity [B,H,W]; in training the list of the
+        four heads' (classif0..classif3)."""
+        def regress(cost):
+            cost = cost.to(head_dtype(volume.dtype))
+            prob = torch.softmax(resize_linear(cost, fine_dhw)[:, 0], dim=1)
+            return regression_with_samples(prob, samples)
+
+        if not self.training:
+            return regress(self.cost(volume))
+        return [regress(run_seq(x, getattr(self, f"classif{j}")))
+                for j, x in enumerate(self.stages(volume))]
 
 
 def _cascade_trunk(m: nn.Module):
@@ -215,9 +232,13 @@ class GwcCascadeFeatures(nn.Module):
 
 
 class _CascadeBase(nn.Module):
-    """The cascade driver (`casnet.py:296-340`, eval): per stage, the sample
-    grid at full resolution, its copy at the stage's scale, the volume, and
-    the aggregation's prediction, which seeds the next stage."""
+    """The cascade's stage loop (`casnet.py:276-325`): per stage, the sample grid at
+    full resolution, its copy at the stage's scale, the volume, and the
+    aggregation's prediction, which seeds the next stage; in training also
+    {'stage1', 'stage2': each stage's four head predictions}."""
+
+    head_weights = (0.5, 0.5, 0.7, 1.0)
+    stage_weights = (0.5, 1.0, 2.0)
 
     def __init__(self, max_disp: int = 192, ndisps: Sequence[int] = (48, 24),
                  disp_interval_pixel: Sequence[float] = (4.0, 1.0), using_ns: bool = True,
@@ -225,7 +246,8 @@ class _CascadeBase(nn.Module):
                  cr_base_chs: Sequence[int] = (32, 32, 16), dtype: torch.dtype = torch.float32):
         super().__init__()
         if len(ndisps) > 2:
-            raise NotImplementedError("the port's cascades run 2 stages, as every config")
+            raise NotImplementedError("the port's cascades run 2 stages, as every config; three "
+                                      "stages are left out on purpose (ROADMAP queue 1)")
         self.max_disp, self.ndisps = max_disp, tuple(ndisps)
         self.disp_interval_pixel = tuple(disp_interval_pixel)
         self.using_ns, self.ns_size, self.grad_method = using_ns, ns_size, grad_method
@@ -236,22 +258,43 @@ class _CascadeBase(nn.Module):
         raise NotImplementedError
 
     def forward(self, data: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        if self.training:
-            raise NotImplementedError(f"{type(self).__name__} training is ROADMAP item 8")
-        left = data["left"].to(self.dtype)
+        left, right = data["left"].to(self.dtype), data["right"].to(self.dtype)
         b, h, w = left.shape[0], left.shape[2], left.shape[3]
-        feats_l, feats_r = siamese(self.feature_extraction, left, data["right"].to(self.dtype))
-        pred = None
+        if self.training:
+            # one call per view, each with its own BatchNorm batch statistics
+            # (`casnet.py:336-338`, `:359-361`)
+            feats_l, feats_r = self.feature_extraction(left), self.feature_extraction(right)
+        else:
+            feats_l, feats_r = siamese(self.feature_extraction, left, right)
+        out, pred = {}, None
         for si, ndisp in enumerate(self.ndisps):
             scale = (4, 2, 1)[si]
-            samples = disp_range_samples(pred, ndisp, self.disp_interval_pixel[si], (b, h, w),
+            # GRAD_METHOD detach: the next stage's range takes the prediction
+            # without its gradient (`casnet.py:297`); undetach lets it flow
+            # through the sample grids and the warps' positions
+            cur = pred.detach() if pred is not None and self.grad_method == "detach" else pred
+            samples = disp_range_samples(cur, ndisp, self.disp_interval_pixel[si], (b, h, w),
                                          float(self.max_disp), self.using_ns, self.ns_size,
                                          left.device)
             samples_s = resize_linear((samples / scale)[:, None],
                                       (ndisp // scale, h // scale, w // scale))[:, 0]
             volume = self.build_volume(si, feats_l[si], feats_r[si], samples_s)
-            pred = self.cost_agg[si](volume, (ndisp, h, w), samples)
-        return {"disp_pred": pred}
+            res = self.cost_agg[si](volume, (ndisp, h, w), samples)
+            if self.training:
+                out[f"stage{si + 1}"] = res
+            pred = res[-1] if self.training else res
+        out["disp_pred"] = pred
+        return out
+
+    def get_loss(self, pred: Dict, data: Dict):
+        """Σ over the stages of stage_weights · Σ head_weights · masked smooth-L1
+        of its four heads over 0 < gt < max_disp (`casnet.py:314-325`) →
+        (loss, {'loss_disp'})."""
+        loss = 0.0
+        for si in range(len(self.ndisps)):
+            loss = loss + self.stage_weights[si] * weighted_heads_loss(
+                pred[f"stage{si + 1}"], data["disp"], self.max_disp, self.head_weights)
+        return loss, {"loss_disp": loss}
 
 
 class CasPSMNet(_CascadeBase):

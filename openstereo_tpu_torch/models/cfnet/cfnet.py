@@ -1,4 +1,4 @@
-"""CFNet eval, NCHW / NCDHW (counterpart of `openstereo_tpu/models/cfnet/cfnet.py`).
+"""CFNet, NCHW / NCDHW (counterpart of `openstereo_tpu/models/cfnet/cfnet.py`).
 
 Pyramid features (1/2..1/32, PSP pooling, a top-down decoder, Mish) →
 fused group-wise + concat volumes at 1/8, 1/16 and 1/32, combined by
@@ -6,15 +6,15 @@ fused group-wise + concat volumes at 1/8, 1/16 and 1/32, combined by
 a per-pixel search range, re-sampled at 1/4 and then 1/2 with volumes
 warped to integer disparity samples (`warped_volumes`), each stage a
 confidence hourglass pair and a soft-argmax against its sample grid →
-align-corners upsample to [B,H,W]. Eval runs one head per stage;
-`classif0`/`classif1` and the `confidence_classif0/mid` heads are kept for
-training and for loading reference checkpoints.
+align-corners upsample to [B,H,W]. Eval runs one head per stage; training
+adds `classif0`/`classif1` at 1/8 and the `confidence_classif0/mid` heads of
+each warped stage, nine heads in all, with the features run once per view.
 
 With `use_kernels` on (the default) the three fused group-wise volumes go
 through the CUDA kernel K3 (`ops.gwc_volume`; on a CPU tensor, its plain
-version); off, through the plain builder. The warped volumes are gathers
-in plain PyTorch, as they are jnp in the JAX package. Every 3D conv runs
-on cuDNN.
+version) in eval; off, and in training, through the plain builder. The
+warped volumes are gathers in plain PyTorch, as they are jnp in the JAX
+package. Every 3D conv runs on cuDNN.
 
 Attribute names follow the reference OpenStereo CFNet state_dict, as
 `openstereo_tpu/utils/torch_convert.py:convert_cfnet` reads it. The
@@ -35,6 +35,7 @@ from ...ops import (build_concat_volume, build_gwc_volume, disparity_regression,
                     resize_bilinear, resize_linear_align_corners, sample_along_w)
 from ..gwcnet.gwcnet import GwcHourglass, convbn_act_3d
 from ..layers import convbn, deconv_bn, head_dtype, run_conv, run_seq, siamese
+from ..losses import weighted_heads_loss
 from ..psmnet.psmnet import ResBlock
 
 
@@ -168,6 +169,11 @@ class HourglassUp(nn.Module):
         return self.act(run_seq(conv8, self.conv9) + run_seq(x, self.redir1))
 
 
+def _up_full(pred: torch.Tensor, scale: float, size) -> torch.Tensor:
+    """[B,h,w] ×scale, resized with aligned corners to [B,H,W] (`cfnet.py:332`)."""
+    return resize_linear_align_corners((pred * scale)[:, None], size)[:, 0]
+
+
 def warped_volumes(gw_l, gw_r, cat_l, cat_r, samples, num_groups: int) -> torch.Tensor:
     """[B,G + 2·Cc + 1, D, H, W]: the group-wise correlation of the left
     features with the right ones warped to each sample, the left and warped
@@ -186,7 +192,8 @@ def warped_volumes(gw_l, gw_r, cat_l, cat_r, samples, num_groups: int) -> torch.
 
 
 class CFNet(nn.Module):
-    """forward(data) → {'disp_pred': [B,H,W]} (eval).
+    """forward(data) → {'disp_pred': [B,H,W]}, in training also
+    {'disp_preds': the nine heads' [B,H,W]} (`cfnet.py:351-362`).
 
     data['left'] / data['right']: [B,3,H,W] normalized images, H, W and
     max_disp multiples of 32 (the 1/8 volume halves twice). `dtype` is the
@@ -196,6 +203,7 @@ class CFNet(nn.Module):
     """
 
     use_kernels = True
+    head_weights = (0.25, 0.35, 0.5, 0.5, 0.7, 1.0, 1.0, 1.4, 2.0)  # `cfnet.py:221`
     REFERENCE_ONLY_KEYS = ("combine1.combine3.", "combine1.redir3.")
 
     def __init__(self, max_disp: int = 192, num_groups: int = 40, concat_channels: int = 12,
@@ -266,22 +274,43 @@ class CFNet(nn.Module):
         return torch.cat([torch.floor(lo1)[:, None], mid, torch.ceil(hi1)[:, None]], dim=1)
 
     def _stage(self, fl, fr, n: int, samples, groups: int, s: str):
-        """One warped stage: volume → (prob, expected disparity) over `samples`."""
+        """One warped stage over `samples`: (cost0, the first hourglass's
+        output, prob, expected disparity); the first two feed the training
+        heads."""
         vol = warped_volumes(fl[f"gw{n}"], fr[f"gw{n}"], fl[f"concat_feature{n}"],
                              fr[f"concat_feature{n}"], samples, groups).to(self.dtype)
         cost0 = self._dres(vol, f"confidence0_{s}", f"confidence1_{s}")
-        out2 = getattr(self, f"confidence3_{s}")(getattr(self, f"confidence2_{s}")(cost0))
+        out1 = getattr(self, f"confidence2_{s}")(cost0)
+        out2 = getattr(self, f"confidence3_{s}")(out1)
         prob = torch.softmax(self._cost(out2, f"confidence_classif1_{s}"), dim=1)
-        return prob, (prob * samples).sum(dim=1)
+        return cost0, out1, prob, (prob * samples).sum(dim=1)
+
+    def _regress_full(self, x, head: str, size) -> torch.Tensor:
+        """A 1/8 training head (`cfnet.py:341-344`): its cost, in the head
+        dtype, resized with aligned corners to (max_disp, H, W), softmax over
+        D, soft-argmax → [B,H,W]."""
+        cost = resize_linear_align_corners(self._cost(x, head)[:, None],
+                                           (self.max_disp, *size))[:, 0]
+        return disparity_regression(torch.softmax(cost, dim=1), self.max_disp)
+
+    def _sample_head(self, x, head: str, samples, scale: float, size) -> torch.Tensor:
+        """A warped stage's training head (`cfnet.py:346-349`): the expected
+        sample under its softmax, ×scale and resized to [B,H,W]."""
+        prob = torch.softmax(self._cost(x, head), dim=1)
+        return _up_full((prob * samples).sum(dim=1), scale, size)
 
     def forward(self, data: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        if self.training:
-            raise NotImplementedError("CFNet training is ROADMAP item 8")
-        left = data["left"].to(self.dtype)
+        left, right = data["left"].to(self.dtype), data["right"].to(self.dtype)
         h, w = left.shape[-2:]
-        fl, fr = siamese(self.feature_extraction, left, data["right"].to(self.dtype))
+        if self.training:
+            # one call per view, each with its own BatchNorm batch statistics (`cfnet.py:231-233`)
+            fl, fr = self.feature_extraction(left), self.feature_extraction(right)
+        else:
+            fl, fr = siamese(self.feature_extraction, left, right)
         md, g = self.max_disp, self.num_groups
-        gwc = gwc_volume if self.use_kernels else build_gwc_volume
+        # K3's wrapper has no backward: training builds the plain volumes under
+        # autograd, as the JAX model trains its jnp builder
+        gwc = gwc_volume if self.use_kernels and not self.training else build_gwc_volume
 
         def fused(n, d):
             return torch.cat([gwc(fl[f"gw{n}"].contiguous(), fr[f"gw{n}"].contiguous(), d, g),
@@ -291,19 +320,42 @@ class CFNet(nn.Module):
         cost0_4 = self._dres(fused(4, md // 8), "dres0", "dres1")
         cost0_5 = self._dres(fused(5, md // 16), "dres0_5", "dres1_5")
         cost0_6 = self._dres(fused(6, md // 32), "dres0_6", "dres1_6")
-        out2_4 = self.dres3(self.combine1(cost0_4, cost0_5, cost0_6))
-        prob_s4 = torch.softmax(self._cost(out2_4, "classif2"), dim=1)
+        out1_4 = self.combine1(cost0_4, cost0_5, cost0_6)
+        prob_s4 = torch.softmax(self._cost(self.dres3(out1_4), "classif2"), dim=1)
         pred_s4 = disparity_regression(prob_s4, md // 8)  # [B,H/8,W/8]
+        # the spread and the range take the prediction without its gradient
+        # (JAX's stop_gradient, `cfnet.py:276` and `:316`); the heads take it with
+        cur_s4 = pred_s4.detach()
         dv = torch.arange(md // 8, dtype=prob_s4.dtype, device=prob_s4.device)
-        var_s4 = torch.sqrt((prob_s4 * (dv.reshape(1, -1, 1, 1) - pred_s4[:, None]) ** 2).sum(1))
+        var_s4 = torch.sqrt((prob_s4 * (dv.reshape(1, -1, 1, 1) - cur_s4[:, None]) ** 2).sum(1))
 
-        samples_s3 = self._range_and_samples(pred_s4, var_s4, self.gamma_s3, self.beta_s3,
+        samples_s3 = self._range_and_samples(cur_s4, var_s4, self.gamma_s3, self.beta_s3,
                                              (h // 4, w // 4), 2, self.sample_count_s3)
-        prob_s3, pred_s3 = self._stage(fl, fr, 3, samples_s3, g, "s3")
-        var_s3 = torch.sqrt((prob_s3 * (pred_s3[:, None] - samples_s3) ** 2).sum(1))
+        cost0_s3, out1_s3, prob_s3, pred_s3 = self._stage(fl, fr, 3, samples_s3, g, "s3")
+        cur_s3 = pred_s3.detach()
+        var_s3 = torch.sqrt((prob_s3 * (cur_s3[:, None] - samples_s3) ** 2).sum(1))
 
-        samples_s2 = self._range_and_samples(pred_s3, var_s3, self.gamma_s2, self.beta_s2,
+        samples_s2 = self._range_and_samples(cur_s3, var_s3, self.gamma_s2, self.beta_s2,
                                              (h // 2, w // 2), 1, self.sample_count_s2)
-        _, pred_s2 = self._stage(fl, fr, 2, samples_s2, g // 2, "s2")
-        disp = resize_linear_align_corners((pred_s2 * 2.0)[:, None], (h, w))[:, 0]
-        return {"disp_pred": disp}
+        cost0_s2, out1_s2, _, pred_s2 = self._stage(fl, fr, 2, samples_s2, g // 2, "s2")
+        disp = _up_full(pred_s2, 2.0, (h, w))
+        if not self.training:
+            return {"disp_pred": disp}
+        size = (h, w)
+        preds = [self._regress_full(cost0_4, "classif0", size),
+                 self._regress_full(out1_4, "classif1", size),
+                 _up_full(pred_s4, 8.0, size),
+                 self._sample_head(cost0_s3, "confidence_classif0_s3", samples_s3, 4.0, size),
+                 self._sample_head(out1_s3, "confidence_classifmid_s3", samples_s3, 4.0, size),
+                 _up_full(pred_s3, 4.0, size),
+                 self._sample_head(cost0_s2, "confidence_classif0_s2", samples_s2, 2.0, size),
+                 self._sample_head(out1_s2, "confidence_classifmid_s2", samples_s2, 2.0, size),
+                 disp]
+        return {"disp_pred": disp, "disp_preds": preds}
+
+    def get_loss(self, pred: Dict, data: Dict):
+        """Σ head_weights · masked smooth-L1 of the nine heads over 0 < gt <
+        max_disp (`cfnet.py:364-370`) → (loss, {'loss_disp'})."""
+        loss = weighted_heads_loss(pred["disp_preds"], data["disp"], self.max_disp,
+                                   self.head_weights)
+        return loss, {"loss_disp": loss}

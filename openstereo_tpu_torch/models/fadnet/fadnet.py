@@ -1,4 +1,4 @@
-"""FADNet eval, NCHW (counterpart of `openstereo_tpu/models/fadnet/fadnet.py`).
+"""FADNet, NCHW (counterpart of `openstereo_tpu/models/fadnet/fadnet.py`).
 
 A shared 7×7-stem residual encoder (1/2..1/8) on both views → a
 correlation volume of D/8 + 16 shifts at 1/8 beside redirected left
@@ -6,12 +6,14 @@ features → DispNetC: an encoder to 1/64 and a 7-scale deconv pyramid of
 flows → the right view warped to the left with the full-resolution flow,
 and an 11-channel error input (left, right, warped, flow, ‖left −
 warped‖) → DispNetRes: the same pyramid predicting residuals added to the
-first one's flows. The disparity is the last full-resolution flow.
+first one's flows. The disparity is the last full-resolution flow; training
+returns both 7-scale pyramids (`flows_c`, `flows_res`) for the loss.
 
 With `use_kernels` on (the default) the correlation volume goes through
 the CUDA kernel K1 (`ops.corr_volume`; on a CPU tensor, its plain
-version); off, through the plain builder. The warp is a gather
-(`ops.bilinear_sampler`).
+version) in eval; off, and in training, through the plain builder. The warp
+is a gather (`ops.bilinear_sampler`), differentiable in its coordinates,
+so the gradient reaches the first flow through it, as in JAX.
 
 Images stay in the caller's dtype outside the convs, as in the JAX model,
 whose convs cast their inputs to the compute dtype: the warp samples the
@@ -36,6 +38,7 @@ import torch.nn.functional as F
 
 from ...ops import bilinear_sampler, corr_volume, correlation_volume
 from ..layers import _in_dtype, apply_norm, leaky_relu, run_conv, run_seq, siamese
+from ..losses import flow_pyramid_loss
 
 _leaky = leaky_relu(0.1)
 
@@ -202,8 +205,9 @@ class Backbone(nn.Module):
 
 
 class FADNet(nn.Module):
-    """forward(data) → {'disp_pred': [B,H,W]} (eval), in the compute dtype
-    as in the JAX model (its last flow has no softmax head).
+    """forward(data) → {'disp_pred': [B,H,W]}, in the compute dtype as in the
+    JAX model (its last flow has no softmax head); in training also
+    {'flows_c', 'flows_res': [B,1,H/2^i,W/2^i] for i = 0..6}.
 
     data['left'] / data['right']: [B,3,H,W] normalized images, H and W
     multiples of 64. `dtype` is the compute dtype of the convs and the
@@ -244,12 +248,16 @@ class FADNet(nn.Module):
         return torch.cat([left, right, warped, flow.to(left.dtype), norm_diff], dim=1)
 
     def forward(self, data: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        if self.training:
-            raise NotImplementedError("FADNet training is ROADMAP item 8")
         left, right = data["left"], data["right"]
         dt = self.dtype
-        (c1l, c2l, c3l), (_, _, c3r) = siamese(self.backbone, left.to(dt), right.to(dt))
-        corr = corr_volume if self.use_kernels else correlation_volume
+        if self.training:
+            # one call per view, each with its own BatchNorm batch statistics (`fadnet.py:164-166`)
+            (c1l, c2l, c3l), (_, _, c3r) = self.backbone(left.to(dt)), self.backbone(right.to(dt))
+        else:
+            (c1l, c2l, c3l), (_, _, c3r) = siamese(self.backbone, left.to(dt), right.to(dt))
+        # K1's wrapper has no backward: training builds the plain volume under
+        # autograd, as the JAX model trains its jnp builder
+        corr = corr_volume if self.use_kernels and not self.training else correlation_volume
         cp = self.cost_processor
         vol = _leaky(corr(c3l.contiguous(), c3r.contiguous(), self.corr_disp))
         conv3b = cp.conv3_1(torch.cat([cp.conv_redir(c3l), vol], 1))
@@ -262,4 +270,15 @@ class FADNet(nn.Module):
         r3b = dp.conv3_1(dp.conv3(r2))
         r4b, r5b, r6b = dp.encode456(r3b)
         flows_res = dp.decode([r6b, r5b, r4b, r3b, r2, r1, left.to(dt)], base_flows=flows_c)
-        return {"disp_pred": flows_res[0][:, 0]}
+        out = {"disp_pred": flows_res[0][:, 0]}
+        if self.training:
+            out.update(flows_c=flows_c, flows_res=flows_res)
+        return out
+
+    def get_loss(self, pred: Dict, data: Dict):
+        """The two flow pyramids' weighted masked smooth-L1 against the pooled
+        ground truth (`fadnet.py:216-227`, `losses.flow_pyramid_loss`) →
+        (loss, {'loss_disp'})."""
+        loss = flow_pyramid_loss((pred["flows_c"], pred["flows_res"]), data["disp"],
+                                 self.max_disp)
+        return loss, {"loss_disp": loss}

@@ -8,6 +8,7 @@ the reference's `F.smooth_l1_loss(pred[mask], gt[mask])` gives NaN.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 
 def smooth_l1(pred: torch.Tensor, target: torch.Tensor, beta: float = 1.0) -> torch.Tensor:
@@ -44,6 +45,26 @@ def weighted_heads_loss(preds, gt: torch.Tensor, max_disp: float, weights) -> to
     loss = 0.0
     for p, wgt in zip(preds, weights):
         loss = loss + wgt * masked_smooth_l1(p, gt, mask)
+    return loss
+
+
+FLOW_PYRAMID_WEIGHTS = (0.32, 0.16, 0.08, 0.04, 0.02, 0.01, 0.005)
+
+
+def flow_pyramid_loss(pyramids, gt: torch.Tensor, max_disp: float,
+                      weights=FLOW_PYRAMID_WEIGHTS) -> torch.Tensor:
+    """FADNet's loss (`fadnet.py:216-227`): over each pyramid of flows
+    [B,1,H/2^i,W/2^i] (full resolution first), Σ weight_i · masked smooth-L1
+    against the ground truth [B,H,W] average-pooled 2×2 i times (VALID, an odd
+    row or column dropped, as `nn.avg_pool`), masked by 0 < target < max_disp
+    at that scale; summed from 0, pyramid by pyramid."""
+    loss = 0.0
+    for flows in pyramids:
+        target = gt[:, None]
+        for i, (flow, wgt) in enumerate(zip(flows, weights)):
+            if i > 0:
+                target = F.avg_pool2d(target, 2)
+            loss = loss + wgt * masked_smooth_l1(flow, target, disp_valid_mask(target, max_disp))
     return loss
 
 

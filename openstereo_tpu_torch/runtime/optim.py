@@ -3,7 +3,7 @@ section: the port's copy of `openstereo_tpu/runtime/optim.py`.
 
 It computes what the JAX package's optax chain computes,
 
-    clip (by value | by global norm) → adamw | adam | sgd | rmsprop, lr = schedule(t),
+    clip (by value | by global norm) → adamw | adam | sgd | rmsprop | lamb, lr = schedule(t),
 
 with t the number of updates applied before this one (optax's count before
 its increment). `torch.optim` and `torch.optim.lr_scheduler` are not used:
@@ -12,9 +12,11 @@ torch's OneCycleLR ends its phases one step earlier than
 `clip_grad_norm_` adds 1e-6 to the norm it divides by. AdamW decays every
 parameter, BatchNorm scales and biases too, as optax's does. RMSprop is
 optax's `rmsprop` with its defaults, not `torch.optim.RMSprop` (whose decay
-is 0.99 and whose eps lies outside the square root).
+is 0.99 and whose eps lies outside the square root). Lamb is optax's `lamb`
+(Adam, decayed weights, a trust ratio per tensor), not the reference's
+`stereo/utils/lamb.py`.
 
-PARAM_GROUPS and Lamb are ROADMAP item 8.
+PARAM_GROUPS is ROADMAP item 8.
 """
 
 from __future__ import annotations
@@ -32,7 +34,9 @@ Schedule = Callable[[int], float]
 _NOT_PORTED = "ROADMAP item 8"
 B1, B2 = 0.9, 0.999  # optax's Adam defaults, which `_make_tx` (`optim.py:78`) keeps
 RMS_DECAY = 0.9  # optax.rmsprop's default decay, which `_make_tx` (`optim.py:86`) keeps
-_STATE = {"adamw": ("mu", "nu"), "adam": ("mu", "nu"), "sgd": ("trace",), "rmsprop": ("nu",)}
+_STATE = {"adamw": ("mu", "nu"), "adam": ("mu", "nu"), "sgd": ("trace",), "rmsprop": ("nu",),
+          "lamb": ("mu", "nu")}
+_DECAYED = ("adamw", "lamb")  # the optimizers that take WEIGHT_DECAY (`optim.py:82-89`)
 
 
 # --------------------------------------------------------------- schedules
@@ -158,8 +162,15 @@ def build_schedule(opt_cfg: Config, total_steps: int) -> Schedule:
 
 # --------------------------------------------------------------- optimizer
 
+def trust_ratio(p: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """optax's `scale_by_trust_ratio()` factor for one tensor: ‖p‖ / ‖u‖, or 1
+    where either norm is 0 (a zero tensor, as a fresh BatchNorm bias)."""
+    pn, un = torch.linalg.vector_norm(p), torch.linalg.vector_norm(u)
+    return torch.where((pn == 0) | (un == 0), torch.ones_like(pn), pn / un)
+
+
 class Optimizer:
-    """clip → adamw | adam | sgd | rmsprop over named parameters, updated in place.
+    """clip → adamw | adam | sgd | rmsprop | lamb over named parameters, updated in place.
 
     Each step: the gradients are clipped (by value, or by their global norm:
     t / ‖g‖ · max_norm when ‖g‖ ≥ max_norm, with no epsilon), then
@@ -169,6 +180,9 @@ class Optimizer:
     - rmsprop: nu = (1-d)·g² + d·nu, u = g·rsqrt(nu + eps) with d = 0.9 (optax
       0.2.6's `rmsprop` defaults: eps inside the root, nu starts at 0, no
       momentum, no centering, no bias correction),
+    - lamb: optax 0.2.6's `lamb` chain: Adam's u as above (eps outside the
+      root, eps_root 0), + wd·p on every tensor, then per tensor
+      u·‖p‖/‖u‖, the ratio 1 where either norm is 0 (`scale_by_trust_ratio`),
     and p += -lr(t)·u, with n = t + 1 and t the updates applied so far.
     Parameters change in place (their version counters move), so caches
     keyed on a parameter's version see every update.
@@ -178,13 +192,12 @@ class Optimizer:
                  schedule: Schedule, weight_decay: float = 0.0, eps: float = 1e-8,
                  momentum: float = 0.0, clip: Optional[Tuple[str, float]] = None):
         if name not in _STATE:
-            raise NotImplementedError(f"optimizer {name!r} is {_NOT_PORTED}"
-                                      if name == "lamb" else f"unknown optimizer {name!r}")
+            raise ValueError(f"unknown optimizer {name!r}")
         if clip is not None and clip[0] not in ("value", "norm"):
             raise ValueError(clip[0])
         self.params = dict(named_params)
         self.name, self.schedule, self.clip = name, schedule, clip
-        self.weight_decay = weight_decay if name == "adamw" else 0.0
+        self.weight_decay = weight_decay if name in _DECAYED else 0.0
         self.eps, self.momentum = eps, momentum
         self.count = 0
         self.state: Dict[str, Dict[str, torch.Tensor]] = {}
@@ -230,6 +243,8 @@ class Optimizer:
                 u = mu_hat / (torch.sqrt(nu_hat) + self.eps)
                 if self.weight_decay:
                     u = u + self.weight_decay * p
+                if self.name == "lamb":
+                    u = u * trust_ratio(p, u)
             p.add_(u, alpha=-lr)
         self.count = n
 

@@ -9,13 +9,16 @@ stereogram's disparity (as the JAX tool gives them) and trains in f32 with
 its config's optimizer, RMSprop, at a constant rate with its clip by norm
 35; the mean loss of the last 20 steps should fall below 0.8 of the first
 5 steps' (the train EPE is printed beside it). GwcNet, PSMNet, CoExNet,
-MSNet3D and MSNet2D train the same way with their SceneFlow configs' dtype,
-optimizer and clip (`RECIPES`) at a constant rate, under the same check.
+MSNet3D, MSNet2D, CFNet, CasGwcNet, CasPSMNet and FADNet train the same way
+with their SceneFlow configs' dtype, optimizer and clip (`RECIPES`; FADNet
+with Lamb) at a constant rate, under the same check.
 
     python -m openstereo_tpu_torch.tools.overfit_check [--steps 400] [--device cpu]
     python -m openstereo_tpu_torch.tools.overfit_check --model STTR --steps 200 --batch 2 --lr 1e-4
     python -m openstereo_tpu_torch.tools.overfit_check --model GwcNet --steps 200 --batch 2 \
         --lr 1e-4
+    python -m openstereo_tpu_torch.tools.overfit_check --model FADNet --steps 100 --batch 1 \
+        --size 192 384 --lr 4e-3
 """
 
 from __future__ import annotations
@@ -82,7 +85,11 @@ RECIPES = {"LightStereo": ("bf16", "adamw", ("value", 0.1), "final train EPE < 3
            "PSMNet": ("f32", "rmsprop", ("norm", 35.0), LOSS_RULE),
            "CoExNet": ("bf16", "rmsprop", ("value", 0.1), LOSS_RULE),
            "MSNet3D": ("f32", "adam", ("norm", 35.0), LOSS_RULE),
-           "MSNet2D": ("f32", "adam", None, LOSS_RULE)}
+           "MSNet2D": ("f32", "adam", None, LOSS_RULE),
+           "CFNet": ("f32", "rmsprop", None, LOSS_RULE),
+           "CasGwcNet": ("f32", "rmsprop", None, LOSS_RULE),
+           "CasPSMNet": ("f32", "rmsprop", None, LOSS_RULE),
+           "FADNet": ("f32", "lamb", None, LOSS_RULE)}
 
 
 def main(argv: Optional[Sequence[str]] = None):
@@ -92,8 +99,8 @@ def main(argv: Optional[Sequence[str]] = None):
     'converged'}."""
     args = parse_args(argv)
     if args.model not in RECIPES:
-        raise NotImplementedError(f"{args.model}: the port trains {sorted(RECIPES)} only "
-                                  "(ROADMAP item 8)")
+        raise NotImplementedError(f"{args.model}: no overfit recipe; the port trains "
+                                  f"{sorted(RECIPES)}")
     import torch
 
     from ..config import Config

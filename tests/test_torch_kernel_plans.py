@@ -240,19 +240,21 @@ def test_k2_tile_plan_matches_plain(shape, residual, splits, dtype):
 
 
 # K1/K3's tiling (csrc/cost_volume.cu): columns and disparities per thread (an
-# item), channels per staged chunk at most, threads per block at most
-CV_CW, CV_DPT, CV_CC_MAX, CV_NT_MAX, CV_STAGES = 8, 8, 32, 192, 3
+# item), channels per staged chunk at most, threads per block at most; f32's
+# lanes per item (PyTorch's CUDA reduction keeps 4 partial sums a thread)
+CV_CW, CV_DPT, CV_CC_MAX, CV_NT_MAX, CV_STAGES, CV_F32_LANES = 8, 8, 32, 192, 3, 4
 
 
-def cv_plan(b, c, h, w, d, g, sms, threads_sm=2048, smem_max=232448, elem=2):
+def cv_plan(b, c, h, w, d, g, sms, threads_sm=2048, smem_max=232448, f32=False):
     """`make_plan` in csrc/cost_volume.cu: lanes per item `cs` while the items
-    fill under a quarter of the resident threads, tiles of `twc` 8-column chunks
-    (at most CV_NT_MAX threads, halved while there are fewer than 4 tiles per
-    SM), `cc` channels per stage that fit shared memory."""
+    fill under a quarter of the resident threads (f32: always 4), tiles of
+    `twc` 8-column chunks (at most CV_NT_MAX threads, halved while there are
+    fewer than 4 tiles per SM), `cc` channels per stage that fit shared
+    memory."""
     cg, n_dc, n_wc = c // g, math.ceil(d / CV_DPT), math.ceil(w / CV_CW)
-    rows, pad = b * g * h, CV_DPT * n_dc
-    cs = 1
-    while (cs < 8 and 2 * cs <= cg and n_dc * 2 * cs <= CV_NT_MAX
+    rows, pad, elem = b * g * h, CV_DPT * n_dc, 4 if f32 else 2
+    cs = CV_F32_LANES if f32 else 1
+    while (not f32 and cs < 8 and 2 * cs <= cg and n_dc * 2 * cs <= CV_NT_MAX
            and rows * n_dc * n_wc * 2 * cs <= sms * threads_sm // 4):
         cs *= 2
     twc = n_wc
@@ -275,10 +277,14 @@ def cv_walk(left, right, max_disp, groups, cs, twc, cc, **_):
     time, left columns w_s .. and right columns w_s - pad .., zeros outside the
     frame; item x // cs of the tile (column chunk fastest, then disparity chunk)
     reads 8 left values and the 16-column right window at pad + 8 wcl - 8 dc - 8
-    and adds round(l[j] * win[j - k + 8]) in f32, lane p of the item taking the
-    p-th run of ceil(cc / cs) channels of each chunk; the lanes meet in a
-    butterfly (own + partner's), the quotient by cg is rounded to f32 and then
-    to the input dtype, and lane p stores disparities k % cs == p, d < D, w < W."""
+    and adds round(l[j] * win[j - k + 8]) in f32. bf16: lane p of the item
+    takes the p-th run of ceil(cc / cs) channels of each chunk, the lanes meet
+    in a butterfly (own + partner's) and the quotient by cg is rounded to f32;
+    f32 (cs 4): lane p takes the channels c = p mod 4, the lanes meet in lane
+    order and the sum is multiplied by the f32 reciprocal of cg. Then the result
+    is rounded to the input dtype, and lane p stores disparities k % cs == p,
+    d < D, w < W."""
+    f32 = left.dtype == torch.float32
     b, c, h, w = left.shape
     cg, n_dc, n_wc = c // groups, math.ceil(max_disp / CV_DPT), math.ceil(w / CV_CW)
     pad, tw, n_wt, run = CV_DPT * n_dc, twc * CV_CW, math.ceil(n_wc / twc), math.ceil(cc / cs)
@@ -302,14 +308,22 @@ def cv_walk(left, right, max_disp, groups, cs, twc, cc, **_):
             sl = staged(left[bi, :, hi], rows, w_s + torch.arange(tw))
             sr = staged(right[bi, :, hi], rows, w_s - pad + torch.arange(pad + tw))
             for part in range(cs):
-                for ci in range(part * run, min(n, (part + 1) * run)):
+                lane = (range((part - c0) % cs, n, cs) if f32
+                        else range(part * run, min(n, (part + 1) * run)))
+                for ci in lane:
                     prod = sl[ci][l_cols][:, None, :] * sr[ci][r_cols]  # rounded in the dtype
                     acc[part] += prod.float()
-        m = 1
-        while m < cs:
-            acc = acc + acc[torch.tensor([p ^ m for p in range(cs)])]
-            m *= 2
-        q = (acc.double() / cg).float().to(left.dtype)  # [part, item, k, j]
+        if f32:
+            total = acc[0].clone()
+            for part in range(1, cs):
+                total += acc[part]
+            q = (total * (torch.ones((), dtype=torch.float32) / cg)).expand(cs, *total.shape)
+        else:
+            m = 1
+            while m < cs:
+                acc = acc + acc[torch.tensor([p ^ m for p in range(cs)])]
+                m *= 2
+            q = (acc.double() / cg).float().to(left.dtype)  # [part, item, k, j]
         k = torch.arange(CV_DPT)[None, :, None]
         q = q[k % cs, item[:, None, None], k, torch.arange(CV_CW)]  # lane k % cs's copy
         d = (CV_DPT * dc[:, None, None] + k).expand_as(q)
@@ -323,38 +337,84 @@ def test_cv_plan_at_main_path_shapes():
     """What `make_plan` picks on a 132-SM H100: K3 (GwcNet, MSNet3D) one tile
     per group row, 180 of 192 threads, no channel split; K1 (LightStereo-S,
     CoEx) two lanes per item and 64-column tiles, so that its 24,480 items
-    fill the card."""
+    fill the card. f32 takes 4 lanes per item everywhere, and tiles shrink to
+    keep 192 threads a block."""
     assert cv_plan(*chip_smoke.K3_SHAPE, sms=132) == dict(cs=1, twc=30, cc=8, nt=192, n_wt=1)
+    assert cv_plan(*chip_smoke.K3_SHAPE, sms=132, f32=True) == dict(cs=4, twc=8, cc=8, nt=192,
+                                                                    n_wt=4)
     b, c, h, w, d = chip_smoke.K1_SHAPE
     assert cv_plan(b, c, h, w, d, 1, sms=132) == dict(cs=2, twc=8, cc=24, nt=96, n_wt=4)
     # CoEx's cosine volume, C 48: the same tiles, channels staged 32 then 16
     b, c, h, w, d = chip_smoke.COEX_K1_SHAPE
     assert cv_plan(b, c, h, w, d, 1, sms=132) == dict(cs=2, twc=8, cc=32, nt=96, n_wt=4)
+    # FADNet's correlation at its trainer evaluation's batch of 10, f32, C 128, D 40:
+    # 5 disparity chunks x 8 column chunks x 4 lanes
+    b, c, h, w, d = (10,) + chip_smoke.FADNET_K1_SHAPE[1:]
+    assert cv_plan(b, c, h, w, d, 1, sms=132, f32=True) == dict(cs=4, twc=8, cc=32, nt=160,
+                                                                n_wt=2)
 
 
+# (the walked shape, the shape whose plan it walks, what)
 CV_MAIN_ROWS = [
-    ((1, 320, 2, 240, 48, 40), cv_plan(*chip_smoke.K3_SHAPE, sms=132), "K3's plan, cg 8"),
-    ((1, 24, 2, 240, 48, 1), cv_plan(*chip_smoke.K1_SHAPE, 1, sms=132), "K1's plan, cg 24"),
-    ((1, 48, 2, 240, 48, 1), cv_plan(*chip_smoke.COEX_K1_SHAPE, 1, sms=132),
+    ((1, 320, 2, 240, 48, 40), chip_smoke.K3_SHAPE, "K3's plan, cg 8"),
+    ((1, 24, 2, 240, 48, 1), chip_smoke.K1_SHAPE + (1,), "K1's plan, cg 24"),
+    ((1, 48, 2, 240, 48, 1), chip_smoke.COEX_K1_SHAPE + (1,),
      "K1's plan at C 48 (CoEx), a ragged channel chunk"),
-    ((1, 80, 2, 40, 16, 1), cv_plan(1, 80, 2, 40, 16, 1, sms=132), "cg 80: three chunks"),
+    ((1, 80, 2, 40, 16, 1), (1, 80, 2, 40, 16, 1), "cg 80: three chunks"),
 ]
-CV_EDGES = [(shape, cv_plan(*shape, sms=132), what) for shape, what in chip_smoke.K3_EDGES]
+CV_EDGES = [(shape, shape, what) for shape, what in chip_smoke.K3_EDGES]
 
 
-@pytest.mark.parametrize("shape,plan,what", CV_MAIN_ROWS + CV_EDGES,
+@pytest.mark.parametrize("shape,plan_of,what", CV_MAIN_ROWS + CV_EDGES,
                          ids=[w for _, _, w in CV_MAIN_ROWS + CV_EDGES])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_cv_tile_plan_matches_plain(shape, plan, what, dtype):
+def test_cv_tile_plan_matches_plain(shape, plan_of, what, dtype):
     """The walk of the kernel's plan against the plain version: bit for bit in
     bf16 (the f32 sums of bf16 products are exact here, so their order does not
-    show), 1e-5 in f32."""
+    show), 1e-5 in f32 (the CPU's mean sums in another order than the CUDA one
+    that the f32 kernel follows; `test_cv_f32_walk_sums_in_pytorch_cuda_order`)."""
     b, c, h, w, d, g = shape
     gen = torch.Generator().manual_seed(sum(shape))
     left, right = (torch.randn(b, c, h, w, generator=gen).to(dtype) for _ in range(2))
+    plan = cv_plan(*plan_of, sms=132, f32=dtype == torch.float32)
     got = cv_walk(left, right, d, g, **plan)
     ref = ops.build_gwc_volume(left, right, d, g)
     if dtype == torch.bfloat16:
         assert torch.equal(got, ref)
     else:
         np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=1e-5, atol=1e-5)
+
+
+def cuda_mean_order_volume(left, right, max_disp, groups):
+    """The plain f32 volume as PyTorch's CUDA mean over a group's cg < 64
+    channels sums it (`ops/cost_volume.py:groupwise_correlation` on the card,
+    bit for bit there at CFNet's, GwcNet's and K1's shapes, `chip_smoke.py`):
+    rounded products, four partial sums, partial k over the channels
+    c = k mod 4 in channel order, met as ((s0 + s1) + s2) + s3, times the f32
+    reciprocal of cg."""
+    b, c, h, w = left.shape
+    cg = c // groups
+    out = left.new_zeros((b, groups, max_disp, h, w))
+    for d in range(min(max_disp, w)):
+        prod = (left[..., d:] * right[..., :w - d]).reshape(b, groups, cg, h, w - d)
+        parts = [prod[:, :, k].clone() for k in range(min(4, cg))]
+        for ci in range(4, cg):
+            parts[ci % 4] += prod[:, :, ci]
+        total = parts[0]
+        for part in parts[1:]:
+            total = total + part
+        out[:, :, d, :, d:] = total * (torch.ones((), dtype=torch.float32) / cg)
+    return out
+
+
+@pytest.mark.parametrize("shape,plan_of,what", CV_MAIN_ROWS + CV_EDGES,
+                         ids=[w for _, _, w in CV_MAIN_ROWS + CV_EDGES])
+def test_cv_f32_walk_sums_in_pytorch_cuda_order(shape, plan_of, what):
+    """f32: the walk of the kernel's plan equals, bit for bit, the sum in the
+    order of PyTorch's CUDA mean, which the card's plain version takes where a
+    group has fewer than 64 channels."""
+    b, c, h, w, d, g = shape
+    gen = torch.Generator().manual_seed(sum(shape) + 1)
+    left, right = (torch.randn(b, c, h, w, generator=gen) for _ in range(2))
+    got = cv_walk(left, right, d, g, **cv_plan(*plan_of, sms=132, f32=True))
+    assert torch.equal(got, cuda_mean_order_volume(left, right, d, g))

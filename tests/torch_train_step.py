@@ -1,5 +1,6 @@
 """One train step of a port model against the JAX package's, on the CPU: the
-shared part of `tests/test_torch_train_{gwcnet,psmnet,coex,msnet3d,msnet2d}.py`.
+shared part of `tests/test_torch_train_{gwcnet,psmnet,coex,msnet3d,msnet2d,cfnet,
+casgwcnet,caspsmnet,fadnet}.py`.
 
 A tiny model (the eval tests' sizes) with flax variables drawn with numpy in
 the tree that the JAX converter makes of the port's state_dict
@@ -16,8 +17,10 @@ loss rtol 1e-8; each parameter's gradient atol 1e-6·max|g| of its tensor
 plus 1e-12 of the model's largest (the biases of a BatchNorm that feeds
 another BatchNorm have a zero gradient in exact arithmetic); the parameters
 after the clipped step atol 1e-2·lr (Adam's and RMSprop's first steps are
-sign-like where |g| is tiny); BatchNorm running statistics rtol 1e-10, atol
-1e-12, with one update per view for a backbone BatchNorm.
+sign-like where |g| is tiny; under Lamb a tensor with a zero gradient moves
+by lr·‖p‖ along rounding noise, `check_updated_parameters`); BatchNorm
+running statistics rtol 1e-10, atol 1e-12, with one update per view for a
+backbone BatchNorm.
 """
 
 import sys
@@ -107,11 +110,15 @@ def run_jitted(fn, *args):
         "xla_backend_optimization_level": 1, "xla_llvm_disable_expensive_passes": True})(*args)
 
 
-def steps(case: Case) -> Tuple[Dict, Dict]:
+def steps(case: Case, variants: Optional[Dict[str, Dict]] = None) -> Tuple[Dict, Dict]:
     """(JAX step, port step) in f64 on the same variables and batch. The
     port's gradients come first: half their global norm is the clip by norm
     of both optimizers. JAX's: loss, gradients and stepped variables as port
-    state_dicts. The port's: the stepped model, loss, gradients, lr."""
+    state_dicts. The port's: the stepped model, loss, gradients, lr.
+    `variants` (name → constructor arguments over `case.tiny`) adds, under
+    "variants", each variant model's loss and gradients on the same
+    variables and batch, JAX's in the same compile as the step (`variant`)."""
+    variants = variants or {}
     variables = _random_variables_via(case.to_jax, case.port_model(**case.tiny), case.seed)
     data = make_batch(case)
     got = port_grads(case, {"variables": variables, "data": data})
@@ -119,32 +126,51 @@ def steps(case: Case) -> Tuple[Dict, Dict]:
     max_norm = 0.5 * norm
     opt, schedule = toptim.build_optimizer(Config.from_dict(opt_cfg(case, max_norm)),
                                            TOTAL_STEPS, got["model"].named_parameters())
+    got["before"] = {k: p.detach().clone() for k, p in got["model"].named_parameters()}
     opt.step()
-    got.update(lr=schedule(0), opt=opt.name)
+    got.update(lr=schedule(0), opt=opt.name,
+               variants={n: port_grads(case, {"variables": variables, "data": data}, **kw)
+                         for n, kw in variants.items()})
 
     with jax.enable_x64(True):
         flax_model = case.flax_model(**case.tiny, dtype=jnp.float64)
+        models = {n: case.flax_model(**case.tiny, **kw, dtype=jnp.float64)
+                  for n, kw in variants.items()}
         v = jax.tree.map(lambda a: jnp.asarray(a, jnp.float64), variables)
         jdata = {k: jnp.asarray(a, jnp.float64) for k, a in data.items()}
         tx, _ = joptim.build_optimizer(JConfig.from_dict(opt_cfg(case, max_norm)), TOTAL_STEPS)
 
-        def step(params, bs, batch):
+        def grads(model, params, bs, batch):
             def loss_fn(p):
-                out, mut = flax_model.apply({"params": p, "batch_stats": bs}, batch, train=True,
-                                            mutable=["batch_stats"])
-                return flax_model.get_loss(out, batch)[0], mut["batch_stats"]
+                out, mut = model.apply({"params": p, "batch_stats": bs}, batch, train=True,
+                                       mutable=["batch_stats"])
+                return model.get_loss(out, batch)[0], mut["batch_stats"]
 
-            (loss, new_bs), g = jax.value_and_grad(loss_fn, has_aux=True)(params)
+            return jax.value_and_grad(loss_fn, has_aux=True)(params)
+
+        def step(params, bs, batch):
+            (loss, new_bs), g = grads(flax_model, params, bs, batch)
             updates, _ = tx.update(g, tx.init(params), params)
-            return loss, g, new_bs, optax.apply_updates(params, updates)
+            return (loss, g, new_bs, optax.apply_updates(params, updates),
+                    {n: grads(m, params, bs, batch) for n, m in models.items()})
 
-        loss, g, new_bs, after = jax.device_get(
+        loss, g, new_bs, after, extra = jax.device_get(
             run_jitted(step, v["params"], v["batch_stats"], jdata))
     assert np.asarray(loss).dtype == np.float64
     ref = dict(variables=variables, data=data, loss=float(loss), norm=norm, max_norm=max_norm,
                grads=case.to_port({"params": g, "batch_stats": new_bs}),
-               after=case.to_port({"params": after, "batch_stats": new_bs}))
+               after=case.to_port({"params": after, "batch_stats": new_bs}),
+               variants={n: dict(loss=float(vl), grads=case.to_port({"params": vg,
+                                                                     "batch_stats": vbs}))
+                         for n, ((vl, vbs), vg) in extra.items()})
     return ref, got
+
+
+def variant(ref: Dict, got: Dict, name: str) -> Tuple[Dict, Dict]:
+    """The (JAX, port) records of `steps`' variant `name`, in the form that
+    `check_loss` and `check_gradients` read."""
+    r = dict(ref["variants"][name], norm=ref["norm"], max_norm=ref["max_norm"])
+    return r, got["variants"][name]
 
 
 def port_model(case: Case, variables, **kwargs):
@@ -195,9 +221,28 @@ def check_gradients(ref, got):
 
 
 def check_updated_parameters(ref, got):
+    """Each stepped parameter within 1e-2·lr of JAX's. Under Lamb, a tensor
+    whose gradient is zero in exact arithmetic (JAX's at most 1e-9·max|g| of
+    the model: the bias of a conv that a training BatchNorm follows) moves
+    along its gradient's rounding noise, whose direction the two packages
+    do not share: the trust ratio scales any nonzero update to ‖p‖, so it
+    moves by lr·‖p‖ in both (checked to rtol 1e-9, in the port and in JAX),
+    in a direction neither derives from the loss."""
+    scale = max(float(ref["grads"][k].abs().max()) for k in got["grads"])
+    lr = got["lr"]
+    noise = 0
     for k, p in got["model"].named_parameters():
+        if got["opt"] == "lamb" and float(ref["grads"][k].abs().max()) <= 1e-9 * scale:
+            before = got["before"][k]
+            for after in (p.detach(), ref["after"][k].double()):
+                np.testing.assert_allclose(float((after - before).norm()),
+                                           lr * float(before.norm()), rtol=1e-9, err_msg=k)
+            noise += 1
+            continue
         np.testing.assert_allclose(p.detach().numpy(), ref["after"][k].double().numpy(), rtol=0,
-                                   atol=1e-2 * got["lr"], err_msg=k)
+                                   atol=1e-2 * lr, err_msg=k)
+    if noise:
+        print(f"{noise} tensors with a zero gradient moved by lr·‖p‖ in both packages")
 
 
 def check_batchnorm_statistics(ref, got, per_view: str, once: str):
@@ -292,13 +337,16 @@ def write_sceneflow_set(root: Path, n: int, hw, max_disp: int = 16):
     return split
 
 
-def check_train_cli(case: Case, tmp_path: Path, monkeypatch, resume: bool = False):
-    """`tools/train.py` on the model's config as it is but for the data paths,
-    the model's size (`case.tiny`), the crop and pad (`case.crop`,
-    `case.pad`), the batch (2, for 2 steps over 4 random-dot pairs) and
-    NUM_EPOCHS 1: 2 steps with the config's optimizer, finite losses, the
-    evaluation and a checkpoint; with `resume`, a resumed Trainer bit-equal
-    to it."""
+def check_train_cli(case: Case, tmp_path: Path, monkeypatch, resume: bool = False,
+                    cfg: Optional[str] = None, pad: Optional[Tuple[int, int]] = None):
+    """`tools/train.py` on the model's config (or `cfg`) as it is but for the
+    data paths, the model's size (`case.tiny`), the crop and the evaluation's
+    pad or crop (`case.crop`, `pad` or `case.pad`), the batch (2, for 2 steps
+    over 4 random-dot pairs) and NUM_EPOCHS 1: 2 steps with the config's
+    optimizer, finite losses, the evaluation and a checkpoint; with
+    `resume`, a resumed Trainer bit-equal to it. A config that resumes from
+    MODEL.CKPT (CFNet's part 2) starts afresh (`--ckpt -1`): the tiny run
+    has no such checkpoint."""
     import json
 
     from openstereo_tpu_torch.config import load_config
@@ -308,7 +356,7 @@ def check_train_cli(case: Case, tmp_path: Path, monkeypatch, resume: bool = Fals
     # JSONL metrics only: importing TensorBoard's writer takes seconds (tested
     # in `tests/test_torch_trainer.py`)
     monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)
-    d = case.config()
+    d = yaml.safe_load((ROOT / cfg).read_text()) if cfg else case.config()
     pair_hw = (case.crop[0] + 8, case.crop[1] + 8)
     split = write_sceneflow_set(tmp_path / "SceneFlow", 4, pair_hw)
     info = d["DATA_CONFIG"]["DATA_INFOS"][0]
@@ -316,15 +364,17 @@ def check_train_cli(case: Case, tmp_path: Path, monkeypatch, resume: bool = Fals
     info["DATA_SPLIT"] = {k: str(split) for k in ("TRAINING", "EVALUATING", "TESTING")}
     tf = d["DATA_CONFIG"]["DATA_TRANSFORM"]
     tf["TRAINING"][0]["SIZE"] = list(case.crop)
-    tf["EVALUATING"][0]["SIZE"] = list(case.pad)
-    d["MODEL"].update({k.upper(): v for k, v in case.tiny.items()})
+    tf["EVALUATING"][0]["SIZE"] = list(pad or case.pad)
+    d["MODEL"].update({k.upper(): list(v) if isinstance(v, tuple) else v
+                       for k, v in case.tiny.items()})
     d["OPTIMIZATION"].update(NUM_EPOCHS=1, BATCH_SIZE_PER_GPU=2)
     d["EVALUATOR"]["BATCH_SIZE_PER_GPU"] = 2
     cfg_file = tmp_path / "cfg.yaml"
     cfg_file.write_text(yaml.safe_dump(d))
+    fresh = ["--ckpt", "-1"] if "CKPT" in d["MODEL"] else []
     trainer = train.main(["--cfg_file", str(cfg_file), "--save_root", str(tmp_path / "runs"),
                           "--data_paths", str(tmp_path / "none.yaml"), "--device", "cpu",
-                          "--workers", "1"])
+                          "--workers", "1", *fresh])
     opt = d["OPTIMIZATION"]["OPTIMIZER"]["NAME"].lower()
     assert trainer.state.step == 2 and trainer.state.optimizer.name == opt
     assert trainer.model.dtype == (torch.bfloat16 if d["OPTIMIZATION"]["AMP"] else torch.float32)
