@@ -55,11 +55,13 @@ without the repository around it). Phases, each of which fails the run:
    `chiprun_out/sttr_profile/`).
 9. K3 (gwc_volume) against its plain version at the GwcNet main-path shape,
    at CFNet's three (G 40: [1,160,72,120] D 24, [1,320,36,60] D 12,
-   [1,320,18,30] D 6, below the kernel's 8-disparity chunk) and at edge
+   [1,320,18,30] D 6, below the kernel's 8-disparity chunk), at IGEV's two
+   (C/G 12, the bf16 quotient's refined division: [1,96,136,240] and the
+   KITTI evaluation's [4,96,96,312], D 48, G 8) and at edge
    cases (the JAX test's shape, W ragged against the 8-column chunks, D over
    six disparity chunks, d >= W, cg = 1, cg = 12), f32 (TF32 off) and bf16
-   (checked as K1's, with the unrounded control at the GwcNet and CFNet
-   shapes), and with G = 1 against K1;
+   (checked as K1's, with the unrounded control at the GwcNet, CFNet and
+   IGEV shapes), and with G = 1 against K1;
 10. the GwcNet path: GwcNet at 544x960 (`cfgs/gwcnet/gwcnet_sceneflow.yaml`),
    b1, bf16, through `run_pair` on the synthetic pairs, with 1 K3 launch
    per frame at the main shape and no other kernel; the kernel path against
@@ -88,8 +90,9 @@ without the repository around it). Phases, each of which fails the run:
    Trainer starts at epoch 1, bit-equal to the checkpoint. Prints ms per
    step (CUDA events, median of steps 2-4), samples/s, peak memory;
 15. the learning check: the port's `tools/overfit_check.py`, LightStereo,
-   150 steps on one batch of 4 random-dot pairs at 192x384, max_disp 64,
-   bf16, AdamW 4e-4, clip 0.1: the final train EPE must be below 3 px.
+   100 steps (cut from 150 for the script's time) on one batch of 4
+   random-dot pairs at 192x384, max_disp 64, bf16, AdamW 4e-4, clip 0.1: the
+   final train EPE must be below 3 px.
 16-18. (run after phase 12) the CoEx, MSNet3D and MSNet2D paths, each at
    544x960 (`cfgs/coex/coex_sceneflow_amp.yaml`, `cfgs/msnet/msnet3d_sceneflow.yaml`,
    `cfgs/msnet/msnet2d_sceneflow.yaml`), b1, bf16, random weights from a
@@ -146,7 +149,8 @@ without the repository around it). Phases, each of which fails the run:
    the steps after the first), samples/s, the backward's share, peak memory,
    device busy and idle share of both paths;
 25. STTR's learning check: the port's `tools/overfit_check.py --model STTR`,
-   100 steps on one batch of 2 random-dot pairs at 192x384, f32, RMSprop
+   60 steps (cut from 100 for the script's time) on one batch of 2
+   random-dot pairs at 192x384, f32, RMSprop
    1e-4 constant, clip by norm 35: the mean loss of the last 20 steps must
    fall below 0.8 of the first 5 steps'.
 26-30. (run after phase 25) training of GwcNet, PSMNet, CoEx, MSNet3D and
@@ -168,13 +172,14 @@ without the repository around it). Phases, each of which fails the run:
    deterministic algorithms (f32 max-abs <= 5e-3 px; CoEx phase 16's rule);
    for GwcNet a resumed Trainer bit-equal to the checkpoint. Each prints ms/step (median of steps 2-4), samples/s, peak
    memory, forward / backward / optimizer ms, device busy and idle share
-   over 2 profiled steps and, for GwcNet and PSMNet, the peak with
+   over 1 profiled step (cut from 2 for the script's time) and, for GwcNet
+   and PSMNet, the peak with
    MODEL.REMAT and, for an f32 config, the second of 2 steps with TF32 off
    (cut from 4 for the script's time). Each then checks one step at b1 128x256 in f32 (TF32 off)
    against the same step in f64 on the card (`zoo_grad_check`), where a
    control that detaches the features before the volume must fail; and
    last GwcNet's learning check (`tools/overfit_check.py --model GwcNet`,
-   100 steps (cut from 200 for the script's time) at 192x384, b2, f32,
+   60 steps (cut from 200, then 100, for the script's time) at 192x384, b2, f32,
    RMSprop 1e-4, clip 35: the mean loss of the last 20 steps below 0.8 of
    the first 5 steps').
 31-34. (run after phase 30, in the same loop) training of CFNet, CasGwcNet,
@@ -194,13 +199,36 @@ without the repository around it). Phases, each of which fails the run:
    [10,128,72,120], the cascades none; the evaluation against eager as in
    phases 26-30 (CFNet f32 >= 99.9 % of the pixels within 5e-3 px, FADNet max-abs <= 5e-3 px, the
    cascades finite); ms/step, the forward / backward / optimizer split, peak
-   memory, 2 profiled steps; the gradient check as phases 26-30 with each
+   memory, 1 profiled step; the gradient check as phases 26-30 with each
    model's bound (`ZOO_NEW_BOUNDS`) and a detach control on its volume
    builders. Left out against phases 26-30, for the script's time: the
    TF32-off timing, MODEL.REMAT and the resume check.
 35. FADNet's learning check through Lamb (`tools/overfit_check.py --model
-   FADNet`, 100 steps of b1 at 192x384, f32, Lamb 4e-3 constant): the mean
+   FADNet`, 60 steps (cut from 100 for the script's time) of b1 at 192x384,
+   f32, Lamb 4e-3 constant): the mean
    loss of the last 20 steps below 0.8 of the first 5 steps'.
+36. (run after phase 22) the IGEV-Stereo path (`cfgs/igev/igev_sceneflow_amp.yaml`,
+   full width: hidden dims 128, 3 GRU layers slow-fast, 2 correlation
+   levels, radius 4, 32 iterations) at 544x960, b1, bf16, as phases 16-22
+   run theirs (`igev_path`): K3 once a frame at [1,96,136,240] D 48 G 8 and
+   K2 11 times at CoEx's trunk shapes, nothing else; f32 (TF32 off) kernels
+   vs eager, both under cuDNN's deterministic algorithms, >= 99.9 % of the
+   pixels within 5e-3 px (the max-abs printed: 32 GRU iterations carry a
+   one-ulp difference forward), bf16 mean-abs <= 0.5 px; frames/s, profile,
+   peak memory, each kernel at its shapes beside its plain version and
+   bound; then the measure CLI (`tools/measure.py`: parameters, FLOPs,
+   ms/frame beside the card's name and power limit).
+37. the evaluation CLI (`tools/eval.py --cfg_file cfgs/igev/igev_sceneflow_amp.yaml
+   --eval_data_cfg_file <cfgs/kitti15_eval.yaml, its split pointed at the set>
+   --data_paths <the set>`) on 8 random-dot pairs written at 375x1242 in the
+   KITTI 2015 layout (image_2, image_3 PNG, disp_occ_0 uint16 PNG x256) under
+   `OUT_DIR / "kitti_eval_smoke"` and deleted afterwards: padded to
+   384x1248 with NormalizeImage, batch 4, bf16; per batch K3 once at
+   [4,96,96,312] and K2 11 times at batch 8 and nothing else; the same
+   Trainer eager; d1_all, epe and thres_1..3 of both printed, |d epe| <= 0.5
+   px and the others <= 2 percentage points. First K2 at those batch-8
+   shapes against its plain version (phase 4's checks) and K2 and K3 timed
+   there beside their bounds.
 
 Each phase prints its seconds on a `[phase-time]` line as it ends, and all
 of them once more before the JSON lines.
@@ -237,6 +265,8 @@ CFNET_CFG = ROOT / "cfgs/cfnet/cfnet_sceneflow.yaml"
 FADNET_CFG = ROOT / "cfgs/fadnet/fadnet_sceneflow.yaml"
 CASGWC_CFG = ROOT / "cfgs/casnet/casnet_gwc_sceneflow.yaml"
 CASPSM_CFG = ROOT / "cfgs/casnet/casnet_psm_sceneflow.yaml"
+IGEV_CFG = ROOT / "cfgs/igev/igev_sceneflow_amp.yaml"
+KITTI_EVAL_CFG = ROOT / "cfgs/kitti15_eval.yaml"
 
 # expected K2 launches per LightStereo-S frame: (batch, H, W, Cin, Ch, Cout, residual) → count
 K2_SHAPES = {
@@ -318,6 +348,27 @@ K3_EDGES = [
     ((1, 96, 5, 70, 24, 8), "cg = 12 (C 96, G 8)"),
 ]
 
+# IGEV-Stereo (phases 36-37): K3 at its group width C/G = 12 (96 descriptor channels, G 8,
+# D 192/4), at the SceneFlow config's 544x960 b1 and at the KITTI evaluation's 384x1248 b4
+# (`cfgs/kitti15_eval.yaml`: RightTopPad, EVALUATOR.BATCH_SIZE_PER_GPU 4); its MobileNetV2
+# trunk is CoEx's, both views in one batch: K2 11 a frame, at batch 2 (COEX_K2_SHAPES) and at
+# batch 8 in the evaluation
+IGEV_K3_SHAPE = (1, 96, 136, 240, 48, 8)
+IGEV_EVAL_BATCH, IGEV_EVAL_PAIRS, KITTI_HW = 4, 8, (375, 1242)
+IGEV_EVAL_K3_SHAPE = (IGEV_EVAL_BATCH, 96, 96, 312, 48, 8)
+IGEV_EVAL_K2_SHAPES = {
+    (8, 96, 312, 24, 144, 24, True): 1,
+    (8, 48, 156, 32, 192, 32, True): 2,
+    (8, 24, 78, 64, 384, 64, True): 3,
+    (8, 24, 78, 64, 384, 96, False): 1,
+    (8, 24, 78, 96, 576, 96, True): 2,
+    (8, 12, 39, 160, 960, 160, True): 2,
+}
+IGEV_EVAL_DIR = OUT_DIR / "kitti_eval_smoke"
+# the evaluation CLI with kernels against eager (bf16): the model phase's bf16 rule carried to
+# the metrics: |d epe| <= 0.5 px, |d d1_all| and |d thres_*| <= 2 percentage points
+IGEV_EVAL_TOL = {"epe": 0.5, "d1_all": 2.0, "thres_1": 2.0, "thres_2": 2.0, "thres_3": 2.0}
+
 # The trainer's evaluation batch (EVALUATOR.BATCH_SIZE_PER_GPU of the LightStereo-S config):
 # K1 at [12, 24, 136, 240] and K2 at batch 24 in the siamese trunk, 12 in the aggregation
 EVAL_BATCH = 12
@@ -326,7 +377,7 @@ K2_EVAL_SHAPES = {(s[0] * EVAL_BATCH,) + s[1:]: n for s, n in K2_SHAPES.items()}
 # the training phase: a synthetic SceneFlow-layout set written by this script
 TRAIN_PAIRS, EVAL_PAIRS, PAIR_HW = 96, 12, (540, 960)
 TRAIN_DIR = OUT_DIR / "train_smoke"
-OVERFIT_ARGS = ["--steps", "150", "--batch", "4", "--size", "192", "384", "--max_disp", "64",
+OVERFIT_ARGS = ["--steps", "100", "--batch", "4", "--size", "192", "384", "--max_disp", "64",
                 "--lr", "4e-4", "--device", "cuda"]
 
 # The bf16 K2 and K4 checks (`bf16_close_flips`): the share of output elements that
@@ -353,7 +404,7 @@ K4_TRAIN_SHAPES = {
 STTR_TRAIN_PAIRS, STTR_EVAL_PAIRS, STTR_PAIR_MAX_DISP = 8, 4, 192
 STTR_TRAIN_DIR = OUT_DIR / "sttr_train_smoke"
 STTR_GRAD_RUNS = 12  # f32 steps of each path in phase 24's gradient check
-STTR_OVERFIT_ARGS = ["--model", "STTR", "--steps", "100", "--batch", "2", "--size", "192", "384",
+STTR_OVERFIT_ARGS = ["--model", "STTR", "--steps", "60", "--batch", "2", "--size", "192", "384",
                      "--max_disp", "64", "--lr", "1e-4", "--device", "cuda"]
 
 # Training of GwcNet, PSMNet, CoEx, MSNet3D and MSNet2D (phases 26-30): each SceneFlow config
@@ -370,7 +421,7 @@ ZOO_GRAD_FLOOR = 1e-3
 # which every tensor's bound (with ZOO_GRAD_FLOOR) is at least twice its worst f32 error over 3
 # runs on the card, rounded up to the next 0.01 (`zoo_train_paths` says why)
 ZOO_NEW_BOUNDS = {"CFNet": 0.01, "CasGwcNet": 0.25, "CasPSMNet": 0.07, "FADNet": 0.02}
-ZOO_OVERFIT_ARGS = ["--model", "GwcNet", "--steps", "100", "--batch", "2", "--size", "192", "384",
+ZOO_OVERFIT_ARGS = ["--model", "GwcNet", "--steps", "60", "--batch", "2", "--size", "192", "384",
                     "--max_disp", "64", "--lr", "1e-4", "--device", "cuda"]
 # Training of CFNet, CasGwcNet, CasPSMNet and FADNet (phases 31-35): each main SceneFlow config
 # as written through `tools/train.py` for 4 steps, the trainer's evaluation at the config's own
@@ -382,7 +433,7 @@ ZOO_CFG_EVAL_PAIRS = 10
 # CoEx's [10,48,136,240] D 48 (its config's batch; phase 28 evaluates at 2), each checked and
 # timed in the dtype its trainer's evaluation runs (FADNet f32, CoEx bf16)
 K1_EVAL10_SHAPES = {(10,) + FADNET_K1_SHAPE[1:]: "f32", (10,) + COEX_K1_SHAPE[1:]: "bf16"}
-FADNET_OVERFIT_ARGS = ["--model", "FADNet", "--steps", "100", "--batch", "1", "--size", "192",
+FADNET_OVERFIT_ARGS = ["--model", "FADNet", "--steps", "60", "--batch", "1", "--size", "192",
                        "384", "--max_disp", "64", "--lr", "4e-3", "--device", "cuda"]
 
 
@@ -516,22 +567,32 @@ def device_ms(fn, key="cv_kernel", iters=20):
     averaged over the launches the trace recorded. The profiler records a
     warm-up step of `iters` calls first and reads only the step after it:
     the trace may miss launches at its start (one run saw 9 of 20 without
-    the warm-up step); a trace that still sees fewer than half is taken
-    again, up to three times."""
+    the warm-up step). The scheduled trace keeps its cycle's events
+    (`acc_events`: without it the profiler clears them at the cycle's end,
+    and one run saw 3, 0 and 0 of 20 in three traces); a trace that still
+    sees fewer than half is taken again, up to six times, every second
+    time as one plain trace of the CPU and the card, as `tools/bench.py:
+    profile_paths` takes its model traces."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CUDA],
-                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
-            for _ in range(2):
+    for attempt in range(6):
+        if attempt % 2 == 0:
+            with profile(activities=[ProfilerActivity.CUDA], acc_events=True,
+                         schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+                for _ in range(2):
+                    for _ in range(iters):
+                        fn()
+                    torch.cuda.synchronize()
+                    prof.step()
+        else:
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 for _ in range(iters):
                     fn()
                 torch.cuda.synchronize()
-                prof.step()
         rows = [e for e in prof.key_averages()
                 if e.device_type == DeviceType.CUDA and key in e.key]
         n = sum(e.count for e in rows)  # the trace may miss a launch at its edge
@@ -1274,7 +1335,8 @@ def phase_k3(dev):
     errs = {}
     cfnet = [(shape, f"CFNet {scale}") for shape, scale in zip(CFNET_K3_SHAPES,
                                                                 ("1/8", "1/16", "1/32"))]
-    for (b, c, h, w, d, gr), tag in [(K3_SHAPE, "main path")] + cfnet + K3_EDGES:
+    igev = [(IGEV_K3_SHAPE, "IGEV"), (IGEV_EVAL_K3_SHAPE, "IGEV evaluation")]
+    for (b, c, h, w, d, gr), tag in [(K3_SHAPE, "main path")] + cfnet + igev + K3_EDGES:
         left, right = (torch.randn(b, c, h, w, generator=g).to(dev) for _ in range(2))
         ref = ops.build_gwc_volume(left, right, d, gr)
         got = ops.gwc_volume(left, right, d, gr)
@@ -1285,7 +1347,7 @@ def phase_k3(dev):
         got16 = ops.gwc_volume(lb, rb, d, gr)
         err16, share = volume_bf16_check(got16, ref16, f"K3 bf16 {tag}")
         control = ""
-        if tag == "main path" or tag.startswith("CFNet"):  # the unrounded control
+        if tag == "main path" or tag.startswith(("CFNet", "IGEV")):  # the unrounded control
             no, c_share = volume_rejected(
                 ops.build_gwc_volume(lb.float(), rb.float(), d, gr).bfloat16(), ref16)
             check(no, f"K3 bf16 {tag}: the unrounded control passes the check")
@@ -1437,12 +1499,12 @@ def model_paths():
     s per group, as LightStereo-S's groups of 20; 4 groups a path."""
     return [
         ("CoEx", COEX_CFG, {"corr_volume": {COEX_K1_SHAPE: 1}, "fused_mbconv": COEX_K2_SHAPES},
-         "CostProcessor.cost_agg", (4, 20, 20)),
+         "CostProcessor.cost_agg", (4, 20, 10)),
         ("MSNet3D", MSNET3D_CFG, {"gwc_volume": {K3_SHAPE: 1}, "fused_mbconv": MSNET3D_K2_SHAPES},
          None, (4, 12, 6)),
-        ("MSNet2D", MSNET2D_CFG, {"fused_mbconv": MSNET2D_K2_SHAPES}, None, (4, 20, 10)),
+        ("MSNet2D", MSNET2D_CFG, {"fused_mbconv": MSNET2D_K2_SHAPES}, None, (4, 20, 5)),
         ("CFNet", CFNET_CFG, {"gwc_volume": CFNET_K3_SHAPES}, "share", (4, 5, 5)),
-        ("FADNet", FADNET_CFG, {"corr_volume": {FADNET_K1_SHAPE: 1}}, None, (4, 10, 10)),
+        ("FADNet", FADNET_CFG, {"corr_volume": {FADNET_K1_SHAPE: 1}}, None, (4, 10, 5)),
         ("CasGwcNet", CASGWC_CFG, {}, None, (4, 6, 6)),
         ("CasPSMNet", CASPSM_CFG, {}, None, (4, 6, 6)),
     ]
@@ -1501,11 +1563,16 @@ def phase_model(dev, name, cfg_file, want, rule):
 
     model32 = build_model(cfg.MODEL, dtype=torch.float32, device=dev, seed=0)
     max32, share32, eager32 = 0.0, 1.0, []
-    for p in pairs:
-        a = run_pair(set_kernels(model32, True), tf, *p)
-        eager32.append(run_pair(set_kernels(model32, False), tf, *p))
-        d = np.abs(a - eager32[-1])
-        max32, share32 = max(max32, float(d.max())), min(share32, float((d <= 5e-3).mean()))
+    # the "share" rule's models (CFNet's floored sample grids, IGEV's 32 GRU iterations) carry a
+    # rounding far: both paths run cuDNN's deterministic algorithms, so that two eager runs are
+    # bit-equal and what differs is the kernels' (`zoo_eval` says why)
+    with cudnn_deterministic(rule == "share"):
+        for p in pairs:
+            a = run_pair(set_kernels(model32, True), tf, *p)
+            eager32.append(run_pair(set_kernels(model32, False), tf, *p))
+            d = np.abs(a - eager32[-1])
+            max32, share32 = max(max32, float(d.max())), min(share32, float((d <= 5e-3).mean()))
+    set_kernels(model32, True)
     del model32
     torch.cuda.empty_cache()
     to_f32 = {k: max(float(np.abs(a - b).mean()) for a, b in zip(ds, eager32))
@@ -1734,7 +1801,7 @@ def run_training(dev, data_root):
             "eval_batches": n_eval, "profile": prof}
 
 
-def profile_train_steps(trainer, untraced_ms, steps=2, label="b24 320x736 bf16",
+def profile_train_steps(trainer, untraced_ms, steps=1, label="b24 320x736 bf16",
                         table=TRAIN_DIR / "profile_train_step.txt"):
     """torch.profiler over `steps` train steps of `trainer` on one batch of its
     loader: device busy ms per step (the kernel rows summed; one stream), its
@@ -1775,7 +1842,7 @@ def profile_train_steps(trainer, untraced_ms, steps=2, label="b24 320x736 bf16",
 
 
 def phase_overfit():
-    """The port's learning check: LightStereo, 150 steps, 192x384, batch 4,
+    """The port's learning check: LightStereo, 100 steps, 192x384, batch 4,
     max_disp 64, bf16, AdamW 4e-4, clip 0.1; the final train EPE must be
     below 3 px (the JAX tool's CONVERGED line)."""
     from openstereo_tpu_torch.tools import overfit_check
@@ -2350,7 +2417,7 @@ def run_sttr_training(dev, card, data_root, k4_train):
 
 
 def phase_sttr_overfit():
-    """The learning check of STTR: the port's `tools/overfit_check.py`, 100
+    """The learning check of STTR: the port's `tools/overfit_check.py`, 60
     steps on one batch of 2 random-dot pairs at 192x384, f32, RMSprop 1e-4
     constant, clip by norm 35; the mean loss of the last 20 steps must fall
     below 0.8 of the first 5 steps'."""
@@ -2736,6 +2803,19 @@ def detached_volume(model, targets):
 
 
 @contextmanager
+def cudnn_deterministic(on):
+    """cuDNN's deterministic algorithms within it when `on`."""
+    import torch
+
+    before = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = on or before
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = before
+
+
+@contextmanager
 def cudnn_tf32(on):
     """cuDNN's f32 convolutions may use TF32 (PyTorch's default) or not (this
     script's default, for its f32 checks) within it."""
@@ -2894,7 +2974,7 @@ def run_zoo_training(dev, path, data_root, train_lines, eval_lines):
     The evaluation must launch `path.want` per batch and nothing else may
     launch in the run; then the evaluation against eager
     (`zoo_eval_agreement`), for GwcNet a resumed Trainer, and 4 timed train
-    steps (forward, backward, optimizer; no launch), 2 profiled ones, with
+    steps (forward, backward, optimizer; no launch), 1 profiled one, with
     `path.remat` 4 with MODEL.REMAT and with `path.tf32_off_timing` (an f32
     config) 2 with TF32 off."""
     import torch
@@ -3045,9 +3125,9 @@ def run_zoo_training(dev, path, data_root, train_lines, eval_lines):
 
 def phase_zoo_overfit(name="GwcNet", args=ZOO_OVERFIT_ARGS):
     """A learning check through the port's `tools/overfit_check.py`: GwcNet's
-    (phase 30: 100 steps on one batch of 2 random-dot pairs at 192x384,
+    (phase 30: 60 steps on one batch of 2 random-dot pairs at 192x384,
     max_disp 64, f32, RMSprop 1e-4 constant, clip by norm 35) or FADNet's
-    (phase 35, FADNET_OVERFIT_ARGS: 100 steps of b1 at 192x384, f32, Lamb
+    (phase 35, FADNET_OVERFIT_ARGS: 60 steps of b1 at 192x384, f32, Lamb
     4e-3 constant, no clip); the mean loss of the last 20 steps must fall
     below 0.8 of the first 5 steps'."""
     from openstereo_tpu_torch.tools import overfit_check
@@ -3123,6 +3203,156 @@ def path_entries(models, kernel, errors):
     return out
 
 
+def igev_path():
+    """IGEV-Stereo's inference path, as a `model_paths` entry: the SceneFlow
+    config at its 544x960 pad, K3 once a frame at C/G 12 and K2 11 times (its
+    trunk is CoEx's), the f32 rule "share" (32 GRU iterations carry a
+    one-ulp difference forward: >= 99.9 % of the pixels within 5e-3 px, the
+    max-abs printed), 4 timing groups of 3 frames (~0.7 s a group), 1 frame
+    profiled (~12,000 device operations a frame; the profiler takes ~5 s a
+    frame)."""
+    return ("IGEV", IGEV_CFG, {"gwc_volume": {IGEV_K3_SHAPE: 1}, "fused_mbconv": COEX_K2_SHAPES},
+            "share", (4, 3, 1))
+
+
+def phase_igev(dev, card):
+    """Phase 36: IGEV through `run_pair` as phases 16-22 run their paths
+    (`phase_model`, `phase_timing_model`), then the measure CLI on the card
+    (parameters, FLOPs, ms/frame beside the card's name and power limit)."""
+    import torch
+
+    from openstereo_tpu_torch.tools import measure
+
+    name, cfg_file, want, rule, protocol = igev_path()
+    t0 = time.perf_counter()
+    model, rec = phase_model(dev, name, cfg_file, want, rule)
+    t1 = time.perf_counter()
+    rec["bench"], rec["profile"], rec["kernels"] = phase_timing_model(
+        dev, name, model, card, rec["per_frame"], protocol, tuple(rec["size"]))
+    del model
+    torch.cuda.empty_cache()
+    t2 = time.perf_counter()
+    rec["measure"] = measure.main(["--cfg_file", str(cfg_file), "--reps", "10", "--warmup", "3"])
+    print(f"[phase-time] 36 IGEV: agreement {t1 - t0:.1f} s, timing and profile {t2 - t1:.1f} s, "
+          f"measure CLI {time.perf_counter() - t2:.1f} s")
+    return rec
+
+
+def write_kitti_set(root, n, hw, max_disp=192):
+    """`n` random-dot stereograms (`make_stereogram`, seeds 0..n-1) in the KITTI
+    2015 layout: training/image_2, image_3 PNG and disp_occ_0 uint16 PNG of
+    disparity × 256; returns the split lines."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from PIL import Image
+
+    from openstereo_tpu_torch.tools.overfit_check import make_stereogram
+
+    for sub in ("image_2", "image_3", "disp_occ_0"):
+        (root / "training" / sub).mkdir(parents=True, exist_ok=True)
+
+    def one(i):
+        left, right, disp = make_stereogram(np.random.RandomState(i), *hw, max_disp)
+        name = f"{i:06d}_10.png"
+        for sub, img in (("image_2", left), ("image_3", right)):
+            Image.fromarray(np.clip(np.round(img), 0, 255).astype(np.uint8)).save(
+                root / "training" / sub / name)
+        Image.fromarray(np.round(disp * 256.0).astype(np.uint16)).save(
+            root / "training/disp_occ_0" / name)
+        return f"training/image_2/{name} training/image_3/{name} training/disp_occ_0/{name}"
+
+    with ThreadPoolExecutor(8) as pool:
+        return list(pool.map(one, range(n)))
+
+
+def phase_igev_eval(dev, card):
+    """Phase 37: K2 at the KITTI evaluation's trunk shapes (batch 8) against
+    its plain version (phase 4's checks) and timed beside its bound, K3 at
+    [4,96,96,312] D 48 G 8 timed (checked in phase 9); then the port's eval
+    CLI (`tools/eval.py`) with IGEV's SceneFlow config and
+    `cfgs/kitti15_eval.yaml` on IGEV_EVAL_PAIRS synthetic KITTI-format pairs
+    at 375x1242 (padded to 384x1248, batch 4, bf16, the trainer's seeded
+    weights): the eval data config is the file's, its split pointed at the
+    written set, and --data_paths maps KittiDataset to it. Per batch K3 1 and
+    K2 11 at those shapes and nothing else; the same Trainer evaluated again
+    eager; both runs' metrics printed and held to IGEV_EVAL_TOL. The set and
+    the run directory are deleted afterwards."""
+    import shutil
+
+    import torch
+    import yaml
+
+    from openstereo_tpu_torch.models import set_kernels
+    from openstereo_tpu_torch.ops import kernels
+    from openstereo_tpu_torch.tools import eval as eval_cli
+
+    g = torch.Generator().manual_seed(12)
+    k2_err = check_k2_shapes(dev, IGEV_EVAL_K2_SHAPES, g, "[igev-eval]")
+    print(f"[igev-eval] K2 launcher split counts: {k2_err[2]}")
+    per_batch = {"gwc_volume": {IGEV_EVAL_K3_SHAPE: 1}, "fused_mbconv": IGEV_EVAL_K2_SHAPES}
+    k2 = k2_timing(dev, IGEV_EVAL_K2_SHAPES, card, g, tag="K2 (IGEV evaluation, b4)")
+    k3 = k3_timing(dev, per_batch["gwc_volume"], card, g, tag="K3 (IGEV evaluation, b4)")
+
+    shutil.rmtree(IGEV_EVAL_DIR, ignore_errors=True)
+    IGEV_EVAL_DIR.mkdir(parents=True)
+    try:
+        t0 = time.perf_counter()
+        lines = write_kitti_set(IGEV_EVAL_DIR, IGEV_EVAL_PAIRS, KITTI_HW)
+        split = IGEV_EVAL_DIR / "split.txt"
+        split.write_text("\n".join(lines) + "\n")
+        ecfg = yaml.safe_load(KITTI_EVAL_CFG.read_text())
+        ecfg["DATA_CONFIG"]["DATA_INFOS"][0]["DATA_SPLIT"]["EVALUATING"] = str(split)
+        (IGEV_EVAL_DIR / "kitti15_eval.yaml").write_text(yaml.safe_dump(ecfg))
+        (IGEV_EVAL_DIR / "roots.yaml").write_text(yaml.safe_dump(
+            {"KittiDataset": str(IGEV_EVAL_DIR)}))
+        print(f"[igev-eval] wrote {len(lines)} KITTI-format pairs at {KITTI_HW[0]}x{KITTI_HW[1]} "
+              f"in {time.perf_counter() - t0:.1f} s")
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        trainer, wired = eval_cli.main([
+            "--cfg_file", str(IGEV_CFG), "--eval_data_cfg_file",
+            str(IGEV_EVAL_DIR / "kitti15_eval.yaml"), "--data_paths",
+            str(IGEV_EVAL_DIR / "roots.yaml"), "--run_dir", str(IGEV_EVAL_DIR / "run")])
+        torch.cuda.synchronize()
+        s_kernels = time.perf_counter() - t0
+        launches = dict(kernels.launch_counts)
+        shapes = {k: dict(kernels.launch_shapes[k]) for k in per_batch}
+        batches = len(trainer.eval_loader)
+        check(trainer.model.dtype == torch.bfloat16 and trainer.eval_loader.batch_size ==
+              IGEV_EVAL_BATCH and batches == IGEV_EVAL_PAIRS // IGEV_EVAL_BATCH,
+              f"IGEV evaluation: {trainer.model.dtype}, batch {trainer.eval_loader.batch_size}, "
+              f"{batches} batches")
+        for name, n in launches.items():
+            want = {k: c * batches for k, c in per_batch.get(name, {}).items()}
+            check(n == sum(want.values()), f"IGEV evaluation: {name} launched {n} times over "
+                                           f"{batches} batches, not {sum(want.values())}")
+            if want:
+                check(shapes[name] == want, f"IGEV evaluation: {name} at {shapes[name]}, not "
+                                            f"{want}")
+        set_kernels(trainer.model, False)
+        t0 = time.perf_counter()
+        eager = trainer.evaluate(1)
+        s_eager = time.perf_counter() - t0
+        set_kernels(trainer.model, True)
+        diff = {k: abs(wired[k] - eager[k]) for k in IGEV_EVAL_TOL}
+        print(f"[igev-eval] {batches} batches of {IGEV_EVAL_BATCH} at 384x1248, bf16: launches "
+              f"{launches}; metrics with kernels {wired} ({s_kernels:.1f} s with the Trainer's "
+              f"set-up), eager {eager} ({s_eager:.1f} s); |difference| {diff} (tol "
+              f"{IGEV_EVAL_TOL})")
+        for k, tol in IGEV_EVAL_TOL.items():
+            check(np.isfinite(wired[k]) and np.isfinite(eager[k]) and diff[k] <= tol,
+                  f"IGEV evaluation {k}: kernels {wired[k]}, eager {eager[k]} (tol {tol})")
+        del trainer
+    finally:
+        shutil.rmtree(IGEV_EVAL_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return {"metrics_kernels": wired, "metrics_eager": eager, "launches": launches,
+            "batches": batches, "batch": IGEV_EVAL_BATCH, "k2": k2, "k3": k3,
+            "k2_max_abs_err_f32": k2_err[0], "k2_max_abs_err": k2_err[1],
+            "k2_splits": [dict(shape=list(k), splits=v) for k, v in k2_err[2].items()]}
+
+
 def main():
     try:
         import torch
@@ -3174,6 +3404,8 @@ def main():
             torch.cuda.empty_cache()
             PHASE_SECONDS[f"16-22 {name}"] = time.perf_counter() - t1
             print(f"[phase-time] 16-22 {name}: {PHASE_SECONDS[f'16-22 {name}']:.1f} s")
+        models["IGEV"] = run_phase("36 IGEV", phase_igev, dev, card)
+        igev_eval = run_phase("37 IGEV eval CLI", phase_igev_eval, dev, card)
         k1_eval, k2_eval, k2_eval_splits = run_phase("13 evaluation batch", phase_eval_batch, dev)
         trained = run_phase("14 LightStereo training", phase_train, dev)
         overfit = run_phase("15 LightStereo overfit", phase_overfit)
@@ -3212,7 +3444,8 @@ def main():
              paths=path_entries(models, "fused_mbconv", {
                  name: {"max_abs_err_f32": max(k2_err[3][k][0] for k in want["fused_mbconv"]),
                         "max_abs_err": max(k2_err[3][k][1] for k in want["fused_mbconv"])}
-                 for name, _, want, _, _ in model_paths() if "fused_mbconv" in want}),
+                 for name, _, want, _, _ in model_paths() + [igev_path()]
+                 if "fused_mbconv" in want}),
              launches_trainer_eval=trainer_eval_launches(trained, zoo, "fused_mbconv"),
              eval_batch=dict(max_abs_err=k2_eval[1], max_abs_err_f32=k2_eval[0],
                              splits=[dict(shape=list(k), splits=v)
@@ -3221,6 +3454,11 @@ def main():
                               max_abs_err_f32=zoo_kernels["fused_mbconv"][0],
                               splits=[dict(shape=list(k), splits=v)
                                       for k, v in zoo_kernels["fused_mbconv"][2].items()]),
+             igev_eval=dict(launches=igev_eval["launches"]["fused_mbconv"],
+                            batches=igev_eval["batches"], batch=igev_eval["batch"],
+                            max_abs_err=igev_eval["k2_max_abs_err"],
+                            max_abs_err_f32=igev_eval["k2_max_abs_err_f32"],
+                            splits=igev_eval["k2_splits"], **igev_eval["k2"]),
              yardstick="eager cuDNN pw->dw->pw chain, folded BN", ptxas=ptxas["fused_mbconv"],
              flip_share=K2_FLIP_SHARE,
              controls=[dict(shape=list(shp), residual=res, control=ctl, beyond=c[0],
@@ -3246,7 +3484,12 @@ def main():
                  "MSNet3D": dict(zip(VOLUME_ERR_KEYS, k3_err["main path"])),
                  "CFNet": dict(zip(VOLUME_ERR_KEYS, np.max([e for t, e in k3_err.items()
                                                             if t.startswith("CFNet")], axis=0)
-                                   .tolist()))}),
+                                   .tolist())),
+                 "IGEV": dict(zip(VOLUME_ERR_KEYS, k3_err["IGEV"]))}),
+             igev_eval=dict(launches=igev_eval["launches"]["gwc_volume"],
+                            batches=igev_eval["batches"], batch=igev_eval["batch"],
+                            **dict(zip(VOLUME_ERR_KEYS, k3_err["IGEV evaluation"])),
+                            **igev_eval["k3"]),
              launches_trainer_eval=trainer_eval_launches(trained, zoo, "gwc_volume"),
              eval_batch=volume_checks(zoo_kernels["gwc_volume"]),
              ptxas=ptxas["cost_volume"], **k3),
@@ -3279,6 +3522,9 @@ def main():
               f"{p['kernels']['idle_share']:.4f}), {p['eager']['device_busy_ms_per_frame']:.3f} "
               f"(eager, idle {p['eager']['idle_share']:.4f}); peak {rec['peak_bytes'] / 2**30:.3f} "
               f"GiB")
+    print(f"[igev-eval] eval CLI, KITTI-format 384x1248 b{igev_eval['batch']} bf16: metrics with "
+          f"kernels {igev_eval['metrics_kernels']}, eager {igev_eval['metrics_eager']}; measure "
+          f"CLI: {models['IGEV']['measure']}")
     print(f"[train] LightStereo-S 320x736 b24 bf16: {trained['ms_per_step']:.2f} ms/step (median "
           f"of steps 2-4), {trained['samples_per_s']:.1f} samples/s, peak "
           f"{trained['peak_bytes'] / 2**30:.3f} GiB; losses {trained['losses']}; evaluation EPE "

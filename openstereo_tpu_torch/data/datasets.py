@@ -1,12 +1,14 @@
 """Split-file stereo datasets: the port's copy of
 `openstereo_tpu/data/datasets.py:31-147` (`DatasetTemplate`,
-`SceneFlowDataset`, `FlyingThings3DSubsetDataset`).
+`SceneFlowDataset`, `FlyingThings3DSubsetDataset`) and `:150-216`, the
+evaluation sets (`KittiDataset`, `DrivingDataset`, `MiddleburyDataset`,
+`ETH3DDataset`).
 
 A dataset reads a space-separated split file of root-relative paths and
 yields numpy samples {'left' [H,W,3], 'right' [H,W,3], 'disp' [H,W],
 ['disp_right'], ['occ_mask', 'occ_mask_right'], 'valid', 'index', 'name'},
 transformed on the host with the sample's numpy Generator. The JAX
-package's other dataset classes are ROADMAP item 8.
+package's other dataset classes are ROADMAP item 8d.
 """
 
 from __future__ import annotations
@@ -131,3 +133,82 @@ class FlyingThings3DSubsetDataset(DatasetTemplate):
         disp[sample["occ_mask"]] = 0
         sample["disp"] = np.ascontiguousarray(disp, np.float32)
         return sample
+
+
+@DATASETS.register
+class KittiDataset(DatasetTemplate):
+    """KITTI 2012/2015 (`datasets.py:150`): uint16 PNG disparities / 256, 0
+    invalid. USE_NOC reads `disp_noc` in place of `disp_occ`;
+    RETURN_RIGHT_DISP also reads the right view's (`c_0` → `c_1` in the
+    path)."""
+
+    def load(self, idx, rng=None):
+        left_p, right_p, disp_p = self._paths(idx, 3)
+        if self.data_info.get("USE_NOC", False):
+            disp_p = disp_p.replace("disp_occ", "disp_noc")
+        sample = {
+            "left": readers.read_image_rgb(left_p),
+            "right": readers.read_image_rgb(right_p),
+            "disp": readers.read_disp_png_scaled(disp_p, 256.0),
+        }
+        if self.data_info.get("RETURN_RIGHT_DISP", False):
+            sample["disp_right"] = readers.read_disp_png_scaled(disp_p.replace("c_0", "c_1"), 256.0)
+        return self._finish(sample, idx, left_p, rng)
+
+
+@DATASETS.register
+class DrivingDataset(DatasetTemplate):
+    """DrivingStereo (`datasets.py:169`): KITTI-format PNG disparities / 256."""
+
+    def load(self, idx, rng=None):
+        left_p, right_p, disp_p = self._paths(idx, 3)
+        sample = {
+            "left": readers.read_image_rgb(left_p),
+            "right": readers.read_image_rgb(right_p),
+            "disp": readers.read_disp_png_scaled(disp_p, 256.0),
+        }
+        return self._finish(sample, idx, left_p, rng)
+
+
+class _PfmWithNoccMask(DatasetTemplate):
+    """A PFM disparity (inf → 0) and a non-occlusion mask PNG, read as
+    grayscale: every pixel that is not 255 is occluded (`datasets.py:182`).
+    The mask's path is the left image's (`mask_from_left`) or the
+    disparity's, with `mask_subst` replaced."""
+
+    mask_from_left = True
+    mask_subst = ("", "")
+
+    def load(self, idx, rng=None):
+        from PIL import Image
+
+        left_p, right_p, disp_p = self._paths(idx, 3)
+        disp = readers.read_disp_pfm(disp_p)
+        disp[np.isinf(disp)] = 0
+        mask_p = (left_p if self.mask_from_left else disp_p).replace(*self.mask_subst)
+        occ = np.array(Image.open(mask_p).convert("L"), np.float32) != 255.0
+        sample = {
+            "left": readers.read_image_rgb(left_p),
+            "right": readers.read_image_rgb(right_p),
+            "disp": disp,
+            "occ_mask": occ,
+        }
+        return self._finish(sample, idx, left_p, rng)
+
+
+@DATASETS.register
+class MiddleburyDataset(_PfmWithNoccMask):
+    """Middlebury (`datasets.py:203`): the mask beside the left image
+    (`im0.png` → `mask0nocc.png`)."""
+
+    mask_from_left = True
+    mask_subst = ("im0.png", "mask0nocc.png")
+
+
+@DATASETS.register
+class ETH3DDataset(_PfmWithNoccMask):
+    """ETH3D (`datasets.py:211`): the mask beside the disparity
+    (`disp0GT.pfm` → `mask0nocc.png`)."""
+
+    mask_from_left = False
+    mask_subst = ("disp0GT.pfm", "mask0nocc.png")

@@ -1,6 +1,6 @@
 """Image and disparity readers: the port's copies of
-`openstereo_tpu/data/readers.py:20` (`read_image_rgb`) and `:35-67`
-(`read_pfm`, `read_disp_pfm`)."""
+`openstereo_tpu/data/readers.py:20` (`read_image_rgb`), `:35-67`
+(`read_pfm`, `read_disp_pfm`) and `:69` (`read_disp_png_scaled`)."""
 
 from __future__ import annotations
 
@@ -43,6 +43,14 @@ def read_pfm(path: str) -> Tuple[np.ndarray, float]:
 
 def read_disp_pfm(path: str) -> np.ndarray:
     return read_pfm(path)[0].astype(np.float32)
+
+
+def read_disp_png_scaled(path: str, divisor: float = 256.0) -> np.ndarray:
+    """A uint16 PNG disparity / divisor as float32; 0 marks an invalid pixel
+    (the KITTI convention)."""
+    from PIL import Image
+
+    return np.array(Image.open(path), dtype=np.float32) / divisor
 
 
 def write_pfm(path: str, data: np.ndarray, scale: float = 1.0) -> None:

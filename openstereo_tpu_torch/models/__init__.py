@@ -1,9 +1,9 @@
 """Model registry and `build_model` (counterpart of `openstereo_tpu/models/__init__.py:32`).
 
 LightStereo, STTR, GwcNet, PSMNet, CoEx, MSNet3D, MSNet2D, CFNet, FADNet,
-CasGwcNet and CasPSMNet are ported, for inference and for training; the
-other names of the JAX zoo raise NotImplementedError naming the ROADMAP
-item that brings them.
+CasGwcNet and CasPSMNet are ported, for inference and for training, and
+IGEV for inference; the other names of the JAX zoo raise
+NotImplementedError naming the ROADMAP item that brings them.
 """
 
 from __future__ import annotations
@@ -20,6 +20,7 @@ from .cfnet import CFNet
 from .coex import CoExNet
 from .fadnet import FADNet
 from .gwcnet import GwcNet
+from .igev import IGEV
 from .layers import set_kernels  # noqa: F401
 from .lightstereo import LightStereo
 from .msnet import MSNet2D, MSNet3D
@@ -31,11 +32,11 @@ from .sttr.transformer import MultiheadAttentionRelative
 
 MODELS = {"LightStereo": LightStereo, "STTR": STTR, "GwcNet": GwcNet, "PSMNet": PSMNet,
           "CoExNet": CoExNet, "MSNet3D": MSNet3D, "MSNet2D": MSNet2D, "CFNet": CFNet,
-          "FADNet": FADNet, "CasGwcNet": CasGwcNet, "CasPSMNet": CasPSMNet}
+          "FADNet": FADNet, "CasGwcNet": CasGwcNet, "CasPSMNet": CasPSMNet, "IGEV": IGEV}
 
 # JAX-zoo names still to be ported → the ROADMAP item (queue 1) that ports them
 NOT_PORTED = {
-    "IGEV": "Slice E, item 14", "IGEVRT": "Slice E, item 14",
+    "IGEVRT": "Slice E, item 14",
     "StereoBase": "Slice E, item 14", "IGEVPP": "Slice E, item 14",
     "FoundationStereo": "Slice E, item 15", "FastFoundationStereo": "Slice E, item 15",
     "MonSter": "Slice E, item 15",

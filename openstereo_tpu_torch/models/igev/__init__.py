@@ -1,0 +1,1 @@
+from .igev import IGEV  # noqa: F401

@@ -1,21 +1,40 @@
-"""IGEV building blocks that CoEx uses, NCHW / NCDHW (counterpart of part of
-`openstereo_tpu/models/igev/blocks.py`).
+"""IGEV building blocks, NCHW / NCDHW (counterpart of `openstereo_tpu/models/igev/blocks.py`).
 
-`BasicConvBN` (conv, BatchNorm, leaky_relu 0.01), `Conv2x` (a 2× deconv,
-merged with a skip and fused) and `FeatureAtt` (a sigmoid gate from image
-features, broadcast over the disparity axis). Attribute names follow the
-reference submodules as `openstereo_tpu/utils/torch_convert.py` reads them
-(`.conv`, `.bn`; `_conv2x`, `_feature_att`, `_coex_channel_att`). The
-InstanceNorm variants and the rest of IGEV wait for ROADMAP item 14.
+`BasicConvBN` and `BasicConvIN` (conv, BatchNorm or InstanceNorm,
+leaky_relu 0.01), `Conv2x` (a 2× deconv or stride-2 conv, merged with a
+skip and fused), `FeatureAtt` (a sigmoid gate from image features,
+broadcast over the disparity axis), the MobileNetV2 + decoder `Feature`
+trunk, and the context net `MultiBasicEncoder` with its `ResidualBlockCtx`.
+CoEx uses the first four. Attribute names follow the reference submodules
+as `openstereo_tpu/utils/torch_convert.py` reads them (`.conv`, `.bn`;
+`_conv2x`, `_feature_att`, `_igev_feature`, `_multi_basic_encoder`).
 """
 
 from __future__ import annotations
 
+from typing import Sequence
+
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from ...ops import resize_nearest
-from ..layers import apply_norm, leaky_relu, ntuple, run_conv
+from ..backbones import MobileNetV2Features
+from ..layers import apply_norm, leaky_relu, ntuple, run_conv, run_seq
+
+
+def _conv_or_deconv(in_ch: int, out_ch: int, kernel_size, stride, deconv: bool, ndim: int):
+    """A bias-free conv padded (k-1)//2 per axis, or a k4 s2 p1 deconv."""
+    ks, st = ntuple(kernel_size, ndim), ntuple(stride, ndim)
+    if deconv:
+        # flax's "SAME" transposed conv equals torch's k4 s2 p1 only for
+        # that kernel and stride (`layers.py:214-263`)
+        if set(ks) != {4} or set(st) != {2}:
+            raise NotImplementedError(f"deconv kernel {ks}, stride {st}: only k4 s2")
+        return (nn.ConvTranspose2d if ndim == 2 else nn.ConvTranspose3d)(
+            in_ch, out_ch, ks, st, padding=1, bias=False)
+    return (nn.Conv2d if ndim == 2 else nn.Conv3d)(
+        in_ch, out_ch, ks, st, padding=tuple((k - 1) // 2 for k in ks), bias=False)
 
 
 class BasicConvBN(nn.Module):
@@ -27,17 +46,7 @@ class BasicConvBN(nn.Module):
     def __init__(self, in_ch: int, out_ch: int, kernel_size=3, stride=1, deconv: bool = False,
                  bn: bool = True, relu: bool = True, ndim: int = 2):
         super().__init__()
-        ks, st = ntuple(kernel_size, ndim), ntuple(stride, ndim)
-        if deconv:
-            # flax's "SAME" transposed conv equals torch's k4 s2 p1 only for
-            # that kernel and stride (`layers.py:214-263`)
-            if set(ks) != {4} or set(st) != {2}:
-                raise NotImplementedError(f"deconv kernel {ks}, stride {st}: only k4 s2")
-            self.conv = (nn.ConvTranspose2d if ndim == 2 else nn.ConvTranspose3d)(
-                in_ch, out_ch, ks, st, padding=1, bias=False)
-        else:
-            self.conv = (nn.Conv2d if ndim == 2 else nn.Conv3d)(
-                in_ch, out_ch, ks, st, padding=tuple((k - 1) // 2 for k in ks), bias=False)
+        self.conv = _conv_or_deconv(in_ch, out_ch, kernel_size, stride, deconv, ndim)
         if bn:
             self.bn = (nn.BatchNorm2d if ndim == 2 else nn.BatchNorm3d)(out_ch)
         self.act = leaky_relu() if relu else None
@@ -49,36 +58,150 @@ class BasicConvBN(nn.Module):
         return self.act(x) if self.act is not None else x
 
 
+class BasicConvIN(nn.Module):
+    """conv (or a k4 s2 p1 deconv) + non-affine InstanceNorm + leaky_relu 0.01
+    (`igev/blocks.py:26-43`), 2D. Key: conv (the norm has no parameters)."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel_size=3, stride=1, deconv: bool = False,
+                 relu: bool = True):
+        super().__init__()
+        self.conv = _conv_or_deconv(in_ch, out_ch, kernel_size, stride, deconv, 2)
+        self.IN = nn.InstanceNorm2d(out_ch)
+        self.act = leaky_relu() if relu else None
+
+    def forward(self, x):
+        x = apply_norm(run_conv(x, self.conv), self.IN)
+        return self.act(x) if self.act is not None else x
+
+
 class Conv2x(nn.Module):
-    """conv1: a k4 s2 deconv, nearest-resized to the skip's size where the
-    two differ; concatenated with the skip (whose width is out_ch, as the
-    reference assumes), conv2 fuses to 2·out_ch (`igev/blocks.py:67-99`,
-    the flavour CoEx uses: deconv, BatchNorm, concat, keep_concat).
+    """conv1: a k4 s2 deconv (`deconv`) or a k3 s2 conv, nearest-resized with
+    half-pixel centres to the skip's size where the two differ; then
+    concatenated with the skip (whose width is out_ch, as the reference
+    assumes) or added to it; conv2 fuses to 2·out_ch (`keep_concat`) or
+    out_ch (`igev/blocks.py:67-99`). `norm` "batch", "instance" or "none"
+    picks BasicConvBN, BasicConvIN or BasicConvBN without its norm.
     Keys: conv1, conv2."""
 
-    def __init__(self, in_ch: int, out_ch: int):
+    def __init__(self, in_ch: int, out_ch: int, deconv: bool = True, concat: bool = True,
+                 norm: str = "batch", keep_concat: bool = True):
         super().__init__()
-        self.conv1 = BasicConvBN(in_ch, out_ch, 4, 2, deconv=True)
-        self.conv2 = BasicConvBN(2 * out_ch, 2 * out_ch, 3, 1)
+        if norm == "instance":
+            basic = BasicConvIN
+        elif norm in ("batch", "none"):
+            def basic(*args, **kw):
+                return BasicConvBN(*args, bn=norm == "batch", **kw)
+        else:
+            raise ValueError(f"unknown norm {norm!r}")
+        self.concat = concat
+        self.conv1 = basic(in_ch, out_ch, 4 if deconv else 3, 2, deconv=deconv)
+        mid = 2 * out_ch if concat else out_ch
+        self.conv2 = basic(mid, out_ch * (2 if concat and keep_concat else 1), 3, 1)
 
     def forward(self, x, rem):
         x = self.conv1(x)
         if x.shape[2:] != rem.shape[2:]:
             x = resize_nearest(x, rem.shape[2:])
-        return self.conv2(torch.cat([x, rem], dim=1))
+        x = torch.cat([x, rem], dim=1) if self.concat else x + rem
+        return self.conv2(x)
 
 
 class FeatureAtt(nn.Module):
     """Gate a [B,Cv,D,H,W] volume by sigmoid(a 1×1 BasicConvBN to half the
     image-feature width, then a 1×1 conv with bias to Cv), broadcast over D
-    (`igev/blocks.py:102-117`). Keys: im_att.{0,1}, as CoEx's reference
-    channelAtt names them (IGEV's reference says feat_att: item 14)."""
+    (`igev/blocks.py:102-117`). Keys: `key`.{0,1}: im_att as CoEx's reference
+    channelAtt names it, feat_att as IGEV's reference does."""
 
-    def __init__(self, cv_ch: int, feat_ch: int):
+    def __init__(self, cv_ch: int, feat_ch: int, key: str = "im_att"):
         super().__init__()
-        self.im_att = nn.Sequential(BasicConvBN(feat_ch, feat_ch // 2, 1),
-                                    nn.Conv2d(feat_ch // 2, cv_ch, 1))
+        self.key = key
+        setattr(self, key, nn.Sequential(BasicConvBN(feat_ch, feat_ch // 2, 1),
+                                         nn.Conv2d(feat_ch // 2, cv_ch, 1)))
 
     def forward(self, cv, feat):
-        a = run_conv(self.im_att[0](feat), self.im_att[1])
+        att = getattr(self, self.key)
+        a = run_conv(att[0](feat), att[1])
         return torch.sigmoid(a)[:, :, None] * cv
+
+
+class Feature(MobileNetV2Features):
+    """IGEV's image features (`igev/blocks.py:120-137`): the MobileNetV2 trunk
+    (stem with relu6, the sliced key layout: conv_stem, bn1, block0..4), then
+    three InstanceNorm Conv2x deconv stages and conv4:
+    [B,3,H,W] → [y4 48@1/4, y8 64@1/8, y16 192@1/16, x32 160@1/32]."""
+
+    def __init__(self):
+        super().__init__(stem_act=True, sliced=True)
+        self.deconv32_16 = Conv2x(160, 96, norm="instance")
+        self.deconv16_8 = Conv2x(192, 32, norm="instance")
+        self.deconv8_4 = Conv2x(64, 24, norm="instance")
+        self.conv4 = BasicConvIN(48, 48, 3)
+
+    def forward(self, x):
+        _, x4, x8, x16, x32 = super().forward(x)
+        y16 = self.deconv32_16(x32, x16)
+        y8 = self.deconv16_8(y16, x8)
+        y4 = self.conv4(self.deconv8_4(y8, x4))
+        return [y4, y8, y16, x32]
+
+
+class ResidualBlockCtx(nn.Module):
+    """The context net's residual block, BatchNorm as every config of the zoo
+    runs it (`igev/blocks.py:140-158`): conv1 (3×3, stride, bias) + BN +
+    relu, conv2 (3×3, bias) + BN + relu, plus x, through `downsample` (1×1
+    conv with bias + BN) where the stride or the width changes; relu. Keys:
+    conv1, norm1, conv2, norm2, downsample.{0,1}."""
+
+    def __init__(self, in_ch: int, out_ch: int, stride: int = 1):
+        super().__init__()
+        self.conv1 = nn.Conv2d(in_ch, out_ch, 3, stride, 1)
+        self.norm1 = nn.BatchNorm2d(out_ch)
+        self.conv2 = nn.Conv2d(out_ch, out_ch, 3, 1, 1)
+        self.norm2 = nn.BatchNorm2d(out_ch)
+        self.downsample = None
+        if stride != 1 or in_ch != out_ch:
+            self.downsample = nn.Sequential(nn.Conv2d(in_ch, out_ch, 1, stride),
+                                            nn.BatchNorm2d(out_ch))
+
+    def forward(self, x):
+        y = F.relu(apply_norm(run_conv(x, self.conv1), self.norm1))
+        y = F.relu(apply_norm(run_conv(y, self.conv2), self.norm2))
+        if self.downsample is not None:
+            x = run_seq(x, self.downsample)
+        return F.relu(x + y)
+
+
+class MultiBasicEncoder(nn.Module):
+    """The context encoder with BatchNorm at N_DOWNSAMPLE 2, as every config of
+    the zoo runs it (`igev/blocks.py:161-205`): a 7×7 conv (stride 1) + BN +
+    relu, five layers of two residual blocks (64; 96 and 128 at stride 2 each:
+    1/4; 128 at 1/8 and 1/16), and per output of `output_dims` ([[d16, d8,
+    d4], ...]) a residual block + 3×3 conv head at 1/4 and 1/8 and a 3×3 conv
+    at 1/16. Returns [outs 1/4, outs 1/8, outs 1/16], each one tensor per
+    output. Keys: conv1, norm1, layer1..5.{0,1}, outputs04.i.{0,1},
+    outputs08.i.{0,1}, outputs16.i."""
+
+    def __init__(self, output_dims: Sequence[Sequence[int]]):
+        super().__init__()
+        self.conv1 = nn.Conv2d(3, 64, 7, 1, 3)
+        self.norm1 = nn.BatchNorm2d(64)
+        widths = [(64, 64, 1), (64, 96, 2), (96, 128, 2), (128, 128, 2), (128, 128, 2)]
+        for i, (cin, cout, s) in enumerate(widths):
+            setattr(self, f"layer{i + 1}", nn.Sequential(ResidualBlockCtx(cin, cout, s),
+                                                         ResidualBlockCtx(cout, cout, 1)))
+        for scale, idx in (("04", 2), ("08", 1)):
+            setattr(self, f"outputs{scale}", nn.ModuleList(
+                nn.Sequential(ResidualBlockCtx(128, 128),
+                              nn.Conv2d(128, dims[idx], 3, padding=1)) for dims in output_dims))
+        self.outputs16 = nn.ModuleList(nn.Conv2d(128, dims[0], 3, padding=1)
+                                       for dims in output_dims)
+
+    def forward(self, x):
+        x = F.relu(apply_norm(run_conv(x, self.conv1), self.norm1))
+        x = self.layer3(self.layer2(self.layer1(x)))
+        out04 = [run_conv(head[0](x), head[1]) for head in self.outputs04]
+        x = self.layer4(x)
+        out08 = [run_conv(head[0](x), head[1]) for head in self.outputs08]
+        x = self.layer5(x)
+        out16 = [run_conv(x, head) for head in self.outputs16]
+        return [out04, out08, out16]

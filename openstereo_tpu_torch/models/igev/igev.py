@@ -1,0 +1,203 @@
+"""IGEV-Stereo inference, NCHW / NCDHW (counterpart of `openstereo_tpu/models/igev/igev.py:46-337`).
+
+- Both views through the MobileNetV2 + decoder `Feature` and the stems as
+  one 2B batch; at 1/4 the decoder's 48 channels and the stem's 48 make 96,
+  from which `conv` and `desc` make the matching descriptors;
+- the group-wise volume (8 groups, D/4 planes) through the CUDA kernel K3
+  (`ops.gwc_volume`; on a CPU tensor, its plain version), a 3D stem gated
+  by the image features, and `GeoHourglass`: the geometry encoding volume;
+- the initial disparity by soft-argmax over its classified planes;
+- the context net's hidden states (tanh) and per-GRU biases;
+- VALID_ITERS slow-fast GRU iterations in a plain loop, each reading the
+  geometry and all-pairs-correlation pyramids by gather
+  (`geometry.CombinedGeoEncodingVolume`), the carried disparity detached;
+- the last iterate upsampled ×4 by the superpixel weights of `spx_2_gru`
+  and `spx_gru`.
+
+The trunk's stride-1 inverted residuals run the fused MBConv kernel K2 in
+eval. Images come in [0,255] and are rescaled to [-1,1] inside, as the JAX
+model does (`igev.py:192-193`), also after a NormalizeImage transform.
+Training (the GRU loop under autograd and the sequence loss,
+`igev.py:339-348`) is not ported: the forward raises in training mode. The
+training-only heads `spx_4`, `spx_2` and `spx` are held all the same, so
+that the state_dict is the reference's, as `torch_convert.py:convert_igev`
+reads it.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Sequence
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ...ops import build_gwc_volume, context_upsample, disparity_regression, gwc_volume
+from ..layers import head_dtype, run_conv, run_seq, siamese
+from .blocks import BasicConvBN, BasicConvIN, Conv2x, Feature, FeatureAtt, MultiBasicEncoder
+from .geometry import CombinedGeoEncodingVolume, lookup_dtype
+from .update import BasicMultiUpdateBlock
+
+FEATURE_CHANNELS = (96, 64, 192, 160)  # features at 1/4 (with the stem's 48), 1/8, 1/16, 1/32
+
+
+class GeoHourglass(nn.Module):
+    """The three-level 3D hourglass with feature attention at every scale
+    (`igev.py:46-93`); `in_ch` in and out. Keys: conv1..3.{0,1}, conv3_up,
+    conv2_up, conv1_up (no norm, no activation), agg_0.{0,1,2},
+    agg_1.{0,1,2}, feature_att_8, _16, _32, _up_16, _up_8."""
+
+    def __init__(self, in_ch: int, feat_channels: Sequence[int] = FEATURE_CHANNELS):
+        super().__init__()
+        c, f8, f16, f32 = in_ch, feat_channels[1], feat_channels[2], feat_channels[3]
+
+        def b3(cin, cout, k, s, **kw):
+            return BasicConvBN(cin, cout, k, s, ndim=3, **kw)
+
+        self.conv1 = nn.Sequential(b3(c, 2 * c, 3, 2), b3(2 * c, 2 * c, 3, 1))
+        self.conv2 = nn.Sequential(b3(2 * c, 4 * c, 3, 2), b3(4 * c, 4 * c, 3, 1))
+        self.conv3 = nn.Sequential(b3(4 * c, 6 * c, 3, 2), b3(6 * c, 6 * c, 3, 1))
+        self.conv3_up = b3(6 * c, 4 * c, 4, 2, deconv=True)
+        self.conv2_up = b3(4 * c, 2 * c, 4, 2, deconv=True)
+        self.conv1_up = b3(2 * c, c, 4, 2, deconv=True, bn=False, relu=False)
+        self.agg_0 = nn.Sequential(b3(8 * c, 4 * c, 1, 1), b3(4 * c, 4 * c, 3, 1),
+                                   b3(4 * c, 4 * c, 3, 1))
+        self.agg_1 = nn.Sequential(b3(4 * c, 2 * c, 1, 1), b3(2 * c, 2 * c, 3, 1),
+                                   b3(2 * c, 2 * c, 3, 1))
+        self.feature_att_8 = FeatureAtt(2 * c, f8, key="feat_att")
+        self.feature_att_16 = FeatureAtt(4 * c, f16, key="feat_att")
+        self.feature_att_32 = FeatureAtt(6 * c, f32, key="feat_att")
+        self.feature_att_up_16 = FeatureAtt(4 * c, f16, key="feat_att")
+        self.feature_att_up_8 = FeatureAtt(2 * c, f8, key="feat_att")
+
+    def forward(self, x, features):
+        conv1 = self.feature_att_8(self.conv1(x), features[1])
+        conv2 = self.feature_att_16(self.conv2(conv1), features[2])
+        conv3 = self.feature_att_32(self.conv3(conv2), features[3])
+        conv2 = self.agg_0(torch.cat([self.conv3_up(conv3), conv2], dim=1))
+        conv2 = self.feature_att_up_16(conv2, features[2])
+        conv1 = self.agg_1(torch.cat([self.conv2_up(conv2), conv1], dim=1))
+        conv1 = self.feature_att_up_8(conv1, features[1])
+        return self.conv1_up(conv1)
+
+
+class IGEV(nn.Module):
+    """forward(data) → {'disp_pred': [B,H,W]}, eval only.
+
+    data['left'] / data['right']: [B,3,H,W] images in [0,255], H and W
+    multiples of 32. `dtype` is the compute dtype (bf16 on the main path);
+    parameters stay f32, the softmax and regression heads run in at least
+    f32, the carried disparity stays f32, and the lookup pyramids are stored
+    in `lookup_dtype`. Keys follow the reference IGEVStereo state_dict.
+    """
+
+    use_kernels = True
+    GROUPS = 8  # the group-wise volume's groups (`igev.py:231-232`)
+
+    def __init__(self, max_disp: int = 192, hidden_dims: Sequence[int] = (128, 128, 128),
+                 n_gru_layers: int = 3, n_downsample: int = 2, slow_fast_gru: bool = True,
+                 corr_levels: int = 2, corr_radius: int = 4, valid_iters: int = 32,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        if n_downsample != 2:
+            raise NotImplementedError(f"IGEV n_downsample {n_downsample}: the port takes 2, as "
+                                      "every config sets (the upsampling is ×4)")
+        self.max_disp, self.dtype = max_disp, dtype
+        self.hidden_dims = tuple(hidden_dims)
+        self.n_gru_layers, self.slow_fast_gru = n_gru_layers, slow_fast_gru
+        self.corr_levels, self.corr_radius = corr_levels, corr_radius
+        self.valid_iters = valid_iters
+        hd = list(hidden_dims)
+        c4 = FEATURE_CHANNELS[0]
+
+        def stem(cin, cout, stride):
+            """BasicConvIN, then a plain conv + InstanceNorm + ReLU (`igev.py:203-210`)."""
+            return nn.Sequential(BasicConvIN(cin, cout, 3, stride),
+                                 nn.Conv2d(cout, cout, 3, 1, 1, bias=False),
+                                 nn.InstanceNorm2d(cout), nn.ReLU())
+
+        self.feature = Feature()
+        self.stem_2 = stem(3, 32, 2)
+        self.stem_4 = stem(32, 48, 2)
+        # training heads (the init disparity's superpixel upsample): held, never run
+        self.spx_4 = stem(c4, 24, 1)
+        self.spx_2 = Conv2x(24, 32, norm="instance")
+        self.spx = nn.Sequential(nn.ConvTranspose2d(64, 9, 4, 2, 1))
+        self.spx_2_gru = Conv2x(32, 32, norm="batch")
+        self.spx_gru = nn.Sequential(nn.ConvTranspose2d(64, 9, 4, 2, 1))
+        self.conv = BasicConvIN(c4, c4, 3, 1)
+        self.desc = nn.Conv2d(c4, c4, 1)
+        self.corr_stem = BasicConvBN(self.GROUPS, self.GROUPS, 3, 1, ndim=3)
+        self.corr_feature_att = FeatureAtt(self.GROUPS, c4, key="feat_att")
+        self.cost_agg = GeoHourglass(self.GROUPS)
+        self.classifier = nn.Conv3d(self.GROUPS, 1, 3, 1, 1, bias=False)
+        self.cnet = MultiBasicEncoder([hd, hd])
+        self.context_zqr_convs = nn.ModuleList(nn.Conv2d(hd[i], hd[i] * 3, 3, padding=1)
+                                               for i in range(3))
+        cor_planes = corr_levels * (2 * corr_radius + 1) * (self.GROUPS + 1)
+        self.update_block = BasicMultiUpdateBlock(hd[::-1], n_gru_layers, cor_planes)
+
+    def _stems(self, x):
+        s2 = run_seq(x, self.stem_2)
+        return s2, run_seq(s2, self.stem_4)
+
+    def gru_iteration(self, net, inp, geo_fn, coords, disp):
+        """One slow-fast iteration (`igev.py:96-158`): disp [B,1,H,W] f32 →
+        (net, the new disp, mask_feat_4)."""
+        disp = disp.detach()
+        geo = geo_fn(disp[:, 0], coords).permute(0, 3, 1, 2)
+        ub = self.update_block
+        n = self.n_gru_layers
+        if n == 3 and self.slow_fast_gru:
+            net = ub(net, inp, iter16=True, iter08=False, iter04=False, update=False)
+        if n >= 2 and self.slow_fast_gru:
+            net = ub(net, inp, iter16=n == 3, iter08=True, iter04=False, update=False)
+        net, mask_feat_4, delta = ub(net, inp, geo, disp, iter16=n == 3, iter08=n >= 2)
+        return net, disp + delta, mask_feat_4
+
+    def forward(self, data: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        if self.training:
+            raise NotImplementedError("IGEV training (the GRU loop under autograd and its "
+                                      "sequence loss) is ROADMAP item 14")
+        hd = head_dtype(self.dtype)
+        image1 = (2.0 * (data["left"].float() / 255.0) - 1.0).to(self.dtype)
+        image2 = (2.0 * (data["right"].float() / 255.0) - 1.0).to(self.dtype)
+        feats_l, feats_r = siamese(self.feature, image1, image2)
+        (stem_2x, stem_4x), (_, stem_4y) = siamese(self._stems, image1, image2)
+        feats_l[0] = torch.cat([feats_l[0], stem_4x], dim=1)
+        feats_r[0] = torch.cat([feats_r[0], stem_4y], dim=1)
+
+        match_left = run_conv(self.conv(feats_l[0]), self.desc).contiguous()
+        match_right = run_conv(self.conv(feats_r[0]), self.desc).contiguous()
+        d4 = self.max_disp // 4
+        volume = gwc_volume if self.use_kernels else build_gwc_volume
+        gwc = volume(match_left, match_right, d4, self.GROUPS)  # [B,8,D/4,H/4,W/4]
+        gwc = self.corr_feature_att(self.corr_stem(gwc), feats_l[0])
+        geo_volume = self.cost_agg(gwc, feats_l)
+
+        cost = run_conv(geo_volume, self.classifier)[:, 0]
+        prob = torch.softmax(cost.to(hd), dim=1)
+        init_disp = disparity_regression(prob, d4, dim=1)  # [B,H/4,W/4]
+
+        cnet = self.cnet(image1)
+        net = [torch.tanh(o[0]) for o in cnet]
+        inp = [tuple(torch.chunk(run_conv(F.relu(o[1]), conv), 3, dim=1))
+               for o, conv in zip(cnet, self.context_zqr_convs)]
+
+        ld = lookup_dtype(self.dtype)
+        geo_fn = CombinedGeoEncodingVolume(match_left.to(ld), match_right.to(ld),
+                                           geo_volume.to(ld), self.corr_levels, self.corr_radius)
+        b, h4, w4 = init_disp.shape
+        coords = torch.arange(w4, dtype=torch.float32, device=init_disp.device).expand(b, h4, w4)
+        disp = init_disp[:, None]
+        mask_feat_4 = None
+        for _ in range(self.valid_iters):
+            net, disp, mask_feat_4 = self.gru_iteration(net, inp, geo_fn, coords, disp)
+
+        x = self.spx_2_gru(mask_feat_4, stem_2x)
+        spx = torch.softmax(run_seq(x, self.spx_gru).to(hd), dim=1)  # [B,9,H,W]
+        return {"disp_pred": context_upsample(disp[:, 0] * 4.0, spx)}
+
+    def get_loss(self, pred: Dict, data: Dict):
+        raise NotImplementedError("IGEV training (the sequence loss, `igev.py:339-348`) is "
+                                  "ROADMAP item 14")

@@ -3,8 +3,8 @@
 The port's own inverse of `openstereo_tpu/utils/torch_convert.py`
 (`conv_kernel`, `deconv_kernel`, `TreeBuilder`, `convert_lightstereo`,
 `convert_sttr`, `convert_gwcnet`, `convert_psmnet`, `convert_coex`,
-`convert_msnet3d`, `convert_msnet2d`); it copies none of that code by
-import. Layout rules, inverted:
+`convert_msnet3d`, `convert_msnet2d`, `convert_cfnet`, `convert_fadnet`,
+`convert_casnet`, `convert_igev`); it copies none of that code by import. Layout rules, inverted:
 
 - conv kernel (kh,kw,in,out) → weight (out,in,kh,kw); 3D (kd,kh,kw,in,out)
   → (out,in,kd,kh,kw);
@@ -403,10 +403,11 @@ def basic_conv(b: FlaxToTorch, fpath: str, tkey: str, bn: bool = True, deconv: b
         b.bn(_join(fpath, "conv"), _join(tkey, "bn", sep="."))
 
 
-def conv2x(b: FlaxToTorch, fpath: str, tkey: str):
-    """flax Conv2x (deconv, BatchNorm) → port Conv2x keys."""
-    basic_conv(b, _join(fpath, "conv1"), _join(tkey, "conv1", sep="."), deconv=True)
-    basic_conv(b, _join(fpath, "conv2"), _join(tkey, "conv2", sep="."))
+def conv2x(b: FlaxToTorch, fpath: str, tkey: str, bn: bool = True):
+    """flax Conv2x (deconv; BatchNorm, or with `bn` False InstanceNorm) → port
+    Conv2x keys."""
+    basic_conv(b, _join(fpath, "conv1"), _join(tkey, "conv1", sep="."), bn=bn, deconv=True)
+    basic_conv(b, _join(fpath, "conv2"), _join(tkey, "conv2", sep="."), bn=bn)
 
 
 def feature_att(b: FlaxToTorch, fpath: str, tkey: str):
@@ -705,4 +706,84 @@ def casnet_state_dict_from_jax(variables) -> Dict[str, torch.Tensor]:
         b.conv(f"{f}/out{i + 1}", f"{t}.out{i + 1}", raw=True)
     for si in range(n_stage):
         _cas_cost_agg(b, f"cost_agg{si}", f"cost_agg.{si}")
+    return b.finish()
+
+
+def geo_hourglass(b: FlaxToTorch, fpre: str, tpre: str):
+    """flax GeoHourglass at fpre → port GeoHourglass keys at tpre."""
+    for f, t in (("conv1a", "conv1.0"), ("conv1b", "conv1.1"), ("conv2a", "conv2.0"),
+                 ("conv2b", "conv2.1"), ("conv3a", "conv3.0"), ("conv3b", "conv3.1"),
+                 ("agg0a", "agg_0.0"), ("agg0b", "agg_0.1"), ("agg0c", "agg_0.2"),
+                 ("agg1a", "agg_1.0"), ("agg1b", "agg_1.1"), ("agg1c", "agg_1.2")):
+        basic_conv(b, f"{fpre}/{f}", f"{tpre}.{t}")
+    for t in ("conv3_up", "conv2_up"):
+        basic_conv(b, f"{fpre}/{t}", f"{tpre}.{t}", deconv=True)
+    basic_conv(b, f"{fpre}/conv1_up", f"{tpre}.conv1_up", bn=False, deconv=True)
+    for f, t in (("att8", "feature_att_8"), ("att16", "feature_att_16"),
+                 ("att32", "feature_att_32"), ("att_up16", "feature_att_up_16"),
+                 ("att_up8", "feature_att_up_8")):
+        feature_att(b, f"{fpre}/{f}", f"{tpre}.{t}.feat_att")
+
+
+def _ctx_res_block(b: FlaxToTorch, fpre: str, tpre: str):
+    """flax ResidualBlockCtx (batch norm) → port ResidualBlockCtx keys."""
+    for i in (1, 2):
+        b.conv(f"{fpre}/conv{i}", f"{tpre}.conv{i}")
+        b.bn(f"{fpre}/conv{i}", f"{tpre}.norm{i}")
+    if b.has("params", f"{fpre}/downsample"):
+        b.convbn(f"{fpre}/downsample", f"{tpre}.downsample")
+
+
+def multi_basic_encoder(b: FlaxToTorch, fpre: str, tpre: str):
+    """flax MultiBasicEncoder (batch norm) → port MultiBasicEncoder keys; the
+    number of outputs is read from the variables."""
+    b.conv(f"{fpre}/conv1", f"{tpre}.conv1")
+    b.bn(f"{fpre}/conv1", f"{tpre}.norm1")
+    for i in range(1, 6):
+        for j in (0, 1):
+            _ctx_res_block(b, f"{fpre}/layer{i}_{j}", f"{tpre}.layer{i}.{j}")
+    n_out = _count(b.trees["params"][fpre], lambda k: k.startswith("out16_"))
+    for scale in ("04", "08"):
+        for oi in range(n_out):
+            _ctx_res_block(b, f"{fpre}/out{scale}_{oi}_res", f"{tpre}.outputs{scale}.{oi}.0")
+            b.conv(f"{fpre}/out{scale}_{oi}_conv", f"{tpre}.outputs{scale}.{oi}.1", raw=True)
+    for oi in range(n_out):
+        b.conv(f"{fpre}/out16_{oi}_conv", f"{tpre}.outputs16.{oi}", raw=True)
+
+
+def igev_state_dict_from_jax(variables) -> Dict[str, torch.Tensor]:
+    """flax IGEV {"params", "batch_stats"}, drawn with the training heads, →
+    port state_dict (the reference's key names, as
+    `torch_convert.convert_igev` reads them). Raises if a flax variable is
+    left unconsumed."""
+    b = FlaxToTorch(variables)
+    _trunk(b, "feature/trunk", "feature", sliced=True)
+    for name in ("deconv32_16", "deconv16_8", "deconv8_4"):
+        conv2x(b, f"feature/{name}", f"feature.{name}", bn=False)
+    basic_conv(b, "feature/conv4", "feature.conv4", bn=False)
+    for s in ("stem_2", "stem_4", "spx_4"):
+        basic_conv(b, f"{s}a", f"{s}.0", bn=False)
+        b.conv(f"{s}b", f"{s}.1")
+    conv2x(b, "spx_2", "spx_2", bn=False)
+    b.conv("spx", "spx.0", deconv=True, raw=True)
+    conv2x(b, "spx_2_gru", "spx_2_gru")
+    b.conv("spx_gru", "spx_gru.0", deconv=True, raw=True)
+    basic_conv(b, "conv", "conv", bn=False)
+    b.conv("desc", "desc", raw=True)
+    basic_conv(b, "corr_stem", "corr_stem")
+    feature_att(b, "corr_feature_att", "corr_feature_att.feat_att")
+    geo_hourglass(b, "cost_agg", "cost_agg")
+    b.conv("classifier", "classifier", raw=True)
+    multi_basic_encoder(b, "cnet", "cnet")
+    for i in range(3):
+        b.conv(f"context_zqr{i}", f"context_zqr_convs.{i}", raw=True)
+    ub, tb = "gru_loop/update_block", "update_block"
+    for k in ("convc1", "convc2", "convd1", "convd2", "conv"):
+        b.conv(f"{ub}/encoder/{k}", f"{tb}.encoder.{k}", raw=True)
+    for g in ("gru04", "gru08", "gru16"):
+        for k in ("convz", "convr", "convq"):
+            b.conv(f"{ub}/{g}/{k}", f"{tb}.{g}.{k}", raw=True)
+    for k in ("conv1", "conv2"):
+        b.conv(f"{ub}/disp_head/{k}", f"{tb}.disp_head.{k}", raw=True)
+    b.conv(f"{ub}/mask_feat_4", f"{tb}.mask_feat_4.0", raw=True)
     return b.finish()

@@ -35,6 +35,7 @@ from openstereo_tpu.models.casnet import casnet as jcas
 from openstereo_tpu.models.cfnet import cfnet as jcfnet
 from openstereo_tpu.models.fadnet import fadnet as jfadnet
 from openstereo_tpu.models.igev import blocks as jblocks
+from openstereo_tpu.models.igev import update as jupdate
 from openstereo_tpu.ops import cost_volume as jcv
 from openstereo_tpu.ops import sampler as jsampler
 from openstereo_tpu.ops import upsample as jup
@@ -49,6 +50,7 @@ from openstereo_tpu_torch.models.coex.coex import cosine_normalize
 from openstereo_tpu_torch.models.fadnet.fadnet import FADNet, FadResBlock
 from openstereo_tpu_torch.models.gwcnet.gwcnet import GwcHourglass
 from openstereo_tpu_torch.models.igev.blocks import BasicConvBN, FeatureAtt
+from openstereo_tpu_torch.models.igev.update import BasicMotionEncoder, ConvGRU
 from openstereo_tpu_torch.utils.jax_weights import (FlaxToTorch, basic_conv, fad_res,
                                                     feature_att, gwc_hourglass, msnet_mv1,
                                                     msnet_mv2, mv2_residual, res_block)
@@ -632,3 +634,73 @@ def test_fadnet_warp_coordinates_bf16():
     # the control: the same bf16 flow, the warp formed in f32
     f32 = FADNet.warp_inputs(None, t_left, t_right, to_torch(flow).float())
     assert np.abs(np.moveaxis(f32.numpy(), 1, -1) - np.asarray(ref)).max() > 1e-2
+
+
+def _igev_update_variables(module, args, seed):
+    shapes = jax.eval_shape(lambda *a: module.init(jax.random.key(0), *a), *args)
+    return _random_like(shapes, seed)
+
+
+def test_igev_conv_gru_bf16():
+    """IGEV's ConvGRU op by op (`igev/update.py:26-42`), with an f32 input among
+    its x (the motion features carry the f32 disparity; flax's conv casts it
+    to bf16): each conv with its bias, as flax's; the sigmoids are 3j as they
+    stand (the port rounds the f32 sigmoid once); tanh, (1 − z)·h and z·q
+    round as jnp's. The whole module against the flax program with each
+    sigmoid rounded once."""
+    h = jnp.tanh(captured_input((1, 6, 10, 16), 60))
+    ctx = tuple(captured_input((1, 6, 10, 16), 61 + i) for i in range(3))
+    x1 = captured_input((1, 6, 10, 8), 64)
+    x2 = jnp.asarray(np.random.RandomState(65).randn(1, 6, 10, 4).astype(np.float32))
+    fm = jupdate.ConvGRU(16, dtype=BF16)
+    v = _igev_update_variables(fm, (h, ctx, x1, x2), 66)
+    b = FlaxToTorch(v)
+    for k in ("convz", "convr", "convq"):
+        b.conv(k, k, raw=True)
+    tm = ConvGRU(16, 12)
+    tm.load_state_dict(b.finish())
+    ref, mut = fm.apply(v, h, ctx, x1, x2, capture_intermediates=True, mutable=["intermediates"])
+    cz, cr, cq = (mut["intermediates"][k]["__call__"][0] for k in ("convz", "convr", "convq"))
+    x = jnp.concatenate([x1, x2], axis=-1)
+    sig = lambda a: jax.nn.sigmoid(a.astype(jnp.float32)).astype(BF16)  # noqa: E731
+    jr = jax.nn.sigmoid(cr + ctx[1])  # the r that flax's convq read
+    with torch.no_grad():
+        th, tx = to_torch(h), torch.cat([to_torch(x1), to_torch(x2.astype(BF16))], dim=1)
+        thx = torch.cat([th, tx], dim=1)
+        assert_bf16_rule(tl.run_conv(thx, tm.convz), cz, "ConvGRU convz")
+        assert_bf16_rule(tl.run_conv(thx, tm.convr), cr, "ConvGRU convr")
+        assert_bf16_rule(tl.run_conv(torch.cat([to_torch(jr) * th, tx], dim=1), tm.convq), cq,
+                         "ConvGRU convq")
+        assert_bf16_rule(torch.tanh(to_torch(cq + ctx[2])), jnp.tanh(cq + ctx[2]), "ConvGRU tanh")
+        whole = tm(th, tuple(to_torch(c) for c in ctx), to_torch(x1), torch.from_numpy(
+            np.moveaxis(np.asarray(x2), -1, 1).copy()))
+    assert whole.dtype == torch.bfloat16
+    # flax's program with each sigmoid rounded once, op by op
+    z, r = sig(cz + ctx[0]), sig(cr + ctx[1])
+    convq = nn.Conv(16, (3, 3), padding="SAME", dtype=BF16)
+    q = jnp.tanh(convq.apply({"params": v["params"]["convq"]}, jnp.concatenate([r * h, x], -1))
+                 + ctx[2])
+    assert_bf16_rule(whole, (1 - z) * h + z * q, "ConvGRU: whole module, sigmoids rounded once")
+    # flax's own module (XLA:CPU's three-rounding sigmoids) lies further off
+    units = bf16_units(to_jax_layout(whole), np.asarray(ref, np.float32))
+    print(f"ConvGRU vs flax's module as it stands: {(units > 0).mean():.3g} of the elements differ")
+
+
+def test_igev_motion_encoder_bf16():
+    """IGEV's BasicMotionEncoder op by op (`igev/update.py:82-104`): bf16
+    lookups and the f32 disparity (cast to bf16 by the conv that reads it,
+    kept in f32 as the last channel); bit-equal but the flips of 3a."""
+    geo = captured_input((1, 6, 10, 18), 67)
+    disp = jnp.asarray(np.random.RandomState(68).uniform(0, 20, (1, 6, 10, 1)).astype(np.float32))
+    fm = jupdate.BasicMotionEncoder(dtype=BF16)
+    v = _igev_update_variables(fm, (disp, geo), 69)
+    b = FlaxToTorch(v)
+    for k in ("convc1", "convc2", "convd1", "convd2", "conv"):
+        b.conv(k, k, raw=True)
+    tm = BasicMotionEncoder(18)
+    tm.load_state_dict(b.finish())
+    ref = fm.apply(v, disp, geo)
+    with torch.no_grad():
+        got = tm(torch.from_numpy(np.moveaxis(np.asarray(disp), -1, 1).copy()), to_torch(geo))
+    assert got.dtype == torch.float32 and np.asarray(ref).dtype == np.float32
+    assert_bf16_rule(got, ref, "BasicMotionEncoder (127 bf16 channels and the f32 disparity)")
