@@ -57,7 +57,8 @@ without the repository around it). Phases, each of which fails the run:
    at CFNet's three (G 40: [1,160,72,120] D 24, [1,320,36,60] D 12,
    [1,320,18,30] D 6, below the kernel's 8-disparity chunk), at IGEV's two
    (C/G 12, the bf16 quotient's refined division: [1,96,136,240] and the
-   KITTI evaluation's [4,96,96,312], D 48, G 8) and at edge
+   KITTI evaluation's [4,96,96,312], D 48, G 8), at IGEV++'s ([1,96,136,240]
+   D 192 G 8) and at edge
    cases (the JAX test's shape, W ragged against the 8-column chunks, D over
    six disparity chunks, d >= W, cg = 1, cg = 12), f32 (TF32 off) and bf16
    (checked as K1's, with the unrounded control at the GwcNet, CFNet and
@@ -229,6 +230,16 @@ without the repository around it). Phases, each of which fails the run:
    px and the others <= 2 percentage points. First K2 at those batch-8
    shapes against its plain version (phase 4's checks) and K2 and K3 timed
    there beside their bounds.
+38-40. (run after phase 37) the IGEV-RT, StereoBase and IGEV++ paths
+   (`cfgs/igev_rt/igev_rt_sceneflow_amp.yaml`, `cfgs/stereobase/stereobase_sceneflow.yaml`,
+   `cfgs/igevpp/igevpp_sceneflow_amp.yaml`, full width and depth: 8, 32 and
+   32 GRU iterations) at 544x960, b1, bf16, as phase 36 runs IGEV's
+   (`igev_family_paths`): K2 11 times a frame at CoEx's trunk shapes and K3
+   once, at [1,96,136,240] D 48 G 8 (IGEV-RT, StereoBase) or D 192
+   (IGEV++), nothing else; f32 kernels vs eager >= 99.9 % of the pixels
+   within 5e-3 px (max-abs printed), bf16 mean-abs <= 0.5 px; frames/s,
+   profile, peak memory, each kernel at its shapes beside its plain version
+   and bound; then, for IGEV++, the measure CLI with 5 timed frames.
 
 Each phase prints its seconds on a `[phase-time]` line as it ends, and all
 of them once more before the JSON lines.
@@ -266,6 +277,9 @@ FADNET_CFG = ROOT / "cfgs/fadnet/fadnet_sceneflow.yaml"
 CASGWC_CFG = ROOT / "cfgs/casnet/casnet_gwc_sceneflow.yaml"
 CASPSM_CFG = ROOT / "cfgs/casnet/casnet_psm_sceneflow.yaml"
 IGEV_CFG = ROOT / "cfgs/igev/igev_sceneflow_amp.yaml"
+IGEV_RT_CFG = ROOT / "cfgs/igev_rt/igev_rt_sceneflow_amp.yaml"
+STEREOBASE_CFG = ROOT / "cfgs/stereobase/stereobase_sceneflow.yaml"
+IGEVPP_CFG = ROOT / "cfgs/igevpp/igevpp_sceneflow_amp.yaml"
 KITTI_EVAL_CFG = ROOT / "cfgs/kitti15_eval.yaml"
 
 # expected K2 launches per LightStereo-S frame: (batch, H, W, Cin, Ch, Cout, residual) → count
@@ -354,6 +368,9 @@ K3_EDGES = [
 # trunk is CoEx's, both views in one batch: K2 11 a frame, at batch 2 (COEX_K2_SHAPES) and at
 # batch 8 in the evaluation
 IGEV_K3_SHAPE = (1, 96, 136, 240, 48, 8)
+# IGEV++ (phase 40): one K3 volume over all MAX_DISP/4 = 192 planes (768 / 4), 24 of the
+# kernel's 8-plane chunks, from which its three ranges are carved
+IGEVPP_K3_SHAPE = (1, 96, 136, 240, 192, 8)
 IGEV_EVAL_BATCH, IGEV_EVAL_PAIRS, KITTI_HW = 4, 8, (375, 1242)
 IGEV_EVAL_K3_SHAPE = (IGEV_EVAL_BATCH, 96, 96, 312, 48, 8)
 IGEV_EVAL_K2_SHAPES = {
@@ -1335,7 +1352,8 @@ def phase_k3(dev):
     errs = {}
     cfnet = [(shape, f"CFNet {scale}") for shape, scale in zip(CFNET_K3_SHAPES,
                                                                 ("1/8", "1/16", "1/32"))]
-    igev = [(IGEV_K3_SHAPE, "IGEV"), (IGEV_EVAL_K3_SHAPE, "IGEV evaluation")]
+    igev = [(IGEV_K3_SHAPE, "IGEV"), (IGEV_EVAL_K3_SHAPE, "IGEV evaluation"),
+            (IGEVPP_K3_SHAPE, "IGEV++")]
     for (b, c, h, w, d, gr), tag in [(K3_SHAPE, "main path")] + cfnet + igev + K3_EDGES:
         left, right = (torch.randn(b, c, h, w, generator=g).to(dev) for _ in range(2))
         ref = ops.build_gwc_volume(left, right, d, gr)
@@ -3215,15 +3233,35 @@ def igev_path():
             "share", (4, 3, 1))
 
 
-def phase_igev(dev, card):
-    """Phase 36: IGEV through `run_pair` as phases 16-22 run their paths
-    (`phase_model`, `phase_timing_model`), then the measure CLI on the card
-    (parameters, FLOPs, ms/frame beside the card's name and power limit)."""
+def igev_family_paths():
+    """IGEV-RT, StereoBase and IGEV++ (phases 38-40), as `model_paths` entries:
+    each SceneFlow config at its 544x960 pad, full width and depth (IGEV-RT 8
+    iterations, StereoBase 32, IGEV++ 32), K2 11 times a frame in IGEV's
+    trunk and K3 once: [1,96,136,240] D 48 G 8 in IGEV-RT and StereoBase,
+    D 192 in IGEV++; the f32 rule "share" (the GRU iterations carry a
+    one-ulp difference forward), 4 timing groups (IGEV-RT's of 8 frames,
+    the others' of 3) and 1 frame profiled."""
+    trunk = COEX_K2_SHAPES
+    return [
+        ("IGEV-RT", IGEV_RT_CFG, {"gwc_volume": {IGEV_K3_SHAPE: 1}, "fused_mbconv": trunk},
+         "share", (4, 8, 1)),
+        ("StereoBase", STEREOBASE_CFG, {"gwc_volume": {IGEV_K3_SHAPE: 1}, "fused_mbconv": trunk},
+         "share", (4, 3, 1)),
+        ("IGEV++", IGEVPP_CFG, {"gwc_volume": {IGEVPP_K3_SHAPE: 1}, "fused_mbconv": trunk},
+         "share", (4, 3, 1)),
+    ]
+
+
+def phase_gru_model(dev, card, path, label, measure_reps=None):
+    """A GRU model's path through `run_pair` as phases 16-22 run theirs
+    (`phase_model`, `phase_timing_model`), then, with `measure_reps`, the
+    measure CLI on the card (parameters, FLOPs, ms/frame beside the card's
+    name and power limit)."""
     import torch
 
     from openstereo_tpu_torch.tools import measure
 
-    name, cfg_file, want, rule, protocol = igev_path()
+    name, cfg_file, want, rule, protocol = path
     t0 = time.perf_counter()
     model, rec = phase_model(dev, name, cfg_file, want, rule)
     t1 = time.perf_counter()
@@ -3232,10 +3270,17 @@ def phase_igev(dev, card):
     del model
     torch.cuda.empty_cache()
     t2 = time.perf_counter()
-    rec["measure"] = measure.main(["--cfg_file", str(cfg_file), "--reps", "10", "--warmup", "3"])
-    print(f"[phase-time] 36 IGEV: agreement {t1 - t0:.1f} s, timing and profile {t2 - t1:.1f} s, "
+    if measure_reps:
+        rec["measure"] = measure.main(["--cfg_file", str(cfg_file), "--reps", str(measure_reps),
+                                       "--warmup", "3"])
+    print(f"[phase-time] {label}: agreement {t1 - t0:.1f} s, timing and profile {t2 - t1:.1f} s, "
           f"measure CLI {time.perf_counter() - t2:.1f} s")
     return rec
+
+
+def phase_igev(dev, card):
+    """Phase 36: IGEV through `run_pair`, then the measure CLI (`phase_gru_model`)."""
+    return phase_gru_model(dev, card, igev_path(), "36 IGEV", measure_reps=10)
 
 
 def write_kitti_set(root, n, hw, max_disp=192):
@@ -3406,6 +3451,10 @@ def main():
             print(f"[phase-time] 16-22 {name}: {PHASE_SECONDS[f'16-22 {name}']:.1f} s")
         models["IGEV"] = run_phase("36 IGEV", phase_igev, dev, card)
         igev_eval = run_phase("37 IGEV eval CLI", phase_igev_eval, dev, card)
+        for number, path in zip((38, 39, 40), igev_family_paths()):
+            label = f"{number} {path[0]}"
+            models[path[0]] = run_phase(label, phase_gru_model, dev, card, path, label,
+                                        5 if path[0] == "IGEV++" else None)
         k1_eval, k2_eval, k2_eval_splits = run_phase("13 evaluation batch", phase_eval_batch, dev)
         trained = run_phase("14 LightStereo training", phase_train, dev)
         overfit = run_phase("15 LightStereo overfit", phase_overfit)
@@ -3444,7 +3493,7 @@ def main():
              paths=path_entries(models, "fused_mbconv", {
                  name: {"max_abs_err_f32": max(k2_err[3][k][0] for k in want["fused_mbconv"]),
                         "max_abs_err": max(k2_err[3][k][1] for k in want["fused_mbconv"])}
-                 for name, _, want, _, _ in model_paths() + [igev_path()]
+                 for name, _, want, _, _ in model_paths() + [igev_path()] + igev_family_paths()
                  if "fused_mbconv" in want}),
              launches_trainer_eval=trainer_eval_launches(trained, zoo, "fused_mbconv"),
              eval_batch=dict(max_abs_err=k2_eval[1], max_abs_err_f32=k2_eval[0],
@@ -3485,7 +3534,9 @@ def main():
                  "CFNet": dict(zip(VOLUME_ERR_KEYS, np.max([e for t, e in k3_err.items()
                                                             if t.startswith("CFNet")], axis=0)
                                    .tolist())),
-                 "IGEV": dict(zip(VOLUME_ERR_KEYS, k3_err["IGEV"]))}),
+                 **{name: dict(zip(VOLUME_ERR_KEYS, k3_err["IGEV"]))
+                    for name in ("IGEV", "IGEV-RT", "StereoBase")},
+                 "IGEV++": dict(zip(VOLUME_ERR_KEYS, k3_err["IGEV++"]))}),
              igev_eval=dict(launches=igev_eval["launches"]["gwc_volume"],
                             batches=igev_eval["batches"], batch=igev_eval["batch"],
                             **dict(zip(VOLUME_ERR_KEYS, k3_err["IGEV evaluation"])),
@@ -3524,7 +3575,7 @@ def main():
               f"GiB")
     print(f"[igev-eval] eval CLI, KITTI-format 384x1248 b{igev_eval['batch']} bf16: metrics with "
           f"kernels {igev_eval['metrics_kernels']}, eager {igev_eval['metrics_eager']}; measure "
-          f"CLI: {models['IGEV']['measure']}")
+          f"CLI: {models['IGEV']['measure']}; IGEV++: {models['IGEV++']['measure']}")
     print(f"[train] LightStereo-S 320x736 b24 bf16: {trained['ms_per_step']:.2f} ms/step (median "
           f"of steps 2-4), {trained['samples_per_s']:.1f} samples/s, peak "
           f"{trained['peak_bytes'] / 2**30:.3f} GiB; losses {trained['losses']}; evaluation EPE "

@@ -2,7 +2,8 @@
 
 LightStereo, STTR, GwcNet, PSMNet, CoEx, MSNet3D, MSNet2D, CFNet, FADNet,
 CasGwcNet and CasPSMNet are ported, for inference and for training, and
-IGEV for inference; the other names of the JAX zoo raise
+IGEV, IGEV-RT, StereoBase (also under its configs' name StereoBaseGRU) and
+IGEV++ for inference; the other names of the JAX zoo raise
 NotImplementedError naming the ROADMAP item that brings them.
 """
 
@@ -21,10 +22,13 @@ from .coex import CoExNet
 from .fadnet import FADNet
 from .gwcnet import GwcNet
 from .igev import IGEV
+from .igev_rt import IGEVRT
+from .igevpp import IGEVPP
 from .layers import set_kernels  # noqa: F401
 from .lightstereo import LightStereo
 from .msnet import MSNet2D, MSNet3D
 from .psmnet import PSMNet
+from .stereobase import StereoBase
 from .sttr import STTR
 from .sttr.blocks import WNConv
 from .sttr.sttr import RegressionHead
@@ -32,12 +36,12 @@ from .sttr.transformer import MultiheadAttentionRelative
 
 MODELS = {"LightStereo": LightStereo, "STTR": STTR, "GwcNet": GwcNet, "PSMNet": PSMNet,
           "CoExNet": CoExNet, "MSNet3D": MSNet3D, "MSNet2D": MSNet2D, "CFNet": CFNet,
-          "FADNet": FADNet, "CasGwcNet": CasGwcNet, "CasPSMNet": CasPSMNet, "IGEV": IGEV}
+          "FADNet": FADNet, "CasGwcNet": CasGwcNet, "CasPSMNet": CasPSMNet, "IGEV": IGEV,
+          "IGEVRT": IGEVRT, "StereoBase": StereoBase, "StereoBaseGRU": StereoBase,
+          "IGEVPP": IGEVPP}
 
 # JAX-zoo names still to be ported → the ROADMAP item (queue 1) that ports them
 NOT_PORTED = {
-    "IGEVRT": "Slice E, item 14",
-    "StereoBase": "Slice E, item 14", "IGEVPP": "Slice E, item 14",
     "FoundationStereo": "Slice E, item 15", "FastFoundationStereo": "Slice E, item 15",
     "MonSter": "Slice E, item 15",
     "AANet": "Slice F, item 17", "NMRF": "Slice F, item 18",

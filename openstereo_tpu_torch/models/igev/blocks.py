@@ -7,12 +7,13 @@ broadcast over the disparity axis), the MobileNetV2 + decoder `Feature`
 trunk, and the context net `MultiBasicEncoder` with its `ResidualBlockCtx`.
 CoEx uses the first four. Attribute names follow the reference submodules
 as `openstereo_tpu/utils/torch_convert.py` reads them (`.conv`, `.bn`;
-`_conv2x`, `_feature_att`, `_igev_feature`, `_multi_basic_encoder`).
+`_conv2x`, `_feature_att`, `_igev_feature`, `_multi_basic_encoder`), or,
+with `spelling="block"`, StereoBase's (`.block.0`, `.block.1`).
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 import torch.nn as nn
@@ -37,41 +38,73 @@ def _conv_or_deconv(in_ch: int, out_ch: int, kernel_size, stride, deconv: bool, 
         in_ch, out_ch, ks, st, padding=tuple((k - 1) // 2 for k in ks), bias=False)
 
 
+def _hold(module: nn.Module, conv: nn.Module, norm: Optional[nn.Module], norm_key: str,
+          spelling: str):
+    """Register a block's conv and norm under one of the two key spellings of
+    the reference: "igev" (its igev/igevpp `BasicConv`: keys conv and, for a
+    BatchNorm, `norm_key`) or "block" (StereoBase's `BasicConv2d`/`3d`:
+    block.0 the conv, block.1 the norm; `torch_convert.py:_conv2x` and
+    `_geo_hourglass` read both)."""
+    if spelling == "block":
+        module.block = nn.Sequential(conv, *([norm] if norm is not None else []))
+    elif spelling == "igev":
+        module.conv = conv
+        if norm is not None:
+            setattr(module, norm_key, norm)
+    else:
+        raise ValueError(f"unknown spelling {spelling!r}")
+
+
+def _conv_norm_act(module: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """The held conv, then its norm, then the activation."""
+    if hasattr(module, "block"):
+        conv, norm = module.block[0], (module.block[1] if len(module.block) > 1 else None)
+    else:
+        conv, norm = module.conv, getattr(module, module.norm_key, None)
+    x = run_conv(x, conv)
+    if norm is not None:
+        x = apply_norm(x, norm)
+    return module.act(x) if module.act is not None else x
+
+
 class BasicConvBN(nn.Module):
     """conv (or a k4 s2 p1 deconv) + BatchNorm + leaky_relu 0.01, each
     optional (`igev/blocks.py:46-64`); 2D or, with ndim=3, 3D. The conv pads
     (k-1)//2 per axis; kernel and stride are an int or one per axis. Keys:
-    conv, bn."""
+    conv, bn, or with `spelling` "block" block.0, block.1 (`_hold`)."""
+
+    norm_key = "bn"
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size=3, stride=1, deconv: bool = False,
-                 bn: bool = True, relu: bool = True, ndim: int = 2):
+                 bn: bool = True, relu: bool = True, ndim: int = 2, spelling: str = "igev"):
         super().__init__()
-        self.conv = _conv_or_deconv(in_ch, out_ch, kernel_size, stride, deconv, ndim)
-        if bn:
-            self.bn = (nn.BatchNorm2d if ndim == 2 else nn.BatchNorm3d)(out_ch)
+        norm = (nn.BatchNorm2d if ndim == 2 else nn.BatchNorm3d)(out_ch) if bn else None
+        _hold(self, _conv_or_deconv(in_ch, out_ch, kernel_size, stride, deconv, ndim), norm,
+              self.norm_key, spelling)
         self.act = leaky_relu() if relu else None
 
     def forward(self, x):
-        x = run_conv(x, self.conv)
-        if hasattr(self, "bn"):
-            x = apply_norm(x, self.bn)
-        return self.act(x) if self.act is not None else x
+        return _conv_norm_act(self, x)
 
 
 class BasicConvIN(nn.Module):
     """conv (or a k4 s2 p1 deconv) + non-affine InstanceNorm + leaky_relu 0.01
-    (`igev/blocks.py:26-43`), 2D. Key: conv (the norm has no parameters)."""
+    (`igev/blocks.py:26-43`); 2D or, with ndim=3, 3D, whose InstanceNorm
+    takes its statistics over D, H and W. Key: conv, or block.0 with
+    `spelling` "block" (the norm has no parameters)."""
+
+    norm_key = "IN"
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size=3, stride=1, deconv: bool = False,
-                 relu: bool = True):
+                 relu: bool = True, ndim: int = 2, spelling: str = "igev"):
         super().__init__()
-        self.conv = _conv_or_deconv(in_ch, out_ch, kernel_size, stride, deconv, 2)
-        self.IN = nn.InstanceNorm2d(out_ch)
+        norm = (nn.InstanceNorm2d if ndim == 2 else nn.InstanceNorm3d)(out_ch)
+        _hold(self, _conv_or_deconv(in_ch, out_ch, kernel_size, stride, deconv, ndim), norm,
+              self.norm_key, spelling)
         self.act = leaky_relu() if relu else None
 
     def forward(self, x):
-        x = apply_norm(run_conv(x, self.conv), self.IN)
-        return self.act(x) if self.act is not None else x
+        return _conv_norm_act(self, x)
 
 
 class Conv2x(nn.Module):
@@ -80,17 +113,18 @@ class Conv2x(nn.Module):
     concatenated with the skip (whose width is out_ch, as the reference
     assumes) or added to it; conv2 fuses to 2·out_ch (`keep_concat`) or
     out_ch (`igev/blocks.py:67-99`). `norm` "batch", "instance" or "none"
-    picks BasicConvBN, BasicConvIN or BasicConvBN without its norm.
-    Keys: conv1, conv2."""
+    picks BasicConvBN, BasicConvIN or BasicConvBN without its norm, each
+    in `spelling`. Keys: conv1, conv2."""
 
     def __init__(self, in_ch: int, out_ch: int, deconv: bool = True, concat: bool = True,
-                 norm: str = "batch", keep_concat: bool = True):
+                 norm: str = "batch", keep_concat: bool = True, spelling: str = "igev"):
         super().__init__()
         if norm == "instance":
-            basic = BasicConvIN
+            def basic(*args, **kw):
+                return BasicConvIN(*args, spelling=spelling, **kw)
         elif norm in ("batch", "none"):
             def basic(*args, **kw):
-                return BasicConvBN(*args, bn=norm == "batch", **kw)
+                return BasicConvBN(*args, bn=norm == "batch", spelling=spelling, **kw)
         else:
             raise ValueError(f"unknown norm {norm!r}")
         self.concat = concat
@@ -107,15 +141,20 @@ class Conv2x(nn.Module):
 
 
 class FeatureAtt(nn.Module):
-    """Gate a [B,Cv,D,H,W] volume by sigmoid(a 1×1 BasicConvBN to half the
-    image-feature width, then a 1×1 conv with bias to Cv), broadcast over D
-    (`igev/blocks.py:102-117`). Keys: `key`.{0,1}: im_att as CoEx's reference
-    channelAtt names it, feat_att as IGEV's reference does."""
+    """Gate a [B,Cv,D,H,W] volume by sigmoid(a 1×1 BasicConvBN, or with `norm`
+    "instance" BasicConvIN (IGEV++), to half the image-feature width, then a
+    1×1 conv with bias to Cv), broadcast over D (`igev/blocks.py:102-117`).
+    Keys: `key`.{0,1}: im_att as CoEx's reference channelAtt names it,
+    feat_att as IGEV's reference does; the first in `spelling`."""
 
-    def __init__(self, cv_ch: int, feat_ch: int, key: str = "im_att"):
+    def __init__(self, cv_ch: int, feat_ch: int, key: str = "im_att", norm: str = "batch",
+                 spelling: str = "igev"):
         super().__init__()
+        if norm not in ("batch", "instance"):
+            raise ValueError(f"unknown norm {norm!r}")
+        basic = BasicConvBN if norm == "batch" else BasicConvIN
         self.key = key
-        setattr(self, key, nn.Sequential(BasicConvBN(feat_ch, feat_ch // 2, 1),
+        setattr(self, key, nn.Sequential(basic(feat_ch, feat_ch // 2, 1, spelling=spelling),
                                          nn.Conv2d(feat_ch // 2, cv_ch, 1)))
 
     def forward(self, cv, feat):
@@ -127,15 +166,15 @@ class FeatureAtt(nn.Module):
 class Feature(MobileNetV2Features):
     """IGEV's image features (`igev/blocks.py:120-137`): the MobileNetV2 trunk
     (stem with relu6, the sliced key layout: conv_stem, bn1, block0..4), then
-    three InstanceNorm Conv2x deconv stages and conv4:
+    three InstanceNorm Conv2x deconv stages and conv4, in `spelling`:
     [B,3,H,W] → [y4 48@1/4, y8 64@1/8, y16 192@1/16, x32 160@1/32]."""
 
-    def __init__(self):
+    def __init__(self, spelling: str = "igev"):
         super().__init__(stem_act=True, sliced=True)
-        self.deconv32_16 = Conv2x(160, 96, norm="instance")
-        self.deconv16_8 = Conv2x(192, 32, norm="instance")
-        self.deconv8_4 = Conv2x(64, 24, norm="instance")
-        self.conv4 = BasicConvIN(48, 48, 3)
+        self.deconv32_16 = Conv2x(160, 96, norm="instance", spelling=spelling)
+        self.deconv16_8 = Conv2x(192, 32, norm="instance", spelling=spelling)
+        self.deconv8_4 = Conv2x(64, 24, norm="instance", spelling=spelling)
+        self.conv4 = BasicConvIN(48, 48, 3, spelling=spelling)
 
     def forward(self, x):
         _, x4, x8, x16, x32 = super().forward(x)

@@ -17,6 +17,7 @@
 The trunk's stride-1 inverted residuals run the fused MBConv kernel K2 in
 eval. Images come in [0,255] and are rescaled to [-1,1] inside, as the JAX
 model does (`igev.py:192-193`), also after a NormalizeImage transform.
+`IGEVFamily` holds what IGEV-RT, StereoBase and IGEV++ share with it.
 Training (the GRU loop under autograd and the sequence loss,
 `igev.py:339-348`) is not ported: the forward raises in training mode. The
 training-only heads `spx_4`, `spx_2` and `spx` are held all the same, so
@@ -33,7 +34,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ...ops import build_gwc_volume, context_upsample, disparity_regression, gwc_volume
-from ..layers import head_dtype, run_conv, run_seq, siamese
+from ..layers import ConvBlock, head_dtype, run_conv, run_seq, siamese
 from .blocks import BasicConvBN, BasicConvIN, Conv2x, Feature, FeatureAtt, MultiBasicEncoder
 from .geometry import CombinedGeoEncodingVolume, lookup_dtype
 from .update import BasicMultiUpdateBlock
@@ -41,18 +42,47 @@ from .update import BasicMultiUpdateBlock
 FEATURE_CHANNELS = (96, 64, 192, 160)  # features at 1/4 (with the stem's 48), 1/8, 1/16, 1/32
 
 
+def no_training(name: str):
+    """The training of the IGEV family is not ported (ROADMAP item 14)."""
+    return NotImplementedError(f"{name} training (the GRU loop under autograd and its sequence "
+                               "loss) is ROADMAP item 14")
+
+
+def pixel_columns(like: torch.Tensor) -> torch.Tensor:
+    """The column index of each pixel of a [B,H,W] map, f32."""
+    b, h, w = like.shape
+    return torch.arange(w, dtype=torch.float32, device=like.device).expand(b, h, w)
+
+
+def stem(cin: int, cout: int, stride: int, spelling: str = "igev") -> nn.Sequential:
+    """BasicConvIN, then a plain conv + InstanceNorm + ReLU (`igev.py:203-210`).
+    Keys: 0.conv, 1 (IGEV's reference), or with `spelling` "block" 0.block.0,
+    1.block.0 (StereoBase's two BasicConv2d)."""
+    if spelling == "block":
+        return nn.Sequential(BasicConvIN(cin, cout, 3, stride, spelling="block"),
+                             ConvBlock(cout, cout, 3, 1, norm="instance", act=F.relu))
+    return nn.Sequential(BasicConvIN(cin, cout, 3, stride),
+                         nn.Conv2d(cout, cout, 3, 1, 1, bias=False),
+                         nn.InstanceNorm2d(cout), nn.ReLU())
+
+
 class GeoHourglass(nn.Module):
     """The three-level 3D hourglass with feature attention at every scale
-    (`igev.py:46-93`); `in_ch` in and out. Keys: conv1..3.{0,1}, conv3_up,
-    conv2_up, conv1_up (no norm, no activation), agg_0.{0,1,2},
+    (`igev.py:46-93`); `in_ch` in and out; its blocks in `spelling` (IGEV's
+    `.conv`/`.bn`, or StereoBase's `.block.0`/`.block.1`). Keys: conv1..3.{0,1},
+    conv3_up, conv2_up, conv1_up (no norm, no activation), agg_0.{0,1,2},
     agg_1.{0,1,2}, feature_att_8, _16, _32, _up_16, _up_8."""
 
-    def __init__(self, in_ch: int, feat_channels: Sequence[int] = FEATURE_CHANNELS):
+    def __init__(self, in_ch: int, feat_channels: Sequence[int] = FEATURE_CHANNELS,
+                 spelling: str = "igev"):
         super().__init__()
         c, f8, f16, f32 = in_ch, feat_channels[1], feat_channels[2], feat_channels[3]
 
         def b3(cin, cout, k, s, **kw):
-            return BasicConvBN(cin, cout, k, s, ndim=3, **kw)
+            return BasicConvBN(cin, cout, k, s, ndim=3, spelling=spelling, **kw)
+
+        def att(cv, f):
+            return FeatureAtt(cv, f, key="feat_att", spelling=spelling)
 
         self.conv1 = nn.Sequential(b3(c, 2 * c, 3, 2), b3(2 * c, 2 * c, 3, 1))
         self.conv2 = nn.Sequential(b3(2 * c, 4 * c, 3, 2), b3(4 * c, 4 * c, 3, 1))
@@ -64,11 +94,11 @@ class GeoHourglass(nn.Module):
                                    b3(4 * c, 4 * c, 3, 1))
         self.agg_1 = nn.Sequential(b3(4 * c, 2 * c, 1, 1), b3(2 * c, 2 * c, 3, 1),
                                    b3(2 * c, 2 * c, 3, 1))
-        self.feature_att_8 = FeatureAtt(2 * c, f8, key="feat_att")
-        self.feature_att_16 = FeatureAtt(4 * c, f16, key="feat_att")
-        self.feature_att_32 = FeatureAtt(6 * c, f32, key="feat_att")
-        self.feature_att_up_16 = FeatureAtt(4 * c, f16, key="feat_att")
-        self.feature_att_up_8 = FeatureAtt(2 * c, f8, key="feat_att")
+        self.feature_att_8 = att(2 * c, f8)
+        self.feature_att_16 = att(4 * c, f16)
+        self.feature_att_32 = att(6 * c, f32)
+        self.feature_att_up_16 = att(4 * c, f16)
+        self.feature_att_up_8 = att(2 * c, f8)
 
     def forward(self, x, features):
         conv1 = self.feature_att_8(self.conv1(x), features[1])
@@ -81,7 +111,85 @@ class GeoHourglass(nn.Module):
         return self.conv1_up(conv1)
 
 
-class IGEV(nn.Module):
+class IGEVFamily(nn.Module):
+    """What IGEV, IGEV-RT, StereoBase and IGEV++ share at inference, over the
+    attributes each holds under the reference's names: `feature`, `stem_2`,
+    `stem_4`, `conv`, `desc` (the matching descriptors), `classifier`, `cnet`
+    and `context_zqr_convs` (the context net), `update_block`, `spx_2_gru`
+    and `spx_gru` (the superpixel upsample). `use_kernels` routes the
+    group-wise volume through K3 (`set_kernels`); the trunk's blocks hold
+    their own switch for K2."""
+
+    use_kernels = True
+
+    def _stems(self, x):
+        s2 = run_seq(x, self.stem_2)
+        return s2, run_seq(s2, self.stem_4)
+
+    def descriptors(self, image1: torch.Tensor, image2: torch.Tensor):
+        """Both views through `Feature` and the stems as one 2B batch → (the
+        left features, 1/4 with the stem's 48 channels, then 1/8, 1/16, 1/32;
+        the left 1/2 stem; the left and right matching descriptors)."""
+        feats_l, feats_r = siamese(self.feature, image1, image2)
+        (stem_2x, stem_4x), (_, stem_4y) = siamese(self._stems, image1, image2)
+        feats_l[0] = torch.cat([feats_l[0], stem_4x], dim=1)
+        feats_r[0] = torch.cat([feats_r[0], stem_4y], dim=1)
+        match_left = run_conv(self.conv(feats_l[0]), self.desc).contiguous()
+        match_right = run_conv(self.conv(feats_r[0]), self.desc).contiguous()
+        return feats_l, stem_2x, match_left, match_right
+
+    def gwc(self, match_left: torch.Tensor, match_right: torch.Tensor, max_disp: int,
+            groups: int) -> torch.Tensor:
+        """The group-wise volume [B,G,D,H,W]: K3, or its plain version with
+        kernels off."""
+        volume = gwc_volume if self.use_kernels else build_gwc_volume
+        return volume(match_left, match_right, max_disp, groups)
+
+    def regress(self, geo_volume: torch.Tensor, max_disp: int, interval: int = 1):
+        """Soft-argmax over the classified planes, in at least f32 → [B,H,W]."""
+        cost = run_conv(geo_volume, self.classifier)[:, 0]
+        prob = torch.softmax(cost.to(head_dtype(self.dtype)), dim=1)
+        return disparity_regression(prob, max_disp, dim=1, interval=interval)
+
+    def context(self, image1: torch.Tensor):
+        """The context net → (hidden states tanh, per-GRU (cz, cr, cq) biases)."""
+        cnet = self.cnet(image1)
+        net = [torch.tanh(o[0]) for o in cnet]
+        inp = [tuple(torch.chunk(run_conv(F.relu(o[1]), conv), 3, dim=1))
+               for o, conv in zip(cnet, self.context_zqr_convs)]
+        return net, inp
+
+    def gru_iteration(self, net, inp, geo_fn, coords, disp):
+        """One IGEV iteration, slow-fast where `slow_fast_gru` (`igev.py:96-158`):
+        disp [B,1,H,W] f32 → (net, the new disp, mask_feat_4)."""
+        disp = disp.detach()
+        geo = geo_fn(disp[:, 0], coords).permute(0, 3, 1, 2)
+        ub = self.update_block
+        n = self.n_gru_layers
+        if n == 3 and self.slow_fast_gru:
+            net = ub(net, inp, iter16=True, iter08=False, iter04=False, update=False)
+        if n >= 2 and self.slow_fast_gru:
+            net = ub(net, inp, iter16=n == 3, iter08=True, iter04=False, update=False)
+        net, mask_feat_4, delta = ub(net, inp, geo, disp, iter16=n == 3, iter08=n >= 2)
+        return net, disp + delta, mask_feat_4
+
+    def refine(self, iters: int, net, *consts, disp: torch.Tensor):
+        """`iters` of `gru_iteration` from disp [B,H,W] → (the last disp
+        [B,1,H,W], its mask_feat_4)."""
+        disp, mask_feat_4 = disp[:, None], None
+        for _ in range(iters):
+            net, disp, mask_feat_4 = self.gru_iteration(net, *consts, disp)
+        return disp, mask_feat_4
+
+    def upsample(self, disp: torch.Tensor, mask_feat_4: torch.Tensor,
+                 stem_2x: torch.Tensor) -> torch.Tensor:
+        """The 1/4 disparity [B,1,H,W] ×4 by the superpixel weights → [B,H,W]."""
+        x = self.spx_2_gru(mask_feat_4, stem_2x)
+        spx = torch.softmax(run_seq(x, self.spx_gru).to(head_dtype(self.dtype)), dim=1)
+        return context_upsample(disp[:, 0] * 4.0, spx)
+
+
+class IGEV(IGEVFamily):
     """forward(data) → {'disp_pred': [B,H,W]}, eval only.
 
     data['left'] / data['right']: [B,3,H,W] images in [0,255], H and W
@@ -91,7 +199,6 @@ class IGEV(nn.Module):
     in `lookup_dtype`. Keys follow the reference IGEVStereo state_dict.
     """
 
-    use_kernels = True
     GROUPS = 8  # the group-wise volume's groups (`igev.py:231-232`)
 
     def __init__(self, max_disp: int = 192, hidden_dims: Sequence[int] = (128, 128, 128),
@@ -109,12 +216,6 @@ class IGEV(nn.Module):
         self.valid_iters = valid_iters
         hd = list(hidden_dims)
         c4 = FEATURE_CHANNELS[0]
-
-        def stem(cin, cout, stride):
-            """BasicConvIN, then a plain conv + InstanceNorm + ReLU (`igev.py:203-210`)."""
-            return nn.Sequential(BasicConvIN(cin, cout, 3, stride),
-                                 nn.Conv2d(cout, cout, 3, 1, 1, bias=False),
-                                 nn.InstanceNorm2d(cout), nn.ReLU())
 
         self.feature = Feature()
         self.stem_2 = stem(3, 32, 2)
@@ -137,67 +238,24 @@ class IGEV(nn.Module):
         cor_planes = corr_levels * (2 * corr_radius + 1) * (self.GROUPS + 1)
         self.update_block = BasicMultiUpdateBlock(hd[::-1], n_gru_layers, cor_planes)
 
-    def _stems(self, x):
-        s2 = run_seq(x, self.stem_2)
-        return s2, run_seq(s2, self.stem_4)
-
-    def gru_iteration(self, net, inp, geo_fn, coords, disp):
-        """One slow-fast iteration (`igev.py:96-158`): disp [B,1,H,W] f32 →
-        (net, the new disp, mask_feat_4)."""
-        disp = disp.detach()
-        geo = geo_fn(disp[:, 0], coords).permute(0, 3, 1, 2)
-        ub = self.update_block
-        n = self.n_gru_layers
-        if n == 3 and self.slow_fast_gru:
-            net = ub(net, inp, iter16=True, iter08=False, iter04=False, update=False)
-        if n >= 2 and self.slow_fast_gru:
-            net = ub(net, inp, iter16=n == 3, iter08=True, iter04=False, update=False)
-        net, mask_feat_4, delta = ub(net, inp, geo, disp, iter16=n == 3, iter08=n >= 2)
-        return net, disp + delta, mask_feat_4
-
     def forward(self, data: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         if self.training:
-            raise NotImplementedError("IGEV training (the GRU loop under autograd and its "
-                                      "sequence loss) is ROADMAP item 14")
-        hd = head_dtype(self.dtype)
+            raise no_training("IGEV")
         image1 = (2.0 * (data["left"].float() / 255.0) - 1.0).to(self.dtype)
         image2 = (2.0 * (data["right"].float() / 255.0) - 1.0).to(self.dtype)
-        feats_l, feats_r = siamese(self.feature, image1, image2)
-        (stem_2x, stem_4x), (_, stem_4y) = siamese(self._stems, image1, image2)
-        feats_l[0] = torch.cat([feats_l[0], stem_4x], dim=1)
-        feats_r[0] = torch.cat([feats_r[0], stem_4y], dim=1)
-
-        match_left = run_conv(self.conv(feats_l[0]), self.desc).contiguous()
-        match_right = run_conv(self.conv(feats_r[0]), self.desc).contiguous()
+        feats_l, stem_2x, match_left, match_right = self.descriptors(image1, image2)
         d4 = self.max_disp // 4
-        volume = gwc_volume if self.use_kernels else build_gwc_volume
-        gwc = volume(match_left, match_right, d4, self.GROUPS)  # [B,8,D/4,H/4,W/4]
+        gwc = self.gwc(match_left, match_right, d4, self.GROUPS)  # [B,8,D/4,H/4,W/4]
         gwc = self.corr_feature_att(self.corr_stem(gwc), feats_l[0])
         geo_volume = self.cost_agg(gwc, feats_l)
-
-        cost = run_conv(geo_volume, self.classifier)[:, 0]
-        prob = torch.softmax(cost.to(hd), dim=1)
-        init_disp = disparity_regression(prob, d4, dim=1)  # [B,H/4,W/4]
-
-        cnet = self.cnet(image1)
-        net = [torch.tanh(o[0]) for o in cnet]
-        inp = [tuple(torch.chunk(run_conv(F.relu(o[1]), conv), 3, dim=1))
-               for o, conv in zip(cnet, self.context_zqr_convs)]
-
+        init_disp = self.regress(geo_volume, d4)  # [B,H/4,W/4]
+        net, inp = self.context(image1)
         ld = lookup_dtype(self.dtype)
         geo_fn = CombinedGeoEncodingVolume(match_left.to(ld), match_right.to(ld),
                                            geo_volume.to(ld), self.corr_levels, self.corr_radius)
-        b, h4, w4 = init_disp.shape
-        coords = torch.arange(w4, dtype=torch.float32, device=init_disp.device).expand(b, h4, w4)
-        disp = init_disp[:, None]
-        mask_feat_4 = None
-        for _ in range(self.valid_iters):
-            net, disp, mask_feat_4 = self.gru_iteration(net, inp, geo_fn, coords, disp)
-
-        x = self.spx_2_gru(mask_feat_4, stem_2x)
-        spx = torch.softmax(run_seq(x, self.spx_gru).to(hd), dim=1)  # [B,9,H,W]
-        return {"disp_pred": context_upsample(disp[:, 0] * 4.0, spx)}
+        disp, mask_feat_4 = self.refine(self.valid_iters, net, inp, geo_fn,
+                                        pixel_columns(init_disp), disp=init_disp)
+        return {"disp_pred": self.upsample(disp, mask_feat_4, stem_2x)}
 
     def get_loss(self, pred: Dict, data: Dict):
-        raise NotImplementedError("IGEV training (the sequence loss, `igev.py:339-348`) is "
-                                  "ROADMAP item 14")
+        raise no_training("IGEV")

@@ -54,17 +54,21 @@ class ConvGRU(nn.Module):
 
 
 class BasicMotionEncoder(nn.Module):
-    """Lookups + the current disparity → 128 motion features, the disparity
-    last (`update.py:82`). Its convs run in the lookups' dtype.
-    Keys: convc1, convc2, convd1, convd2, conv."""
+    """Lookups + the current disparity → `out` motion features, the disparity
+    last (`update.py:82`). Its convs run in the lookups' dtype. The widths
+    are IGEV's by default: `corr` (convc1, convc2) 64, 64, `disp` (convd1,
+    convd2) 64, 64, out 128; IGEV-RT's encoder has out 96
+    (`igev_rt.py:43`), IGEV++'s `BasicDispEncoder` corr 128, 96 and disp
+    32, 32 (`igevpp.py:114`). Keys: convc1, convc2, convd1, convd2, conv."""
 
-    def __init__(self, cor_planes: int):
+    def __init__(self, cor_planes: int, corr: Sequence[int] = (64, 64),
+                 disp: Sequence[int] = (64, 64), out: int = 128):
         super().__init__()
-        self.convc1 = nn.Conv2d(cor_planes, 64, 1)
-        self.convc2 = nn.Conv2d(64, 64, 3, padding=1)
-        self.convd1 = nn.Conv2d(1, 64, 7, padding=3)
-        self.convd2 = nn.Conv2d(64, 64, 3, padding=1)
-        self.conv = nn.Conv2d(128, 127, 3, padding=1)
+        self.convc1 = nn.Conv2d(cor_planes, corr[0], 1)
+        self.convc2 = nn.Conv2d(corr[0], corr[1], 3, padding=1)
+        self.convd1 = nn.Conv2d(1, disp[0], 7, padding=3)
+        self.convd2 = nn.Conv2d(disp[0], disp[1], 3, padding=1)
+        self.conv = nn.Conv2d(corr[1] + disp[1], out - 1, 3, padding=1)
 
     def forward(self, disp, geo):
         cor = F.relu(run_conv(geo, self.convc1))
@@ -90,19 +94,23 @@ class DispHead(nn.Module):
 class BasicMultiUpdateBlock(nn.Module):
     """The three-scale GRU cascade with slow-fast flags (`update.py:120`).
     hidden_dims are ordered [1/16, 1/8, 1/4]: net[0] (1/4) has hidden_dims[2]
-    channels. Keys: encoder, gru04, gru08, gru16, disp_head, mask_feat_4.0."""
+    channels. `encoder` is the motion encoder (IGEV's `BasicMotionEncoder`
+    over `cor_planes` by default) and `mask_ch` the width of mask_feat_4 (32;
+    IGEV++ 64). Keys: encoder, gru04, gru08, gru16, disp_head,
+    mask_feat_4.0."""
 
     def __init__(self, hidden_dims: Sequence[int] = (128, 128, 128), n_gru_layers: int = 3,
-                 cor_planes: int = 162):
+                 cor_planes: int = 162, encoder: Optional[nn.Module] = None, mask_ch: int = 32):
         super().__init__()
         hd = list(hidden_dims)
         self.n_gru_layers = n_gru_layers
-        self.encoder = BasicMotionEncoder(cor_planes)
-        self.gru04 = ConvGRU(hd[2], 128 + hd[1] * (n_gru_layers > 1))
+        self.encoder = encoder if encoder is not None else BasicMotionEncoder(cor_planes)
+        self.gru04 = ConvGRU(hd[2], self.encoder.conv.out_channels + 1
+                             + hd[1] * (n_gru_layers > 1))
         self.gru08 = ConvGRU(hd[1], hd[0] * (n_gru_layers == 3) + hd[2])
         self.gru16 = ConvGRU(hd[0], hd[1])
         self.disp_head = DispHead(hd[2], 256)
-        self.mask_feat_4 = nn.Sequential(nn.Conv2d(hd[2], 32, 3, padding=1), nn.ReLU())
+        self.mask_feat_4 = nn.Sequential(nn.Conv2d(hd[2], mask_ch, 3, padding=1), nn.ReLU())
 
     def forward(self, net, inp, geo: Optional[torch.Tensor] = None,
                 disp: Optional[torch.Tensor] = None, iter04: bool = True, iter08: bool = True,

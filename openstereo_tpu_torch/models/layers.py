@@ -174,14 +174,16 @@ def _update_running_stats(norm: nn.Module, mean: torch.Tensor, var: torch.Tensor
 def apply_norm(x: torch.Tensor, norm: nn.Module) -> torch.Tensor:
     """BatchNorm (2d or 3d): in training `batch_norm_train`, else its running
     statistics (f32 statistics on an x of any dtype; gradients still reach
-    its scale and bias). InstanceNorm: non-affine, eps 1e-5, statistics in at
-    least f32, the same in both modes (`layers.py:266-291`)."""
+    its scale and bias). InstanceNorm (2d, or 3d over D, H and W per
+    channel, as flax's `GroupNorm(group_size=1)` on NDHWC): non-affine, eps
+    1e-5, statistics in at least f32, the same in both modes
+    (`layers.py:266-291`)."""
     if isinstance(norm, (nn.BatchNorm2d, nn.BatchNorm3d)):
         if norm.training:
             return batch_norm_train(x, norm)
         return F.batch_norm(x, norm.running_mean, norm.running_var, norm.weight, norm.bias,
                             False, 0.0, norm.eps)
-    if isinstance(norm, nn.InstanceNorm2d):
+    if isinstance(norm, (nn.InstanceNorm2d, nn.InstanceNorm3d)):
         return F.instance_norm(x.to(head_dtype(x.dtype)), eps=norm.eps).to(x.dtype)
     raise ValueError(f"unsupported norm {type(norm).__name__}")
 
@@ -196,7 +198,7 @@ def freeze_bn(model: nn.Module) -> nn.Module:
     return model
 
 
-NORMS = (nn.BatchNorm2d, nn.BatchNorm3d, nn.InstanceNorm2d)
+NORMS = (nn.BatchNorm2d, nn.BatchNorm3d, nn.InstanceNorm2d, nn.InstanceNorm3d)
 
 
 def run_seq(x: torch.Tensor, seq: nn.Sequential) -> torch.Tensor:
@@ -224,8 +226,8 @@ def _norm(norm: Optional[str], ch: int, ndim: int = 2):
         return []
     if norm == "batch":
         return [(nn.BatchNorm2d if ndim == 2 else nn.BatchNorm3d)(ch)]
-    if norm == "instance" and ndim == 2:
-        return [nn.InstanceNorm2d(ch)]
+    if norm == "instance":
+        return [(nn.InstanceNorm2d if ndim == 2 else nn.InstanceNorm3d)(ch)]
     raise ValueError(f"unknown norm {norm!r} for ndim {ndim}")
 
 

@@ -36,7 +36,7 @@ training heads and for loading reference checkpoints).
 
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Sequence
 
 import torch
 import torch.nn as nn
@@ -200,19 +200,31 @@ def compressor_layers() -> Dict[str, nn.Sequential]:
             "volume11": nn.Sequential(convbn(16, 1, 1), nn.ReLU())}
 
 
-def interlaced_compress(conv3d: nn.Sequential, volume11: nn.Sequential,
-                        interleaved: torch.Tensor, col_valid: torch.Tensor) -> torch.Tensor:
-    """[N,64,H,W] interleaved descriptors, [N,W] column validity → [N,H,W].
+def masked_depth_stages(stages: Sequence[nn.Module], interleaved: torch.Tensor,
+                        col_valid: torch.Tensor) -> torch.Tensor:
+    """[N,2C,H,W] interleaved descriptors, [N,W] column validity → the 3D
+    stages' one remaining depth plane, [N,F,H,W] (MSNet2D's compressor,
+    StereoBase's `InterlacedVolume`).
 
     The reference computes each shift on the width-cropped valid columns, so
     every stage sees zeros beyond the crop; on the full width the invalid
     columns are zeroed again after every stage, as bias and BN make them
-    non-zero (`msnet.py:197-217`)."""
+    non-zero (`msnet.py:197-217`). Each stage is a Sequential run by
+    `run_seq`."""
     keep = col_valid[:, None, None, None, :]
-    x = interleaved.masked_fill(~col_valid[:, None, None, :], 0)[:, None]  # [N,1,64,H,W]
-    for i in range(0, len(conv3d), 3):
-        x = run_seq(x, conv3d[i:i + 3]).masked_fill(~keep, 0)
-    return run_seq(x[:, :, 0], volume11)[:, 0]
+    x = interleaved.masked_fill(~col_valid[:, None, None, :], 0)[:, None]  # [N,1,2C,H,W]
+    for stage in stages:
+        x = run_seq(x, stage).masked_fill(~keep, 0)
+    return x[:, :, 0]
+
+
+def interlaced_compress(conv3d: nn.Sequential, volume11: nn.Sequential,
+                        interleaved: torch.Tensor, col_valid: torch.Tensor) -> torch.Tensor:
+    """MSNet2D's compressor: [N,64,H,W] interleaved descriptors, [N,W] column
+    validity → [N,H,W]: `conv3d`'s three (conv, BN, ReLU) stages through
+    `masked_depth_stages`, then `volume11` to one channel."""
+    stages = [conv3d[i:i + 3] for i in range(0, len(conv3d), 3)]
+    return run_seq(masked_depth_stages(stages, interleaved, col_valid), volume11)[:, 0]
 
 
 class MSNet2D(MSNetBase):

@@ -1,7 +1,7 @@
 """Stereo ops, NCHW (counterpart of `openstereo_tpu/ops`)."""
 
-from .cost_volume import (build_concat_volume, build_gwc_volume, correlation_volume,  # noqa: F401
-                          groupwise_correlation)
+from .cost_volume import (build_concat_volume, build_gwc_volume, build_sub_volume,  # noqa: F401
+                          correlation_volume, groupwise_correlation)
 from .corr_volume import corr_volume  # noqa: F401
 from .disp_regression import disparity_regression, topk_disparity_regression  # noqa: F401
 from .fused_mbconv import fold_bn, fused_mbconv, mbconv_plain  # noqa: F401

@@ -64,3 +64,19 @@ def build_concat_volume(left: torch.Tensor, right: torch.Tensor, max_disp: int) 
         out[:, :c, d, :, d:] = left[..., d:]
         out[:, c:, d, :, d:] = right[..., :w - d]
     return out
+
+
+def build_sub_volume(left: torch.Tensor, right: torch.Tensor, max_disp: int) -> torch.Tensor:
+    """L1-distance volume, [B,C,H,W] ×2 → [B,D,H,W]: Σ_c |L − R shifted by d|.
+
+    JAX counterpart: `ops/cost_volume.py:build_sub_volume` ([B,H,W,D], the
+    transpose (0,2,3,1) of this one). Unlike the other builders, where the
+    right view is out of frame (w < d) the cost is not zero but the L1 norm
+    of the left features alone, as the reference computes it.
+    """
+    b, _, h, w = left.shape
+    l1_left = left.abs().sum(dim=1)  # [B,H,W]
+    out = l1_left[:, None].repeat(1, max_disp, 1, 1)
+    for d in range(min(max_disp, w)):
+        out[:, d, :, d:] = (left[..., d:] - right[..., :w - d]).abs().sum(dim=1)
+    return out

@@ -4,7 +4,8 @@ The port's own inverse of `openstereo_tpu/utils/torch_convert.py`
 (`conv_kernel`, `deconv_kernel`, `TreeBuilder`, `convert_lightstereo`,
 `convert_sttr`, `convert_gwcnet`, `convert_psmnet`, `convert_coex`,
 `convert_msnet3d`, `convert_msnet2d`, `convert_cfnet`, `convert_fadnet`,
-`convert_casnet`, `convert_igev`); it copies none of that code by import. Layout rules, inverted:
+`convert_casnet`, `convert_igev`, `convert_igev_rt`, `convert_stereobase`,
+`convert_igevpp`); it copies none of that code by import. Layout rules, inverted:
 
 - conv kernel (kh,kw,in,out) → weight (out,in,kh,kw); 3D (kd,kh,kw,in,out)
   → (out,in,kd,kh,kw);
@@ -395,25 +396,30 @@ def psmnet_state_dict_from_jax(variables) -> Dict[str, torch.Tensor]:
     return b.finish()
 
 
-def basic_conv(b: FlaxToTorch, fpath: str, tkey: str, bn: bool = True, deconv: bool = False):
-    """flax BasicConvBN at fpath (its ConvBlock/DeconvBlock is `conv`) → port
-    BasicConvBN keys tkey.conv, tkey.bn."""
-    b.conv(_join(fpath, "conv"), _join(tkey, "conv", sep="."), deconv=deconv)
+def basic_conv(b: FlaxToTorch, fpath: str, tkey: str, bn: bool = True, deconv: bool = False,
+               spelling: str = "igev"):
+    """flax BasicConvBN or BasicConvIN at fpath (its ConvBlock/DeconvBlock is
+    `conv`; `bn` False for an InstanceNorm or no norm) → port keys tkey.conv,
+    tkey.bn, or with `spelling` "block" tkey.block.0, tkey.block.1."""
+    ck, nk = ("conv", "bn") if spelling == "igev" else ("block.0", "block.1")
+    b.conv(_join(fpath, "conv"), _join(tkey, ck, sep="."), deconv=deconv)
     if bn:
-        b.bn(_join(fpath, "conv"), _join(tkey, "bn", sep="."))
+        b.bn(_join(fpath, "conv"), _join(tkey, nk, sep="."))
 
 
-def conv2x(b: FlaxToTorch, fpath: str, tkey: str, bn: bool = True):
+def conv2x(b: FlaxToTorch, fpath: str, tkey: str, bn: bool = True, spelling: str = "igev"):
     """flax Conv2x (deconv; BatchNorm, or with `bn` False InstanceNorm) → port
     Conv2x keys."""
-    basic_conv(b, _join(fpath, "conv1"), _join(tkey, "conv1", sep="."), bn=bn, deconv=True)
-    basic_conv(b, _join(fpath, "conv2"), _join(tkey, "conv2", sep="."), bn=bn)
+    basic_conv(b, _join(fpath, "conv1"), _join(tkey, "conv1", sep="."), bn=bn, deconv=True,
+               spelling=spelling)
+    basic_conv(b, _join(fpath, "conv2"), _join(tkey, "conv2", sep="."), bn=bn, spelling=spelling)
 
 
-def feature_att(b: FlaxToTorch, fpath: str, tkey: str):
-    """flax FeatureAtt (att0, att1) → port FeatureAtt keys at tkey (its
-    Sequential's name included: `tkey` ends in im_att or feat_att)."""
-    basic_conv(b, _join(fpath, "att0"), f"{tkey}.0")
+def feature_att(b: FlaxToTorch, fpath: str, tkey: str, bn: bool = True, spelling: str = "igev"):
+    """flax FeatureAtt (att0, att1; `bn` False: the InstanceNorm flavour) →
+    port FeatureAtt keys at tkey (its Sequential's name included: `tkey` ends
+    in im_att or feat_att)."""
+    basic_conv(b, _join(fpath, "att0"), f"{tkey}.0", bn=bn, spelling=spelling)
     b.conv(_join(fpath, "att1"), f"{tkey}.1", raw=True)
 
 
@@ -709,20 +715,36 @@ def casnet_state_dict_from_jax(variables) -> Dict[str, torch.Tensor]:
     return b.finish()
 
 
-def geo_hourglass(b: FlaxToTorch, fpre: str, tpre: str):
+HOURGLASS_CONVS = (("conv1a", "conv1.0"), ("conv1b", "conv1.1"), ("conv2a", "conv2.0"),
+                   ("conv2b", "conv2.1"), ("conv3a", "conv3.0"), ("conv3b", "conv3.1"),
+                   ("agg0a", "agg_0.0"), ("agg0b", "agg_0.1"), ("agg0c", "agg_0.2"),
+                   ("agg1a", "agg_1.0"), ("agg1b", "agg_1.1"), ("agg1c", "agg_1.2"))
+HOURGLASS_ATTS = (("att8", "feature_att_8"), ("att16", "feature_att_16"),
+                  ("att32", "feature_att_32"), ("att_up16", "feature_att_up_16"),
+                  ("att_up8", "feature_att_up_8"))
+
+
+def geo_hourglass(b: FlaxToTorch, fpre: str, tpre: str, spelling: str = "igev"):
     """flax GeoHourglass at fpre → port GeoHourglass keys at tpre."""
-    for f, t in (("conv1a", "conv1.0"), ("conv1b", "conv1.1"), ("conv2a", "conv2.0"),
-                 ("conv2b", "conv2.1"), ("conv3a", "conv3.0"), ("conv3b", "conv3.1"),
-                 ("agg0a", "agg_0.0"), ("agg0b", "agg_0.1"), ("agg0c", "agg_0.2"),
-                 ("agg1a", "agg_1.0"), ("agg1b", "agg_1.1"), ("agg1c", "agg_1.2")):
-        basic_conv(b, f"{fpre}/{f}", f"{tpre}.{t}")
+    for f, t in HOURGLASS_CONVS:
+        basic_conv(b, f"{fpre}/{f}", f"{tpre}.{t}", spelling=spelling)
     for t in ("conv3_up", "conv2_up"):
-        basic_conv(b, f"{fpre}/{t}", f"{tpre}.{t}", deconv=True)
-    basic_conv(b, f"{fpre}/conv1_up", f"{tpre}.conv1_up", bn=False, deconv=True)
-    for f, t in (("att8", "feature_att_8"), ("att16", "feature_att_16"),
-                 ("att32", "feature_att_32"), ("att_up16", "feature_att_up_16"),
-                 ("att_up8", "feature_att_up_8")):
-        feature_att(b, f"{fpre}/{f}", f"{tpre}.{t}.feat_att")
+        basic_conv(b, f"{fpre}/{t}", f"{tpre}.{t}", deconv=True, spelling=spelling)
+    basic_conv(b, f"{fpre}/conv1_up", f"{tpre}.conv1_up", bn=False, deconv=True,
+               spelling=spelling)
+    for f, t in HOURGLASS_ATTS:
+        feature_att(b, f"{fpre}/{f}", f"{tpre}.{t}.feat_att", spelling=spelling)
+
+
+def pp_hourglass(b: FlaxToTorch, fpre: str, tpre: str):
+    """flax PPHourglass (InstanceNorm: only the conv kernels and the feature
+    attentions' convs carry weights) at fpre → port PPHourglass keys."""
+    for f, t in (("conv0", "conv0"),) + HOURGLASS_CONVS:
+        basic_conv(b, f"{fpre}/{f}", f"{tpre}.{t}", bn=False)
+    for t in ("conv3_up", "conv2_up", "conv1_up"):
+        basic_conv(b, f"{fpre}/{t}", f"{tpre}.{t}", bn=False, deconv=True)
+    for f, t in (("att4", "feature_att_4"),) + HOURGLASS_ATTS:
+        feature_att(b, f"{fpre}/{f}", f"{tpre}.{t}.feat_att", bn=False)
 
 
 def _ctx_res_block(b: FlaxToTorch, fpre: str, tpre: str):
@@ -751,39 +773,119 @@ def multi_basic_encoder(b: FlaxToTorch, fpre: str, tpre: str):
         b.conv(f"{fpre}/out16_{oi}_conv", f"{tpre}.outputs16.{oi}", raw=True)
 
 
+def igev_front(b: FlaxToTorch, spx_2_gru_bn: bool = True, spelling: str = "igev"):
+    """What the IGEV family's flax models share before the volume: `Feature`,
+    the stems, the superpixel heads (`spx_2_gru` with BatchNorm or, IGEV++,
+    InstanceNorm) and the descriptors `conv`, `desc`."""
+    _trunk(b, "feature/trunk", "feature", sliced=True)
+    for name in ("deconv32_16", "deconv16_8", "deconv8_4"):
+        conv2x(b, f"feature/{name}", f"feature.{name}", bn=False, spelling=spelling)
+    basic_conv(b, "feature/conv4", "feature.conv4", bn=False, spelling=spelling)
+    second = ".block.0" if spelling == "block" else ""
+    for s in ("stem_2", "stem_4", "spx_4"):
+        basic_conv(b, f"{s}a", f"{s}.0", bn=False, spelling=spelling)
+        b.conv(f"{s}b", f"{s}.1{second}")
+    conv2x(b, "spx_2", "spx_2", bn=False, spelling=spelling)
+    b.conv("spx", "spx.0", deconv=True, raw=True)
+    conv2x(b, "spx_2_gru", "spx_2_gru", bn=spx_2_gru_bn, spelling=spelling)
+    b.conv("spx_gru", "spx_gru.0", deconv=True, raw=True)
+    basic_conv(b, "conv", "conv", bn=False, spelling=spelling)
+    b.conv("desc", "desc", raw=True)
+
+
+def _context(b: FlaxToTorch):
+    multi_basic_encoder(b, "cnet", "cnet")
+    for i in range(3):
+        b.conv(f"context_zqr{i}", f"context_zqr_convs.{i}", raw=True)
+
+
+def update_block(b: FlaxToTorch, grus=("gru04", "gru08", "gru16"),
+                 ub: str = "gru_loop/update_block", tb: str = "update_block"):
+    """flax update block under the scanned loop → port keys: the motion
+    encoder, `grus`, disp_head, mask_feat_4."""
+    for k in ("convc1", "convc2", "convd1", "convd2", "conv"):
+        b.conv(f"{ub}/encoder/{k}", f"{tb}.encoder.{k}", raw=True)
+    for g in grus:
+        for k in ("convz", "convr", "convq"):
+            b.conv(f"{ub}/{g}/{k}", f"{tb}.{g}.{k}", raw=True)
+    for k in ("conv1", "conv2"):
+        b.conv(f"{ub}/disp_head/{k}", f"{tb}.disp_head.{k}", raw=True)
+    b.conv(f"{ub}/mask_feat_4", f"{tb}.mask_feat_4.0", raw=True)
+
+
 def igev_state_dict_from_jax(variables) -> Dict[str, torch.Tensor]:
     """flax IGEV {"params", "batch_stats"}, drawn with the training heads, →
     port state_dict (the reference's key names, as
     `torch_convert.convert_igev` reads them). Raises if a flax variable is
     left unconsumed."""
     b = FlaxToTorch(variables)
-    _trunk(b, "feature/trunk", "feature", sliced=True)
-    for name in ("deconv32_16", "deconv16_8", "deconv8_4"):
-        conv2x(b, f"feature/{name}", f"feature.{name}", bn=False)
-    basic_conv(b, "feature/conv4", "feature.conv4", bn=False)
-    for s in ("stem_2", "stem_4", "spx_4"):
-        basic_conv(b, f"{s}a", f"{s}.0", bn=False)
-        b.conv(f"{s}b", f"{s}.1")
-    conv2x(b, "spx_2", "spx_2", bn=False)
-    b.conv("spx", "spx.0", deconv=True, raw=True)
-    conv2x(b, "spx_2_gru", "spx_2_gru")
-    b.conv("spx_gru", "spx_gru.0", deconv=True, raw=True)
-    basic_conv(b, "conv", "conv", bn=False)
-    b.conv("desc", "desc", raw=True)
+    igev_front(b)
     basic_conv(b, "corr_stem", "corr_stem")
     feature_att(b, "corr_feature_att", "corr_feature_att.feat_att")
     geo_hourglass(b, "cost_agg", "cost_agg")
     b.conv("classifier", "classifier", raw=True)
-    multi_basic_encoder(b, "cnet", "cnet")
+    _context(b)
+    update_block(b)
+    return b.finish()
+
+
+def igev_rt_state_dict_from_jax(variables) -> Dict[str, torch.Tensor]:
+    """flax IGEVRT, drawn with the training heads, → port state_dict (as
+    `torch_convert.convert_igev_rt` reads it). Raises if a flax variable is
+    left unconsumed."""
+    b = FlaxToTorch(variables)
+    igev_front(b)
+    geo_hourglass(b, "cost_agg", "cost_agg")
+    b.conv("classifier", "classifier", raw=True)
+    basic_conv(b, "hnet0", "hnet.0")
+    b.conv("hnet1", "hnet.1", raw=True)
+    basic_conv(b, "cnet", "cnet")
+    b.conv("context_zqr_conv", "context_zqr_conv", raw=True)
+    update_block(b, grus=("gru",))
+    return b.finish()
+
+
+def stereobase_state_dict_from_jax(variables) -> Dict[str, torch.Tensor]:
+    """flax StereoBase, drawn with the training heads, → port state_dict in
+    StereoBase's key spelling (as `torch_convert.convert_stereobase` reads
+    it), with `concat_conv` and `build_interlaced_volume` where the variables
+    hold them. Raises if a flax variable is left unconsumed."""
+    b = FlaxToTorch(variables)
+    igev_front(b, spelling="block")
+    if b.has("params", "concat_conv0"):
+        b.convbn("concat_conv0", "concat_conv.0.block")
+        b.conv("concat_conv1", "concat_conv.1", raw=True)
+    if b.has("params", "build_interlaced_volume"):
+        iv = "build_interlaced_volume"
+        for i in range(3):
+            b.convbn(f"{iv}/c{i}", f"{iv}.conv3d.{i}.block")
+        b.convbn(f"{iv}/volume11", f"{iv}.volume11.block")
+    geo_hourglass(b, "cost_agg", "cost_agg", spelling="block")
+    b.conv("classifier", "classifier", raw=True)
+    _context(b)
+    update_block(b)
+    return b.finish()
+
+
+def igevpp_state_dict_from_jax(variables) -> Dict[str, torch.Tensor]:
+    """flax IGEVPP, drawn with the training heads, → port state_dict (as
+    `torch_convert.convert_igevpp` reads it). Raises if a flax variable is
+    left unconsumed."""
+    b = FlaxToTorch(variables)
+    igev_front(b, spx_2_gru_bn=False)
+    b.conv("patch0", "patch0", raw=True)
+    b.conv("patch1", "patch1", raw=True)
     for i in range(3):
-        b.conv(f"context_zqr{i}", f"context_zqr_convs.{i}", raw=True)
-    ub, tb = "gru_loop/update_block", "update_block"
-    for k in ("convc1", "convc2", "convd1", "convd2", "conv"):
-        b.conv(f"{ub}/encoder/{k}", f"{tb}.encoder.{k}", raw=True)
-    for g in ("gru04", "gru08", "gru16"):
-        for k in ("convz", "convr", "convq"):
-            b.conv(f"{ub}/{g}/{k}", f"{tb}.{g}.{k}", raw=True)
-    for k in ("conv1", "conv2"):
-        b.conv(f"{ub}/disp_head/{k}", f"{tb}.disp_head.{k}", raw=True)
-    b.conv(f"{ub}/mask_feat_4", f"{tb}.mask_feat_4.0", raw=True)
+        pp_hourglass(b, f"cost_agg{i}", f"cost_agg{i}")
+    b.conv("classifier", "classifier", raw=True)
+    for i in range(2):
+        basic_conv(b, f"disp_conv{i}", f"disp_conv.{i}", bn=False)
+        basic_conv(b, f"selective_conv{i}", f"selective_conv.{i}", bn=False)
+    b.conv("selective_conv2", "selective_conv.2", raw=True)
+    _context(b)
+    ub = "gru_loop/update_block"
+    for i in range(3):
+        for k in ("convg1", "convg2"):
+            b.conv(f"{ub}/geo_encoder{i}/{k}", f"update_block.geo_encoder{i}.{k}", raw=True)
+    update_block(b)
     return b.finish()

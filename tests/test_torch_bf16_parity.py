@@ -36,6 +36,7 @@ from openstereo_tpu.models.cfnet import cfnet as jcfnet
 from openstereo_tpu.models.fadnet import fadnet as jfadnet
 from openstereo_tpu.models.igev import blocks as jblocks
 from openstereo_tpu.models.igev import update as jupdate
+from openstereo_tpu.models.igevpp import igevpp as jpp
 from openstereo_tpu.ops import cost_volume as jcv
 from openstereo_tpu.ops import sampler as jsampler
 from openstereo_tpu.ops import upsample as jup
@@ -49,8 +50,9 @@ from openstereo_tpu_torch.models.cfnet.cfnet import warped_volumes as cfnet_warp
 from openstereo_tpu_torch.models.coex.coex import cosine_normalize
 from openstereo_tpu_torch.models.fadnet.fadnet import FADNet, FadResBlock
 from openstereo_tpu_torch.models.gwcnet.gwcnet import GwcHourglass
-from openstereo_tpu_torch.models.igev.blocks import BasicConvBN, FeatureAtt
+from openstereo_tpu_torch.models.igev.blocks import BasicConvBN, BasicConvIN, FeatureAtt
 from openstereo_tpu_torch.models.igev.update import BasicMotionEncoder, ConvGRU
+from openstereo_tpu_torch.models.igevpp.igevpp import GeoEncoder, selective_blend
 from openstereo_tpu_torch.utils.jax_weights import (FlaxToTorch, basic_conv, fad_res,
                                                     feature_att, gwc_hourglass, msnet_mv1,
                                                     msnet_mv2, mv2_residual, res_block)
@@ -704,3 +706,120 @@ def test_igev_motion_encoder_bf16():
         got = tm(torch.from_numpy(np.moveaxis(np.asarray(disp), -1, 1).copy()), to_torch(geo))
     assert got.dtype == torch.float32 and np.asarray(ref).dtype == np.float32
     assert_bf16_rule(got, ref, "BasicMotionEncoder (127 bf16 channels and the f32 disparity)")
+
+
+@pytest.mark.parametrize("deconv", [False, True])
+def test_basic_conv_in_3d_bf16(native_3d, deconv):
+    """IGEV++'s 3D InstanceNorm block (`igev/blocks.py:26-43`, ndim 3) op by op:
+    the conv (or the k4 s2 deconv) on the captured input, the InstanceNorm
+    over D, H and W (statistics in f32, one rounding) on JAX's conv output,
+    leaky_relu on JAX's norm output, each under the rule; the whole block at
+    most FLIP_SHARE of the elements off. Where a conv's sum nearly cancels
+    (the deconv: one output of 8.9e-7 among outputs of ~0.03), the two f32
+    sum orders may land two units apart at that small magnitude: such an
+    element passes only if the port lies nearer the exact (f64) sum of the
+    same bf16 products than JAX does."""
+    x = captured_input((1, 6, 17, 30, 16) if not deconv else (1, 4, 9, 15, 16), 80, ndim=3)
+    k, s = (4, 2) if deconv else (3, 1)
+    fm = jblocks.BasicConvIN(8, k, s, deconv=deconv, ndim=3, dtype=BF16)
+    tm = BasicConvIN(16, 8, k, s, deconv=deconv, ndim=3)
+    v = _random_variables(fm, x, 81)
+    b = FlaxToTorch(v)
+    basic_conv(b, "", "", bn=False, deconv=deconv)
+    tm.load_state_dict(b.finish())
+    ref, mut = fm.apply(v, x, capture_intermediates=True, mutable=["intermediates"])
+    inner = mut["intermediates"]["conv"]
+    conv_ref = inner["deconv" if deconv else "conv"]["__call__"][0]
+    norm_ref = inner["in"]["__call__"][0]
+    with torch.no_grad():
+        conv = tl.run_conv(to_torch(x), tm.conv)
+        exact = F.conv_transpose3d if deconv else F.conv3d
+        exact = exact(to_torch(x).double(), tm.conv.weight.bfloat16().double(), None,
+                      tm.conv.stride, tm.conv.padding)
+        normed = tl.apply_norm(to_torch(conv_ref), tm.IN)
+        act = tm.act(to_torch(norm_ref))
+        whole = tm.eval()(to_torch(x))
+    what = f"BasicConvIN 3D {'deconv k4 s2' if deconv else 'k3'}"
+    units = bf16_units(to_jax_layout(conv), np.asarray(conv_ref, np.float32))
+    beyond = units > 1
+    port_err, jax_err = (np.abs(np.asarray(a, np.float64) - to_jax_layout(exact))[beyond]
+                         for a in (to_jax_layout(conv), conv_ref))
+    print(f"{what}: conv, {int(beyond.sum())} elements beyond one unit, |port - exact| "
+          f"{port_err}, |JAX - exact| {jax_err}")
+    assert (port_err < jax_err).all()
+    assert_bf16_rule(conv, conv_ref, f"{what}: conv", max_units=None)
+    assert_bf16_rule(normed, norm_ref, f"{what}: InstanceNorm")
+    assert_bf16_rule(act, ref, f"{what}: activation")
+    assert_bf16_rule(whole, ref, f"{what}: whole block", max_units=None)
+
+
+def test_feature_att_instance_bf16():
+    """IGEV++'s FeatureAtt (`igev/blocks.py:102-117`, norm "instance") op by op:
+    the 1×1 BasicConvIN, the 1×1 conv with its bias rounded after the conv
+    (3i), each on JAX's own input under the rule; the sigmoid 3j as it
+    stands; the whole module against the flax program with that one sigmoid
+    rounded once."""
+    cv = captured_input((1, 4, 9, 15, 8), 82, ndim=3)
+    feat = captured_input((1, 9, 15, 24), 83)
+    fm = jblocks.FeatureAtt(8, norm="instance", dtype=BF16)
+    v = _variables(fm, (cv, feat), 84)
+    b = FlaxToTorch(v)
+    feature_att(b, "", "feat_att", bn=False)
+    tm = FeatureAtt(8, 24, key="feat_att", norm="instance")
+    tm.load_state_dict(b.finish())
+    ref, mut = fm.apply(v, cv, feat, train=False, capture_intermediates=True,
+                        mutable=["intermediates"])
+    a0, a1 = (mut["intermediates"][k]["__call__"][0] for k in ("att0", "att1"))
+    with torch.no_grad():
+        att0 = tm.feat_att[0](to_torch(feat))
+        att1 = tl.run_conv(to_torch(a0), tm.feat_att[1])
+        whole = tm.eval()(to_torch(cv), to_torch(feat))
+    assert_bf16_rule(att0, a0, "FeatureAtt instance: 1x1 BasicConvIN")
+    assert_bf16_rule(att1, a1, "FeatureAtt instance: 1x1 conv + bias")
+    once = jnp.asarray(jax.nn.sigmoid(a1.astype(jnp.float32))).astype(BF16)
+    assert_bf16_rule(whole, once[:, None] * cv, "FeatureAtt instance: whole module, sigmoid "
+                                                "rounded once")
+
+
+def test_igevpp_selective_blend_bf16():
+    """IGEV++'s fusion of its three ranges (`igevpp.py:157-158`) op by op: each
+    range's GeoEncoder (1×1 conv + relu, 3×3 conv, each bias rounded after its
+    conv as flax's) under the rule; the selective weights' sigmoid 3j as it
+    stands (the port rounds the f32 sigmoid once); the blend sel_w[0]·g0 +
+    sel_w[1]·g1 + sel_w[2]·g2, on flax's own encoder outputs and weights, each
+    product and sum rounded to bf16 as jnp's. A control that sums the three
+    terms in the other order leaves the rule: the order is part of the
+    result in bf16."""
+    geos = [captured_input((1, 6, 10, c), 85 + i) for i, c in enumerate((36, 18, 18))]
+    logits = jnp.asarray(np.random.RandomState(88).randn(1, 6, 10, 3)).astype(BF16)
+    gs = []
+    for i, geo in enumerate(geos):
+        fm = jpp.GeoEncoder(dtype=BF16)
+        v = _igev_update_variables(fm, (geo,), 89 + i)
+        b = FlaxToTorch(v)
+        for k in ("convg1", "convg2"):
+            b.conv(k, k, raw=True)
+        tm = GeoEncoder(geo.shape[-1])
+        tm.load_state_dict(b.finish())
+        ref = fm.apply(v, geo)
+        with torch.no_grad():
+            got = tm(to_torch(geo))
+        assert_bf16_rule(got, ref, f"GeoEncoder {i}")
+        gs.append(ref)
+    sel_w = jax.nn.sigmoid(logits)
+    with torch.no_grad():
+        sig = torch.sigmoid(to_torch(logits))
+    exact = torch.sigmoid(to_torch(logits).double())
+    assert_bf16_rule(sig, to_jax_layout(exact.bfloat16()), "selective weights: port sigmoid vs "
+                                                           "its f32 value")
+    ref = sel_w[..., 0:1] * gs[0] + sel_w[..., 1:2] * gs[1] + sel_w[..., 2:3] * gs[2]
+    w, g0, g1, g2 = (to_torch(a) for a in (sel_w, *gs))
+    with torch.no_grad():
+        blend = selective_blend(w, g0, g1, g2)
+        reversed_order = w[:, 2:3] * g2 + w[:, 1:2] * g1 + w[:, 0:1] * g0
+    assert blend.dtype == torch.bfloat16
+    assert_bf16_rule(blend, ref, "selective blend")
+    share = float((bf16_units(to_jax_layout(reversed_order), np.asarray(ref, np.float32))
+                   > 0).mean())
+    print(f"selective blend summed in the other order: {share:.3g} of the elements differ")
+    assert share > FLIP_SHARE
