@@ -91,7 +91,7 @@ without the repository around it). Phases, each of which fails the run:
    Trainer starts at epoch 1, bit-equal to the checkpoint. Prints ms per
    step (CUDA events, median of steps 2-4), samples/s, peak memory;
 15. the learning check: the port's `tools/overfit_check.py`, LightStereo,
-   100 steps (cut from 150 for the script's time) on one batch of 4
+   60 steps (cut from 150, then 100, for the script's time) on one batch of 4
    random-dot pairs at 192x384, max_disp 64, bf16, AdamW 4e-4, clip 0.1: the
    final train EPE must be below 3 px.
 16-18. (run after phase 12) the CoEx, MSNet3D and MSNet2D paths, each at
@@ -241,6 +241,31 @@ without the repository around it). Phases, each of which fails the run:
    profile, peak memory, each kernel at its shapes beside its plain version
    and bound; then, for IGEV++, the measure CLI with 5 timed frames.
 
+41-44. (in phases 26-34's loop) training of IGEV, IGEV-RT, StereoBase and
+   IGEV++ (`igev_family_train_paths`): first, with phases 26-34's kernel
+   checks, K3 at their trainer evaluations' shapes ([10,96,136,240] D 48 for
+   IGEV, [8,...] for IGEV-RT, [4,...] for StereoBase, [4,96,136,240] D 192
+   for IGEV++, all G 8) and K2 at CoEx's trunk shapes at batch 20, 16 and 8,
+   each also timed beside its bound (`igev_family_eval_timing`); then each
+   SceneFlow config as written (`cfgs/igev/igev_sceneflow_amp.yaml` 320x736
+   b4 with MODEL.REMAT, `cfgs/igev_rt/igev_rt_sceneflow_amp.yaml` 320x768 b1,
+   `cfgs/stereobase/stereobase_sceneflow.yaml` 320x736 b2,
+   `cfgs/igevpp/igevpp_sceneflow_amp.yaml` 256x768 b1; bf16, AdamW, each
+   its schedule and clip, FREEZE_BN, 22 GRU iterations) through
+   `tools/train.py` for 4 steps, evaluated in one batch at its config's
+   EVALUATOR batch (10, 8, 4, 4) at 544x960: K3 once and K2 11 times a
+   batch, nothing in training; kernels vs eager by the rule "share_f32" (f32
+   at the same batch through PyTorch's own convolutions >= 99.9 % of the
+   pixels within 5e-3 px, bf16 mean-abs <= 0.31 px);
+   ms/step, the forward / backward / optimizer split, peak memory, 1
+   profiled step (idle share); the gradient check at 128x256 (IGEV++
+   128x768) with the bounds of `IGEV_FAMILY_BOUNDS`, whose control, the GRU
+   loop without its per-iteration detach, must fail it.
+45. IGEV's learning check (`tools/overfit_check.py --model IGEV`, 40 steps of
+   b2 at 192x384, bf16, AdamW 2e-4 constant, clip by norm 35; 60 in a first
+   run, cut for the script's time: loss ratio 0.185): the mean loss of the
+   last 20 steps below 0.8 of the first 5 steps'.
+
 Each phase prints its seconds on a `[phase-time]` line as it ends, and all
 of them once more before the JSON lines.
 
@@ -256,7 +281,7 @@ import sys
 import time
 from contextlib import contextmanager
 from pathlib import Path
-from typing import Dict, List, NamedTuple, Optional
+from typing import Callable, Dict, List, NamedTuple, Optional
 
 import numpy as np
 
@@ -394,7 +419,7 @@ K2_EVAL_SHAPES = {(s[0] * EVAL_BATCH,) + s[1:]: n for s, n in K2_SHAPES.items()}
 # the training phase: a synthetic SceneFlow-layout set written by this script
 TRAIN_PAIRS, EVAL_PAIRS, PAIR_HW = 96, 12, (540, 960)
 TRAIN_DIR = OUT_DIR / "train_smoke"
-OVERFIT_ARGS = ["--steps", "100", "--batch", "4", "--size", "192", "384", "--max_disp", "64",
+OVERFIT_ARGS = ["--steps", "60", "--batch", "4", "--size", "192", "384", "--max_disp", "64",
                 "--lr", "4e-4", "--device", "cuda"]
 
 # The bf16 K2 and K4 checks (`bf16_close_flips`): the share of output elements that
@@ -438,6 +463,21 @@ ZOO_GRAD_FLOOR = 1e-3
 # which every tensor's bound (with ZOO_GRAD_FLOOR) is at least twice its worst f32 error over 3
 # runs on the card, rounded up to the next 0.01 (`zoo_train_paths` says why)
 ZOO_NEW_BOUNDS = {"CFNet": 0.01, "CasGwcNet": 0.25, "CasPSMNet": 0.07, "FADNet": 0.02}
+# Training of IGEV, IGEV-RT, StereoBase and IGEV++ (phases 41-44, in phases 26-34's loop): each
+# SceneFlow config as written through `tools/train.py` for 4 steps (22 GRU iterations, bf16),
+# the trainer's evaluation of one batch at the config's EVALUATOR.BATCH_SIZE_PER_GPU and 544x960
+# pad, through K3 once and K2 11 times a batch; the gradient check at ZOO_GRAD_HW (IGEV++ at
+# 128x768: its 192 planes at 1/4 within the frame) with the GRU loop's detach as the control
+IGEV_FAMILY_EVAL_BATCH = {"IGEV": 10, "IGEV-RT": 8, "StereoBase": 4, "IGEV++": 4}
+# their gradient bounds, relative to each tensor's largest magnitude: as ZOO_NEW_BOUNDS
+# (`igev_family_train_paths` says what they hold)
+IGEV_FAMILY_BOUNDS = {"IGEV": 0.39, "IGEV-RT": 0.01, "StereoBase": 0.05, "IGEV++": 0.01}
+# the bf16 evaluation's kernels-vs-eager mean-abs bound (px): twice the largest of 3 runs of
+# phases 41-44 on the card (IGEV 0.1522-0.1547; IGEV-RT 0.0459, StereoBase 0.1071-0.1099, IGEV++
+# 0.0569-0.0594), rounded up
+IGEV_FAMILY_BF16_MEAN_ABS = 0.31
+IGEV_OVERFIT_ARGS = ["--model", "IGEV", "--steps", "40", "--batch", "2", "--size", "192", "384",
+                     "--max_disp", "64", "--lr", "2e-4", "--device", "cuda"]
 ZOO_OVERFIT_ARGS = ["--model", "GwcNet", "--steps", "60", "--batch", "2", "--size", "192", "384",
                     "--max_disp", "64", "--lr", "1e-4", "--device", "cuda"]
 # Training of CFNet, CasGwcNet, CasPSMNet and FADNet (phases 31-35): each main SceneFlow config
@@ -1822,9 +1862,9 @@ def run_training(dev, data_root):
 def profile_train_steps(trainer, untraced_ms, steps=1, label="b24 320x736 bf16",
                         table=TRAIN_DIR / "profile_train_step.txt"):
     """torch.profiler over `steps` train steps of `trainer` on one batch of its
-    loader: device busy ms per step (the kernel rows summed; one stream), its
-    idle share against `untraced_ms` per step, and the top kernels (the table
-    in `table`)."""
+    loader, the device's activity only: device busy ms per step (the kernel
+    rows summed; one stream), its idle share against `untraced_ms` per step,
+    and the top kernels (the table in `table`)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1836,7 +1876,9 @@ def profile_train_steps(trainer, untraced_ms, steps=1, label="b24 320x736 bf16",
     batches.close()
     trainer.train_step(batch)  # warm-up outside the trace
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    # the device's activity only: tracing the host's too and averaging its events takes longer
+    # than the step itself at ~20,000 launches a step, for the same device busy time
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
             trainer.train_step(batch)
@@ -1860,7 +1902,7 @@ def profile_train_steps(trainer, untraced_ms, steps=1, label="b24 320x736 bf16",
 
 
 def phase_overfit():
-    """The port's learning check: LightStereo, 100 steps, 192x384, batch 4,
+    """The port's learning check: LightStereo, 60 steps, 192x384, batch 4,
     max_disp 64, bf16, AdamW 4e-4, clip 0.1; the final train EPE must be
     below 3 px (the JAX tool's CONVERGED line)."""
     from openstereo_tpu_torch.tools import overfit_check
@@ -2493,6 +2535,47 @@ def batch2(shapes, batch=ZOO_EVAL_BATCH):
     return {(s[0] * batch,) + tuple(s[1:]): n for s, n in shapes.items()}
 
 
+@contextmanager
+def detached_volume(model, targets):
+    """Within it, the volume builders `targets` ((module under
+    `openstereo_tpu_torch.models`, name), or (None, a method of `model`)) get
+    their two feature inputs detached: the control of `zoo_grad_check`."""
+    patches = []
+    for mod, attr in targets:
+        owner = model if mod is None else importlib.import_module(
+            f"openstereo_tpu_torch.models.{mod}")
+        patches.append((owner, attr, getattr(owner, attr), mod is None))
+    for owner, attr, fn, _ in patches:
+        setattr(owner, attr,
+                lambda l, r, *a, _fn=fn, **kw: _fn(l.detach(), r.detach(), *a, **kw))
+    try:
+        yield
+    finally:
+        for owner, attr, fn, method in patches:
+            if method:
+                delattr(owner, attr)  # the instance attribute: the method shows again
+            else:
+                setattr(owner, attr, fn)
+
+
+@contextmanager
+def undetached(model, targets):
+    """Within it, the functions `targets` ((module under
+    `openstereo_tpu_torch.models`, name): the IGEV family's `carried`, the GRU
+    loop's detach of the carried disparity) are the identity: the control of
+    `zoo_grad_check` for the IGEV family."""
+    patches = [(importlib.import_module(f"openstereo_tpu_torch.models.{mod}"), attr)
+               for mod, attr in targets]
+    saved = [getattr(owner, attr) for owner, attr in patches]
+    for owner, attr in patches:
+        setattr(owner, attr, lambda x: x)
+    try:
+        yield
+    finally:
+        for (owner, attr), fn in zip(patches, saved):
+            setattr(owner, attr, fn)
+
+
 class ZooPath(NamedTuple):
     """A training path of phases 26-34 (`zoo_train_paths`)."""
     name: str
@@ -2506,6 +2589,10 @@ class ZooPath(NamedTuple):
     eval_pairs: int = ZOO_EVAL_PAIRS
     tf32_off_timing: bool = True  # also time 4 steps with TF32 off (an f32 config)
     rule: str = "max_abs"  # the evaluation against eager (`zoo_eval_agreement`)
+    grad_hw: tuple = ZOO_GRAD_HW  # the gradient check's crop
+    # the gradient check's control, a context manager over (model, targets) that must make
+    # the check fail: `detached_volume` or, for the IGEV family, `undetached`
+    control: Callable = detached_volume
 
 
 def zoo_train_paths():
@@ -2570,7 +2657,46 @@ def zoo_train_paths():
         ZooPath("FADNet", FADNET_CFG, {"corr_volume": batch2({FADNET_K1_SHAPE: 1}, fad_eval)},
                 None, [("fadnet.fadnet", "correlation_volume")], False, ZOO_NEW_BOUNDS["FADNet"],
                 None, ZOO_CFG_EVAL_PAIRS, False),
+        *igev_family_train_paths(),
     ]
+
+
+def igev_family_train_paths():
+    """Phases 41-44: IGEV, IGEV-RT, StereoBase and IGEV++, as `ZooPath`s. Each
+    SceneFlow config as written (crop, batch, bf16, AdamW, its schedule and
+    clip, FREEZE_BN, IGEV's MODEL.REMAT, 22 GRU iterations), evaluated in one
+    batch at its config's EVALUATOR batch (IGEV 10, IGEV-RT 8, StereoBase and
+    IGEV++ 4) at 544x960: K3 once a batch at [b,96,136,240] D 48 G 8 (IGEV++
+    D 192) and K2 11 times at CoEx's trunk shapes at batch 2b (both views);
+    the evaluation against eager by the rule "share_f32" (`zoo_eval_agreement`);
+    no TF32-off timing, no MODEL.REMAT peak, no resume check (the script's
+    time). The gradient check's control is the GRU loop without its detach
+    (`carried` made the identity), so that the gradient flows through the
+    carried disparity; the bounds (`IGEV_FAMILY_BOUNDS`) hold twice the worst
+    f32 error of 3 runs on the card at every tensor, the floor included,
+    rounded up to the next 0.01 (the "rel needed" that `zoo_grad_check`
+    prints, over 3 f32 steps against the f64 step per model): IGEV needs 0.385 (its
+    trunk's first blocks, `feature.block1.0.0.bn1.bias` and
+    `feature.block0.0.0.conv_pw.weight`, 0.18 of themselves from f64 in each
+    run: the scale-invariant convs before training BatchNorms, as in phases
+    26-34), StereoBase 0.0475 (`feature.conv_stem.weight`), IGEV++ 0.0022 and
+    IGEV-RT 0 (the floor covers twice every error). Two runs under PyTorch's
+    default algorithms differ by up to 2.6e-4·max|g| of the model (the
+    gathers' backward adds with atomics); under `use_deterministic_algorithms`
+    two runs are bit-equal. At the unrounded rel the control leaves 351, 204,
+    319 and 273 tensors beyond the bound (the update block, the context net,
+    the hourglass, the trunk), 17.5-30 of a tensor's largest magnitude at its
+    worst."""
+    paths = []
+    for name, cfg, planes in (("IGEV", IGEV_CFG, 48), ("IGEV-RT", IGEV_RT_CFG, 48),
+                              ("StereoBase", STEREOBASE_CFG, 48), ("IGEV++", IGEVPP_CFG, 192)):
+        b = IGEV_FAMILY_EVAL_BATCH[name]
+        want = {"gwc_volume": {(b, 96, 136, 240, planes, 8): 1},
+                "fused_mbconv": batch2(COEX_K2_SHAPES, b)}
+        paths.append(ZooPath(name, cfg, want, None, [("igev.igev", "carried")], False,
+                             IGEV_FAMILY_BOUNDS[name], None, b, False, "share_f32",
+                             (128, 768) if name == "IGEV++" else ZOO_GRAD_HW, undetached))
+    return paths
 
 
 def check_volume_kernel(dev, kernel, shape, g, tag):
@@ -2643,10 +2769,13 @@ def check_k2_shapes(dev, shapes, g, tag):
 
 def phase_zoo_kernels(dev, card, paths):
     """K1, K2 and K3 at the shapes that the trainer's evaluations of `paths`
-    (phases 26-34) launch them at (phases 26-30: batch 2 at 544x960, K2 at 4
-    in the siamese trunks; CFNet's K3 at batch 1; FADNet's K1 at 10), and K1
-    at CoEx's config's evaluation batch of 10: the checks of phases 3, 4 and
-    9; then K1 at both batch-10 shapes timed (`k1_eval_timing`)."""
+    (phases 26-34 and 41-44) launch them at (phases 26-30: batch 2 at
+    544x960, K2 at 4 in the siamese trunks; CFNet's K3 at batch 1; FADNet's
+    K1 at 10; the IGEV family's K3 at its configs' batches 10, 8, 4 and 4, K2
+    at twice those in the trunk), and K1 at CoEx's config's evaluation batch
+    of 10: the checks of phases 3, 4 and 9; then K1 at both batch-10 shapes
+    timed (`k1_eval_timing`) and K3 and K2 at the IGEV family's shapes
+    (`igev_family_eval_timing`)."""
     import torch
 
     g = torch.Generator().manual_seed(10)
@@ -2662,7 +2791,34 @@ def phase_zoo_kernels(dev, card, paths):
     print(f"[zoo-eval] K2 launcher split counts: {k2[2]}")
     k1_eval10 = [dict(k1_eval_timing(dev, s, dt, card, g), **dict(zip(VOLUME_ERR_KEYS, k1[s])))
                  for s, dt in K1_EVAL10_SHAPES.items()]
-    return {"corr_volume": k1, "gwc_volume": k3, "fused_mbconv": k2, "k1_eval10": k1_eval10}
+    return {"corr_volume": k1, "gwc_volume": k3, "fused_mbconv": k2, "k1_eval10": k1_eval10,
+            "igev_family": igev_family_eval_timing(dev, card, g, paths)}
+
+
+def igev_family_eval_timing(dev, card, g, paths):
+    """K3 and K2 timed beside their bounds (bf16, `k3_timing`, `k2_timing`) at
+    each shape the IGEV family's trainer evaluations launch them at (phases
+    41-44): K3 per model, K2 per batch of the siamese trunk (IGEV-RT's 16,
+    IGEV's 20, StereoBase's and IGEV++'s 8, timed once); each record per
+    evaluation batch, with the models that launch it."""
+    import torch
+
+    out = {"gwc_volume": {}, "fused_mbconv": {}}
+    for path in paths:
+        if path.name not in IGEV_FAMILY_EVAL_BATCH:
+            continue
+        b = IGEV_FAMILY_EVAL_BATCH[path.name]
+        out["gwc_volume"][path.name] = dict(
+            k3_timing(dev, path.want["gwc_volume"], card, g,
+                      tag=f"K3 ({path.name} evaluation, b{b})"), batch=b)
+        key = f"b{2 * b} trunk"
+        if key not in out["fused_mbconv"]:
+            out["fused_mbconv"][key] = dict(
+                k2_timing(dev, path.want["fused_mbconv"], card, g,
+                          tag=f"K2 (IGEV-family evaluation, trunk at b{2 * b})"), models=[])
+        out["fused_mbconv"][key]["models"].append(path.name)
+        torch.cuda.empty_cache()
+    return out
 
 
 def k1_eval_timing(dev, shape, dtype, card, g):
@@ -2692,26 +2848,27 @@ def k1_eval_timing(dev, shape, dtype, card, g):
     return rec
 
 
-def zoo_eval(trainer, use_kernels, dtype=None, hook_module=None, deterministic=True):
+def zoo_eval(trainer, use_kernels, dtype=None, hook_module=None, deterministic=True,
+             cudnn=True):
     """The trainer's evaluation set through its model in eval under
     `torch.inference_mode()` and, with `deterministic`, cuDNN's deterministic
-    algorithms, with kernels or eager, in the model's compute dtype or
-    `dtype`: the disparities [N,H,W] (f32) and, with `hook_module`, that
-    module's outputs."""
+    algorithms (without `cudnn`, PyTorch's own convolutions), with kernels or
+    eager, in the model's compute dtype or `dtype`: the disparities [N,H,W]
+    (f32) and, with `hook_module`, that module's outputs."""
     import torch
 
     from openstereo_tpu_torch.data.loader import batch_to_device
     from openstereo_tpu_torch.models import set_kernels
 
     model = trainer.model
-    saved, saved_det = model.dtype, torch.backends.cudnn.deterministic
-    model.dtype = dtype or saved
+    saved = model.dtype, torch.backends.cudnn.deterministic, torch.backends.cudnn.enabled
+    model.dtype = dtype or saved[0]
     set_kernels(model.eval(), use_kernels)
     # cuDNN's deterministic algorithms: under its default choice two eager runs of the
     # same weights differ by rounding, which CFNet's floored sample grids turn into
     # whole-disparity moves at some pixels (its phase prints the control); that would be
     # laid to the kernels' account
-    torch.backends.cudnn.deterministic = deterministic
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.enabled = deterministic, cudnn
     outs, disps = [], []
     hook = (model.get_submodule(hook_module).register_forward_hook(
         lambda mod, inp, out: outs.append(out.float())) if hook_module else None)
@@ -2722,8 +2879,7 @@ def zoo_eval(trainer, use_kernels, dtype=None, hook_module=None, deterministic=T
     finally:
         if hook is not None:
             hook.remove()
-        model.dtype = saved
-        torch.backends.cudnn.deterministic = saved_det
+        model.dtype, torch.backends.cudnn.deterministic, torch.backends.cudnn.enabled = saved
         set_kernels(model, True)
     return torch.cat(disps), outs
 
@@ -2734,7 +2890,11 @@ def zoo_eval_agreement(name, trainer, topk_input, rule="max_abs"):
     eager runs under its default choice are printed beside, as the control),
     under the model's rule of phases 10-11 and 16-22: finite disparities, and
     by `rule`: "max_abs", f32 max-abs <= 5e-3 px; "share" (CFNet, whose sample
-    grids are floors), f32 >= 99.9 % of the pixels within 5e-3 px; "finite"
+    grids are floors), f32 >= 99.9 % of the pixels within 5e-3 px; "share_f32"
+    (the IGEV family, trained and evaluated in bf16: the GRU iterations carry
+    a one-ulp difference forward) the same share with both paths run again in
+    f32 (TF32 off) at the same batch, and the bf16 paths' mean-abs <=
+    IGEV_FAMILY_BF16_MEAN_ABS; "finite"
     (the cascades: no kernel on the path) nothing more; for CoEx (`topk_input`:
     bf16, a top-k head) the f32 share within 5e-3 px >= 0.999, and in bf16 the
     cost feeding the top-k head within 2^-7 of its largest magnitude on
@@ -2752,6 +2912,30 @@ def zoo_eval_agreement(name, trainer, topk_input, rule="max_abs"):
     if rule == "finite":
         print(f"{tag} evaluation ({trainer.model.dtype}, no kernel on the path): finite; kernels "
               f"vs eager max-abs {rec['max_abs']:.3g} px")
+        return rec
+    if rule == "share_f32":
+        # f32 through PyTorch's own convolutions: at the configs' batches cuDNN's heuristics pick
+        # FFT-tiled f32 convolutions (TF32 off), millions of small complex GEMMs and 32-125 s a
+        # pass; without cuDNN a pass takes 0.4-3.4 s
+        t0 = time.perf_counter()
+        w32, _ = zoo_eval(trainer, True, torch.float32, cudnn=False)
+        e32, _ = zoo_eval(trainer, False, torch.float32, cudnn=False)
+        rec["f32_passes_s"] = time.perf_counter() - t0
+        rec["share_within_5e-3_f32"] = float(((w32 - e32).abs() <= 5e-3).float().mean())
+        rec["max_abs_f32"] = float((w32 - e32).abs().max())
+        rec["mean_abs"] = float((wired - eager).abs().mean())
+        print(f"{tag} evaluation kernels vs eager: f32 (TF32 off) "
+              f"{rec['share_within_5e-3_f32']:.6f} of the pixels within 5e-3 px (tol >= 0.999), "
+              f"max-abs {rec['max_abs_f32']:.3g} px (PyTorch's own convolutions, both passes "
+              f"{rec['f32_passes_s']:.1f} s); "
+              f"{trainer.model.dtype} mean-abs {rec['mean_abs']:.4g} px (tol "
+              f"{IGEV_FAMILY_BF16_MEAN_ABS}), max-abs {rec['max_abs']:.3g} px")
+        check(rec["share_within_5e-3_f32"] >= 0.999, f"{name} f32 evaluation kernels vs eager: "
+                                                     f"only {rec['share_within_5e-3_f32']} within "
+                                                     f"5e-3 px")
+        check(rec["mean_abs"] <= IGEV_FAMILY_BF16_MEAN_ABS,
+              f"{name} evaluation kernels vs eager mean-abs {rec['mean_abs']} px > "
+              f"{IGEV_FAMILY_BF16_MEAN_ABS}")
         return rec
     if rule == "share":
         # the control that shows why both paths run cuDNN's deterministic algorithms: two
@@ -2795,29 +2979,6 @@ def zoo_eval_agreement(name, trainer, topk_input, rule="max_abs"):
           f"{name} bf16 kernel path {rec['to_f32']['kernels']} px from the f32 disparity, the "
           f"eager path {rec['to_f32']['eager']} px: more than 5 % further")
     return rec
-
-
-@contextmanager
-def detached_volume(model, targets):
-    """Within it, the volume builders `targets` ((module under
-    `openstereo_tpu_torch.models`, name), or (None, a method of `model`)) get
-    their two feature inputs detached: the control of `zoo_grad_check`."""
-    patches = []
-    for mod, attr in targets:
-        owner = model if mod is None else importlib.import_module(
-            f"openstereo_tpu_torch.models.{mod}")
-        patches.append((owner, attr, getattr(owner, attr), mod is None))
-    for owner, attr, fn, _ in patches:
-        setattr(owner, attr,
-                lambda l, r, *a, _fn=fn, **kw: _fn(l.detach(), r.detach(), *a, **kw))
-    try:
-        yield
-    finally:
-        for owner, attr, fn, method in patches:
-            if method:
-                delattr(owner, attr)  # the instance attribute: the method shows again
-            else:
-                setattr(owner, attr, fn)
 
 
 @contextmanager
@@ -2892,14 +3053,16 @@ def grads_within(g32, g64, rel, floor):
     return ok, worst(ratio), worst(of_tensor), worst(of_model), missing, extra, worst(needed)
 
 
-def zoo_grad_check(dev, name, cfg_file, targets, bound):
-    """One step of the config's model (flax's initialisation, seed 1) at batch 1
-    and ZOO_GRAD_HW on a random-dot pair, in f32 with TF32 off against the
-    same step in f64 on the card: every parameter that gets a gradient in f64
-    gets one in f32, each within `bound` = (rel, floor): rel of the tensor's
-    largest magnitude + floor of the model's largest gradient
-    (`zoo_train_paths` says why). A control that detaches the features
-    before the volume (`detached_volume`) must fail the check."""
+def zoo_grad_check(dev, path):
+    """One step of the config's model of `path` (a `ZooPath`; flax's
+    initialisation, seed 1) at batch 1 and `path.grad_hw` on a random-dot pair,
+    in f32 with TF32 off against the same step in f64 on the card: every
+    parameter that gets a gradient in f64 gets one in f32, each within the
+    bound (`path.rel` of the tensor's largest magnitude + ZOO_GRAD_FLOOR of
+    the model's largest gradient; `zoo_train_paths` says why). The step under
+    `path.control` must fail the check: the features detached before the
+    volume (`detached_volume`) or the IGEV family's GRU loop without its
+    detach (`undetached`)."""
     import copy
 
     import torch
@@ -2908,12 +3071,13 @@ def zoo_grad_check(dev, name, cfg_file, targets, bound):
     from openstereo_tpu_torch.models import build_model
     from openstereo_tpu_torch.tools.overfit_check import MEAN, STD, make_stereogram
 
-    h, w = ZOO_GRAD_HW
+    name, bound = path.name, (path.rel, ZOO_GRAD_FLOOR)
+    h, w = path.grad_hw
     left, right, disp = make_stereogram(np.random.RandomState(5), h, w, 64)
     img = lambda a: torch.from_numpy(((a / 255 - MEAN) / STD).astype(np.float32)  # noqa: E731
                                      ).permute(2, 0, 1)[None].to(dev)
     batch = {"left": img(left), "right": img(right), "disp": torch.from_numpy(disp)[None].to(dev)}
-    model = build_model(load_config(str(cfg_file)).MODEL, dtype=torch.float32, device=dev,
+    model = build_model(load_config(str(path.cfg)).MODEL, dtype=torch.float32, device=dev,
                         seed=1, init="train")
     m64 = copy.deepcopy(model).double()
     m64.dtype = torch.float64
@@ -2923,7 +3087,7 @@ def zoo_grad_check(dev, name, cfg_file, targets, bound):
     del m64
     loss32, g32 = step_grads(model, batch)
     ok, worst, of_tensor, of_model, missing, extra, needed = grads_within(g32, g64, *bound)
-    with detached_volume(model, targets):
+    with path.control(model, path.targets):
         _, g_ctl = step_grads(model, batch)
     ctl_ok, ctl_worst, _, _, ctl_missing, _, ctl_needed = grads_within(g_ctl, g64, *bound)
     gmax = max(g.abs().max().item() for g in g64.values())
@@ -2937,7 +3101,7 @@ def zoo_grad_check(dev, name, cfg_file, targets, bound):
           f"largest), worst {of_model[1]:.3g}·max|g| of the model at {of_model[0]}; against the "
           f"bound ({bound[0]}·max|g| of the tensor + {bound[1]}·max|g| of the model) worst "
           f"{worst[1]:.3g} at {worst[0]} (tol 1); rel needed beyond the floor {needed[1]:.3g} at "
-          f"{needed[0] or '-'}; missing {missing}, extra {extra}; detach control: "
+          f"{needed[0] or '-'}; missing {missing}, extra {extra}; {path.control.__name__} control: "
           f"{len(ctl_missing)} tensors without a gradient, worst {ctl_worst[1]:.3g} of the bound "
           f"at {ctl_worst[0]}, rel needed {ctl_needed[1]:.3g} at {ctl_needed[0] or '-'}, rejected "
           f"{not ctl_ok}; largest errors (of max|g| of the model, "
@@ -2945,7 +3109,7 @@ def zoo_grad_check(dev, name, cfg_file, targets, bound):
           + "; ".join(f"{e:.3g} {k} {sc:.3g}" for e, k, sc in reversed(top)))
     check(ok, f"{name} f32 gradients vs f64: worst {worst} of the bound, missing {missing}, "
               f"extra {extra}")
-    check(not ctl_ok, f"{name}: the detach control passes the gradient check")
+    check(not ctl_ok, f"{name}: the {path.control.__name__} control passes the gradient check")
     return {"loss_f32": loss32, "loss_f64": loss64, "worst_of_tensor": of_tensor,
             "worst_of_model": of_model, "worst_of_bound": worst, "bound": list(bound),
             "rel_needed": needed, "control_rel_needed": ctl_needed,
@@ -2972,8 +3136,7 @@ def phase_zoo_train(dev, paths):
             out[path.name] = run_zoo_training(
                 dev, path, data_root, lines[:ZOO_TRAIN_PAIRS],
                 lines[ZOO_TRAIN_PAIRS:ZOO_TRAIN_PAIRS + path.eval_pairs])
-            out[path.name]["grad_check"] = zoo_grad_check(dev, path.name, path.cfg, path.targets,
-                                                          (path.rel, ZOO_GRAD_FLOOR))
+            out[path.name]["grad_check"] = zoo_grad_check(dev, path)
             out[path.name]["seconds"] = time.perf_counter() - t1
             print(f"[phase-time] {path.name} training: {out[path.name]['seconds']:.1f} s")
         return out
@@ -3025,7 +3188,8 @@ def run_zoo_training(dev, path, data_root, train_lines, eval_lines):
     cfg_path.write_text(yaml.safe_dump(cfg))
     paths = run_dir / "data_paths.yaml"
     paths.write_text(yaml.safe_dump({info["DATASET"]: str(data_root)}))
-    crop = cfg["DATA_CONFIG"]["DATA_TRANSFORM"]["TRAINING"][0]["SIZE"]
+    crop = next(t["SIZE"] for t in cfg["DATA_CONFIG"]["DATA_TRANSFORM"]["TRAINING"]
+                if t["NAME"] == "RandomCrop")
     dtype = "bf16" if opt["AMP"] else "f32"
     print(f"{tag} config: crop {crop}, batch {bsz}, {dtype}, {opt['OPTIMIZER']['NAME']} "
           f"{opt['OPTIMIZER']['LR']}, {opt['SCHEDULER']['NAME']} warm-up "
@@ -3146,8 +3310,10 @@ def phase_zoo_overfit(name="GwcNet", args=ZOO_OVERFIT_ARGS):
     (phase 30: 60 steps on one batch of 2 random-dot pairs at 192x384,
     max_disp 64, f32, RMSprop 1e-4 constant, clip by norm 35) or FADNet's
     (phase 35, FADNET_OVERFIT_ARGS: 60 steps of b1 at 192x384, f32, Lamb
-    4e-3 constant, no clip); the mean loss of the last 20 steps must fall
-    below 0.8 of the first 5 steps'."""
+    4e-3 constant, no clip) or IGEV's (phase 45, IGEV_OVERFIT_ARGS: 40 steps of
+    b2 at 192x384, max_disp 64, bf16, AdamW 2e-4 constant, clip by norm 35,
+    22 GRU iterations); the mean loss of the last 20 steps must fall below
+    0.8 of the first 5 steps'."""
     from openstereo_tpu_torch.tools import overfit_check
 
     t0 = time.perf_counter()
@@ -3464,10 +3630,12 @@ def main():
         paths = zoo_train_paths()
         zoo_kernels = run_phase("26-34 kernels at the trainer evaluations' shapes",
                                 phase_zoo_kernels, dev, card, paths)
-        zoo = run_phase("26-34 training", phase_zoo_train, dev, paths)
+        zoo = run_phase("26-34, 41-44 training", phase_zoo_train, dev, paths)
         overfits = {"GwcNet": run_phase("30 GwcNet overfit", phase_zoo_overfit),
                     "FADNet": run_phase("35 FADNet overfit (Lamb)", phase_zoo_overfit, "FADNet",
-                                        FADNET_OVERFIT_ARGS)}
+                                        FADNET_OVERFIT_ARGS),
+                    "IGEV": run_phase("45 IGEV overfit", phase_zoo_overfit, "IGEV",
+                                      IGEV_OVERFIT_ARGS)}
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -3499,6 +3667,7 @@ def main():
              eval_batch=dict(max_abs_err=k2_eval[1], max_abs_err_f32=k2_eval[0],
                              splits=[dict(shape=list(k), splits=v)
                                      for k, v in k2_eval_splits.items()]),
+             igev_family_eval=zoo_kernels["igev_family"]["fused_mbconv"],
              eval_batch2=dict(max_abs_err=zoo_kernels["fused_mbconv"][1],
                               max_abs_err_f32=zoo_kernels["fused_mbconv"][0],
                               splits=[dict(shape=list(k), splits=v)
@@ -3543,6 +3712,7 @@ def main():
                             **igev_eval["k3"]),
              launches_trainer_eval=trainer_eval_launches(trained, zoo, "gwc_volume"),
              eval_batch=volume_checks(zoo_kernels["gwc_volume"]),
+             igev_family_eval=zoo_kernels["igev_family"]["gwc_volume"],
              ptxas=ptxas["cost_volume"], **k3),
     ]
     print(f"[slice] fps eager {bench['eager']['fps']:.2f}, kernels {bench['kernels']['fps']:.2f}; "

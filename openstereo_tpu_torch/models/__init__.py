@@ -1,10 +1,10 @@
 """Model registry and `build_model` (counterpart of `openstereo_tpu/models/__init__.py:32`).
 
 LightStereo, STTR, GwcNet, PSMNet, CoEx, MSNet3D, MSNet2D, CFNet, FADNet,
-CasGwcNet and CasPSMNet are ported, for inference and for training, and
-IGEV, IGEV-RT, StereoBase (also under its configs' name StereoBaseGRU) and
-IGEV++ for inference; the other names of the JAX zoo raise
-NotImplementedError naming the ROADMAP item that brings them.
+CasGwcNet, CasPSMNet, IGEV, IGEV-RT, StereoBase (also under its configs'
+name StereoBaseGRU) and IGEV++ are ported, for inference and for training;
+the other names of the JAX zoo raise NotImplementedError naming the
+ROADMAP item that brings them.
 """
 
 from __future__ import annotations

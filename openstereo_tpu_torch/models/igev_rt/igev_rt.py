@@ -1,4 +1,4 @@
-"""IGEV-RT inference, NCHW / NCDHW (counterpart of `openstereo_tpu/models/igev_rt/igev_rt.py`).
+"""IGEV-RT, NCHW / NCDHW (counterpart of `openstereo_tpu/models/igev_rt/igev_rt.py`).
 
 IGEV's trunk, stems and descriptors (`models/igev`), then:
 - the group-wise volume (8 groups, D/4 planes) through K3, straight into
@@ -8,15 +8,17 @@ IGEV's trunk, stems and descriptors (`models/igev`), then:
 - a conv-only hidden state (`hnet`: BasicConvBN, then a bias-free 3×3
   conv; tanh) and context (`cnet`: BasicConvBN, then `context_zqr_conv`,
   split in three) over the 1/4 features (`:171-181`);
-- VALID_ITERS iterations of one ConvGRU at 1/4, each sampling only the
-  geometry pyramid (`:183-189`): cor_planes = levels·(2r+1)·8;
-- the last iterate upsampled ×4 by `spx_2_gru` (BatchNorm) and `spx_gru`.
+- VALID_ITERS (eval) or TRAIN_ITERS (training) iterations of one ConvGRU
+  at 1/4, each sampling only the geometry pyramid (`:183-189`): cor_planes
+  = levels·(2r+1)·8; the loop, the upsampling and the training heads are
+  IGEV's (`IGEVFamily`);
+- the loss: smooth-L1 on the upsampled initial disparity plus the
+  γ-weighted L1 over the iterates, over 0 < gt < min(max_disp, 192)
+  (`:249-260`: the reference gates at 192 whatever MAX_DISP).
 
 Images arrive as the config gives them and are not rescaled inside (IGEV's
-[0,255] → [-1,1] is not copied). The trunk runs K2. Training is not ported
-(the forward raises in training mode); the training heads `spx_4`, `spx_2`
-and `spx` are held, so that the state_dict is the reference's, as
-`torch_convert.py:convert_igev_rt` reads it.
+[0,255] → [-1,1] is not copied). The trunk runs K2 in eval, K3 builds the
+volume in eval; training runs their plain versions (IGEV's rules).
 """
 
 from __future__ import annotations
@@ -30,8 +32,9 @@ import torch.nn.functional as F
 from ..layers import run_conv, run_seq
 from ..igev.blocks import BasicConvBN, BasicConvIN, Conv2x, Feature
 from ..igev.geometry import MultiLookup, avg_pool_last, lookup_dtype
-from ..igev.igev import FEATURE_CHANNELS, GeoHourglass, IGEVFamily, no_training, stem
+from ..igev.igev import FEATURE_CHANNELS, GeoHourglass, IGEVFamily, sequence_loss, stem
 from ..igev.update import BasicMotionEncoder, ConvGRU, DispHead
+from ..losses import masked_smooth_l1
 
 
 class BasicUpdateBlock(nn.Module):
@@ -55,7 +58,8 @@ class BasicUpdateBlock(nn.Module):
 
 
 class IGEVRT(IGEVFamily):
-    """forward(data) → {'disp_pred': [B,H,W]}, eval only.
+    """forward(data) → {'disp_pred': [B,H,W]}, in training also 'init_disp'
+    and 'disp_preds' (TRAIN_ITERS of them).
 
     data['left'] / data['right']: [B,3,H,W], H and W multiples of 32. Dtypes
     as IGEV's: parameters f32, heads in at least f32, the carried disparity
@@ -66,18 +70,17 @@ class IGEVRT(IGEVFamily):
     GROUPS = 8
 
     def __init__(self, max_disp: int = 192, hidden_dim: int = 96, corr_levels: int = 2,
-                 corr_radius: int = 4, valid_iters: int = 8,
+                 corr_radius: int = 4, train_iters: int = 22, valid_iters: int = 8,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         self.max_disp, self.dtype = max_disp, dtype
         self.hidden_dim, self.corr_levels, self.corr_radius = hidden_dim, corr_levels, corr_radius
-        self.valid_iters = valid_iters
+        self.train_iters, self.valid_iters = train_iters, valid_iters
         c4 = FEATURE_CHANNELS[0]
 
         self.feature = Feature()
         self.stem_2 = stem(3, 32, 2)
         self.stem_4 = stem(32, 48, 2)
-        # training heads (the init disparity's superpixel upsample): held, never run
         self.spx_4 = stem(c4, 24, 1)
         self.spx_2 = Conv2x(24, 32, norm="instance")
         self.spx = nn.Sequential(nn.ConvTranspose2d(64, 9, 4, 2, 1))
@@ -97,7 +100,6 @@ class IGEVRT(IGEVFamily):
     def gru_iteration(self, net, context, geo_lookup, disp):
         """One iteration (`igev_rt.py:79-108`): disp [B,1,H,W] f32 → (net, the
         new disp, mask_feat_4)."""
-        disp = disp.detach()
         r = self.corr_radius
         dx = torch.arange(-r, r + 1, dtype=disp.dtype, device=disp.device)
         d0 = disp[:, 0, ..., None]
@@ -107,8 +109,6 @@ class IGEVRT(IGEVFamily):
         return net, disp + delta, mask_feat_4
 
     def forward(self, data: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        if self.training:
-            raise no_training("IGEVRT")
         image1, image2 = data["left"].to(self.dtype), data["right"].to(self.dtype)
         feats_l, stem_2x, match_left, match_right = self.descriptors(image1, image2)
         d4 = self.max_disp // 4
@@ -124,9 +124,14 @@ class IGEVRT(IGEVFamily):
         pyramid = [geo]
         for _ in range(self.corr_levels - 1):
             pyramid.append(avg_pool_last(pyramid[-1]))
-        disp, mask_feat_4 = self.refine(self.valid_iters, net, context, MultiLookup(pyramid),
-                                        disp=init_disp)
-        return {"disp_pred": self.upsample(disp, mask_feat_4, stem_2x)}
+        iterates = self.refine(net, context, MultiLookup(pyramid), disp=init_disp)
+        return self.outputs(iterates, stem_2x, feats_l[0], [init_disp])
 
     def get_loss(self, pred: Dict, data: Dict):
-        raise no_training("IGEVRT")
+        """IGEV's sequence loss over 0 < gt < max_disp and gt < 192 (the
+        reference's gate, whatever MAX_DISP; `igev_rt.py:249-260`)."""
+        gt = data["disp"]
+        mask = (gt < self.max_disp) & (gt > 0) & (gt < 192.0)
+        loss = sequence_loss(masked_smooth_l1(pred["init_disp"], gt, mask), pred["disp_preds"],
+                             gt, mask)
+        return loss, {"loss_disp": loss}

@@ -1,4 +1,4 @@
-"""IGEV++ inference, NCHW / NCDHW (counterpart of `openstereo_tpu/models/igevpp/igevpp.py`).
+"""IGEV++, NCHW / NCDHW (counterpart of `openstereo_tpu/models/igevpp/igevpp.py`).
 
 IGEV's trunk, stems, descriptors and context net (`models/igev`), then:
 - one group-wise volume over all MAX_DISP/4 planes through K3, and three
@@ -10,17 +10,21 @@ IGEV's trunk, stems, descriptors and context net (`models/igev`), then:
   the shared classifier, regressed at its own interval (`:301-307`);
 - the selective-fusion weights, a sigmoid of 3 channels from the 1/4
   features and the three disparities (`:309-321`);
-- VALID_ITERS iterations of the three-scale GRU cascade (`PPUpdateBlock`,
-  no slow-fast updates), each sampling the small range's two-level pyramid,
-  the medium and large ranges at d/2 and d/4 (one merged lookup, each tap
-  valid only in its own segment) and the all-pairs correlation at
-  `coords − d` (`:174-215`);
-- the last iterate upsampled ×4 by `spx_2_gru` (InstanceNorm) and `spx_gru`.
+- VALID_ITERS (eval) or TRAIN_ITERS (training) iterations of the
+  three-scale GRU cascade (`PPUpdateBlock`, no slow-fast updates), each
+  sampling the small range's two-level pyramid, the medium and large ranges
+  at d/2 and d/4 (one merged lookup, each tap valid only in its own segment)
+  and the all-pairs correlation at `coords − d` (`:174-215`); the loop and
+  the upsampling are IGEV's (`IGEVFamily`), `spx_2_gru` with InstanceNorm;
+- in training the three range disparities upsampled ×4 by the one shared
+  set of training heads (`:400-413`), and the loss: their smooth-L1 weighted
+  1.0, 0.5 and 0.2, each over 0 < gt < max_disp below its own cap
+  (DISP_CAPS), plus the γ-weighted L1 over the iterates below the last cap
+  (`:416-432`).
 
 Images arrive as the config gives them and are not rescaled inside. The
-trunk runs K2. Training is not ported (the forward raises in training mode);
-the training heads `spx_4`, `spx_2` and `spx` are held, so that the
-state_dict is the reference's, as `torch_convert.py:convert_igevpp` reads it.
+trunk runs K2 in eval, K3 builds the volume in eval; training runs their
+plain versions (IGEV's rules).
 """
 
 from __future__ import annotations
@@ -34,7 +38,8 @@ import torch.nn.functional as F
 from ..layers import run_conv, run_seq
 from ..igev.blocks import BasicConvBN, BasicConvIN, Conv2x, Feature, FeatureAtt, MultiBasicEncoder
 from ..igev.geometry import MultiLookup, all_pairs_correlation, avg_pool_last, lookup_dtype
-from ..igev.igev import FEATURE_CHANNELS, IGEVFamily, no_training, pixel_columns, stem
+from ..igev.igev import FEATURE_CHANNELS, IGEVFamily, pixel_columns, sequence_loss, stem
+from ..losses import masked_smooth_l1
 from ..igev.update import BasicMotionEncoder, BasicMultiUpdateBlock
 
 
@@ -140,7 +145,8 @@ class PPUpdateBlock(BasicMultiUpdateBlock):
 
 
 class IGEVPP(IGEVFamily):
-    """forward(data) → {'disp_pred': [B,H,W]}, eval only.
+    """forward(data) → {'disp_pred': [B,H,W]}, in training also 'init_disp'
+    (the three ranges' [B,H,W]) and 'disp_preds' (TRAIN_ITERS of them).
 
     data['left'] / data['right']: [B,3,H,W], H and W multiples of 32. Dtypes
     as IGEV's. Keys follow the reference IGEVPPStereo state_dict.
@@ -152,7 +158,8 @@ class IGEVPP(IGEVFamily):
                  m_disp_range: int = 96, m_disp_interval: int = 2, l_disp_range: int = 192,
                  l_disp_interval: int = 4, hidden_dims: Sequence[int] = (128, 128, 128),
                  n_gru_layers: int = 3, n_downsample: int = 2, corr_levels: int = 2,
-                 corr_radius: int = 4, valid_iters: int = 32,
+                 corr_radius: int = 4, train_iters: int = 22, valid_iters: int = 32,
+                 disp_caps: Sequence[float] = (192.0, 384.0, 700.0),
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         if n_downsample != 2:
@@ -163,7 +170,8 @@ class IGEVPP(IGEVFamily):
                        (l_disp_range, l_disp_interval))
         self.hidden_dims, self.n_gru_layers = tuple(hidden_dims), n_gru_layers
         self.corr_levels, self.corr_radius = corr_levels, corr_radius
-        self.valid_iters = valid_iters
+        self.train_iters, self.valid_iters = train_iters, valid_iters
+        self.disp_caps = tuple(float(c) for c in disp_caps)
         hd = list(hidden_dims)
         c4 = FEATURE_CHANNELS[0]
         g = self.GROUPS
@@ -171,7 +179,6 @@ class IGEVPP(IGEVFamily):
         self.feature = Feature()
         self.stem_2 = stem(3, 32, 2)
         self.stem_4 = stem(32, 48, 2)
-        # training heads (the three ranges' superpixel upsample): held, never run
         self.spx_4 = stem(c4, 64, 1)
         self.spx_2 = Conv2x(64, 32, norm="instance")
         self.spx = nn.Sequential(nn.ConvTranspose2d(64, 9, 4, 2, 1))
@@ -199,7 +206,6 @@ class IGEVPP(IGEVFamily):
     def gru_iteration(self, net, inp, geo_lookup, corr_lookup, sel_w, coords, disp):
         """One iteration (`igevpp.py:174-215`): disp [B,1,H,W] f32 → (net, the
         new disp, mask_feat_4)."""
-        disp = disp.detach()
         r, n = self.corr_radius, self.corr_levels
         dx = torch.arange(-r, r + 1, dtype=disp.dtype, device=disp.device)
         d0 = disp[:, 0]
@@ -215,8 +221,6 @@ class IGEVPP(IGEVFamily):
         return net, disp + delta, mask_feat_4
 
     def forward(self, data: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        if self.training:
-            raise no_training("IGEVPP")
         image1, image2 = data["left"].to(self.dtype), data["right"].to(self.dtype)
         feats_l, stem_2x, match_left, match_right = self.descriptors(image1, image2)
         (s, _), (m, _), _ = self.ranges
@@ -241,10 +245,18 @@ class IGEVPP(IGEVFamily):
         corr_pyramid = [all_pairs_correlation(match_left.to(ld), match_right.to(ld))[:, :, :, None]]
         for _ in range(self.corr_levels - 1):
             corr_pyramid.append(avg_pool_last(corr_pyramid[-1]))
-        disp, mask_feat_4 = self.refine(self.valid_iters, net, inp, geo_lookup,
-                                        MultiLookup(corr_pyramid), sel_w,
-                                        pixel_columns(agg[0]), disp=agg[0])
-        return {"disp_pred": self.upsample(disp, mask_feat_4, stem_2x)}
+        iterates = self.refine(net, inp, geo_lookup, MultiLookup(corr_pyramid), sel_w,
+                               pixel_columns(agg[0]), disp=agg[0])
+        return self.outputs(iterates, stem_2x, feats_l[0], agg)
 
     def get_loss(self, pred: Dict, data: Dict):
-        raise no_training("IGEVPP")
+        """The three range heads' smooth-L1 weighted 1.0, 0.5 and 0.2, each over
+        0 < gt < max_disp below its cap, plus the γ-weighted L1 over the
+        iterates below the last cap (`igevpp.py:416-432`)."""
+        gt = data["disp"]
+        valid = (gt < self.max_disp) & (gt > 0)
+        loss = 0.0
+        for w, p, cap in zip((1.0, 0.5, 0.2), pred["init_disp"], self.disp_caps):
+            loss = loss + w * masked_smooth_l1(p, gt, valid & (gt < cap))
+        loss = sequence_loss(loss, pred["disp_preds"], gt, valid & (gt < self.disp_caps[-1]))
+        return loss, {"loss_disp": loss}

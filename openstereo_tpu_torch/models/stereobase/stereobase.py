@@ -1,4 +1,4 @@
-"""StereoBase inference, NCHW / NCDHW (counterpart of `openstereo_tpu/models/stereobase/stereobase.py`).
+"""StereoBase, NCHW / NCDHW (counterpart of `openstereo_tpu/models/stereobase/stereobase.py`).
 
 IGEV's machinery (`models/igev`) under StereoBase's key spelling (its
 reference builds the stems, the decoder's Conv2x, `conv`, the superpixel
@@ -10,15 +10,18 @@ Sequential: `torch_convert.py:convert_stereobase`), with:
   (`InterlacedVolume`); each optional (`stereobase.py:179-201`);
 - `GeoHourglass` over the fused volume's `volume_channels`;
 - the initial disparity by soft-argmax, IGEV's context net and
-  EVAL_ITERS iterations of IGEV's GRU cascade (slow-fast as
-  SLOW_FAST_GRU), whose motion encoder reads levels·(2r+1)·(channels + 1)
-  taps of the geometry and correlation pyramids;
-- the last iterate upsampled ×4 by `spx_2_gru` (BatchNorm) and `spx_gru`.
+  EVAL_ITERS (eval) or TRAIN_ITERS (training) iterations of IGEV's GRU
+  cascade (slow-fast as SLOW_FAST_GRU), whose motion encoder reads
+  levels·(2r+1)·(channels + 1) taps of the geometry and correlation
+  pyramids; the loop, the upsampling and the training heads are IGEV's
+  (`IGEVFamily`), and so is the loss (`stereobase.py:298-308`).
 
 Images arrive normalised by the config's NormalizeImage and are not
-rescaled inside. The trunk runs K2. Training is not ported (the forward
-raises in training mode); the training heads `spx_4`, `spx_2` and `spx`
-are held, so that the state_dict is the reference's.
+rescaled inside. The trunk runs K2 in eval, K3 builds the group-wise
+volume in eval; training runs their plain versions, each view through the
+trunk, the stems and `concat_conv` on its own (each BatchNorm updated left,
+then right), and the interlaced volume's BatchNorms on their batch
+statistics.
 """
 
 from __future__ import annotations
@@ -33,7 +36,9 @@ from ...ops import build_concat_volume, build_sub_volume
 from ..layers import ConvBlock, conv_norm, run_seq
 from ..igev.blocks import BasicConvIN, Conv2x, Feature, MultiBasicEncoder
 from ..igev.geometry import CombinedGeoEncodingVolume, lookup_dtype
-from ..igev.igev import FEATURE_CHANNELS, GeoHourglass, IGEVFamily, no_training, pixel_columns, stem
+from ..igev.igev import (FEATURE_CHANNELS, GeoHourglass, IGEVFamily, pixel_columns,
+                         sequence_loss, stem)
+from ..losses import disp_valid_mask, masked_smooth_l1
 from ..igev.update import BasicMultiUpdateBlock
 from ..msnet.msnet import masked_depth_stages
 
@@ -78,7 +83,8 @@ class InterlacedVolume(nn.Module):
 
 
 class StereoBase(IGEVFamily):
-    """forward(data) → {'disp_pred': [B,H,W]}, eval only.
+    """forward(data) → {'disp_pred': [B,H,W]}, in training also 'init_disp'
+    and 'disp_preds' (TRAIN_ITERS of them).
 
     data['left'] / data['right']: [B,3,H,W] normalised images, H and W
     multiples of 32. Dtypes as IGEV's. Keys follow the reference StereoBase
@@ -91,8 +97,8 @@ class StereoBase(IGEVFamily):
                  use_interlaced_volume: bool = False, concat_channels: int = 12,
                  interlaced_channels: int = 8, hidden_dims: Sequence[int] = (128, 128, 128),
                  n_gru_layers: int = 3, n_downsample: int = 2, slow_fast_gru: bool = False,
-                 corr_levels: int = 2, corr_radius: int = 4, eval_iters: int = 32,
-                 dtype: torch.dtype = torch.float32):
+                 corr_levels: int = 2, corr_radius: int = 4, train_iters: int = 22,
+                 eval_iters: int = 32, dtype: torch.dtype = torch.float32):
         super().__init__()
         if n_downsample != 2:
             raise NotImplementedError(f"StereoBase n_downsample {n_downsample}: the port takes "
@@ -104,7 +110,7 @@ class StereoBase(IGEVFamily):
         self.hidden_dims = tuple(hidden_dims)
         self.n_gru_layers, self.slow_fast_gru = n_gru_layers, slow_fast_gru
         self.corr_levels, self.corr_radius = corr_levels, corr_radius
-        self.eval_iters = eval_iters
+        self.train_iters, self.eval_iters = train_iters, eval_iters
         hd = list(hidden_dims)
         c4 = FEATURE_CHANNELS[0]
         vc = self.volume_channels
@@ -114,7 +120,6 @@ class StereoBase(IGEVFamily):
         self.feature = Feature(spelling="block")
         self.stem_2 = stem(3, 32, 2, spelling="block")
         self.stem_4 = stem(32, 48, 2, spelling="block")
-        # training heads (the init disparity's superpixel upsample): held, never run
         self.spx_4 = stem(c4, 24, 1, spelling="block")
         self.spx_2 = Conv2x(24, 32, norm="instance", spelling="block")
         self.spx = nn.Sequential(nn.ConvTranspose2d(64, 9, 4, 2, 1))
@@ -135,6 +140,11 @@ class StereoBase(IGEVFamily):
                                                for i in range(3))
         cor_planes = corr_levels * (2 * corr_radius + 1) * (vc + 1)
         self.update_block = BasicMultiUpdateBlock(hd[::-1], n_gru_layers, cor_planes)
+
+    @property
+    def valid_iters(self) -> int:
+        """EVAL_ITERS, under the name `IGEVFamily.iters` reads."""
+        return self.eval_iters
 
     @property
     def volume_channels(self) -> int:
@@ -160,8 +170,6 @@ class StereoBase(IGEVFamily):
         return volumes[0] if len(volumes) == 1 else torch.cat(volumes, dim=1)
 
     def forward(self, data: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        if self.training:
-            raise no_training("StereoBase")
         image1, image2 = data["left"].to(self.dtype), data["right"].to(self.dtype)
         feats_l, stem_2x, match_left, match_right = self.descriptors(image1, image2)
         geo_volume = self.cost_agg(self.cost_volume(match_left, match_right), feats_l)
@@ -170,9 +178,13 @@ class StereoBase(IGEVFamily):
         ld = lookup_dtype(self.dtype)
         geo_fn = CombinedGeoEncodingVolume(match_left.to(ld), match_right.to(ld),
                                            geo_volume.to(ld), self.corr_levels, self.corr_radius)
-        disp, mask_feat_4 = self.refine(self.eval_iters, net, inp, geo_fn,
-                                        pixel_columns(init_disp), disp=init_disp)
-        return {"disp_pred": self.upsample(disp, mask_feat_4, stem_2x)}
+        iterates = self.refine(net, inp, geo_fn, pixel_columns(init_disp), disp=init_disp)
+        return self.outputs(iterates, stem_2x, feats_l[0], [init_disp])
 
     def get_loss(self, pred: Dict, data: Dict):
-        raise no_training("StereoBase")
+        """IGEV's sequence loss over 0 < gt < max_disp (`stereobase.py:298-308`)."""
+        gt = data["disp"]
+        mask = disp_valid_mask(gt, self.max_disp)
+        loss = sequence_loss(masked_smooth_l1(pred["init_disp"], gt, mask), pred["disp_preds"],
+                             gt, mask)
+        return loss, {"loss_disp": loss}

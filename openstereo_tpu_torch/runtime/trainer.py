@@ -3,18 +3,20 @@
 A train step is `model.train()`, the forward and `get_loss`, backward, and
 the optimizer's step (clip, update, schedule: `runtime/optim.py`), eager
 but for the kernels that the model's training forward runs (STTR's K4,
-through its autograd Function). BatchNorm takes its statistics per view
+through its autograd Function; no other model's). BatchNorm takes its statistics per view
 and per batch on the one device; with FREEZE_BN it keeps its running
 statistics (`models/layers.py:freeze_bn`). Evaluation is `model.eval()`
 under `torch.inference_mode()` on the whole batch (STTR reads its
 occlusion mask), through the kernels (K1 and K2 on LightStereo and CoEx,
-K4 on STTR, K3 on GwcNet and MSNet3D, K2 on MSNet3D and MSNet2D), with
+K4 on STTR, K3 on GwcNet and MSNet3D, K2 on MSNet3D and MSNet2D, K3 and K2
+on the IGEV family), with
 per-image metrics deduplicated by the sample's dataset index. Checkpoints are `torch.save` files of the train
 state, one per epoch, with the MAX_CKPT_SAVE_NUM rotation; resume restores
 parameters, BatchNorm statistics, optimizer state and step.
 
 Left out: the mesh and multi-host code (ROADMAP item 20), OPTIMIZATION.REMAT
-(whole-forward checkpointing; GwcNet's and PSMNet's MODEL.REMAT is ported)
+(whole-forward checkpointing; MODEL.REMAT is ported: GwcNet's and PSMNet's
+hourglasses and heads, the IGEV family's GRU iterations)
 and visualisation (item 8). TensorBoard scalars are written when
 `torch.utils.tensorboard` imports, else the JSONL metrics only.
 """

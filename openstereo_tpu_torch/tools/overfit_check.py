@@ -9,9 +9,11 @@ stereogram's disparity (as the JAX tool gives them) and trains in f32 with
 its config's optimizer, RMSprop, at a constant rate with its clip by norm
 35; the mean loss of the last 20 steps should fall below 0.8 of the first
 5 steps' (the train EPE is printed beside it). GwcNet, PSMNet, CoExNet,
-MSNet3D, MSNet2D, CFNet, CasGwcNet, CasPSMNet and FADNet train the same way
-with their SceneFlow configs' dtype, optimizer and clip (`RECIPES`; FADNet
-with Lamb) at a constant rate, under the same check.
+MSNet3D, MSNet2D, CFNet, CasGwcNet, CasPSMNet and FADNet, and IGEV, IGEVRT,
+StereoBase (StereoBaseGRU) and IGEVPP train the same way with their
+SceneFlow configs' dtype, optimizer and clip (`RECIPES`; FADNet with Lamb;
+the IGEV family in bf16 with AdamW, all TRAIN_ITERS GRU iterations unless
+`--kwargs` sets fewer) at a constant rate, under the same check.
 
     python -m openstereo_tpu_torch.tools.overfit_check [--steps 400] [--device cpu]
     python -m openstereo_tpu_torch.tools.overfit_check --model STTR --steps 200 --batch 2 --lr 1e-4
@@ -19,6 +21,8 @@ with Lamb) at a constant rate, under the same check.
         --lr 1e-4
     python -m openstereo_tpu_torch.tools.overfit_check --model FADNet --steps 100 --batch 1 \
         --size 192 384 --lr 4e-3
+    python -m openstereo_tpu_torch.tools.overfit_check --model IGEV --steps 60 --batch 2 \
+        --lr 2e-4
 """
 
 from __future__ import annotations
@@ -89,7 +93,12 @@ RECIPES = {"LightStereo": ("bf16", "adamw", ("value", 0.1), "final train EPE < 3
            "CFNet": ("f32", "rmsprop", None, LOSS_RULE),
            "CasGwcNet": ("f32", "rmsprop", None, LOSS_RULE),
            "CasPSMNet": ("f32", "rmsprop", None, LOSS_RULE),
-           "FADNet": ("f32", "lamb", None, LOSS_RULE)}
+           "FADNet": ("f32", "lamb", None, LOSS_RULE),
+           "IGEV": ("bf16", "adamw", ("norm", 35.0), LOSS_RULE),
+           "IGEVRT": ("bf16", "adamw", ("norm", 1.0), LOSS_RULE),
+           "StereoBase": ("bf16", "adamw", ("value", 1.0), LOSS_RULE),
+           "StereoBaseGRU": ("bf16", "adamw", ("value", 1.0), LOSS_RULE),
+           "IGEVPP": ("bf16", "adamw", ("norm", 1.0), LOSS_RULE)}
 
 
 def main(argv: Optional[Sequence[str]] = None):

@@ -41,6 +41,7 @@ from openstereo_tpu_torch.utils import jax_weights as jw
 
 from openstereo_tpu_torch.models.igev.blocks import Conv2x
 
+import torch_train_step as ts
 from test_torch_gwcnet import close_to_scale
 from test_torch_layers import _random_like, _random_variables_via, run_jitted_fast
 from test_torch_ops import to_nchw
@@ -303,7 +304,9 @@ def test_igev_state_dict_round_trip_is_exact(reference, port):
 def test_build_model_runs_the_config_on_the_cpu_through_the_plain_kernels(monkeypatch):
     """The config's IGEV at full width on the CPU: the K3 and K2 wrappers run
     their plain versions (once per frame and 11 times, both views in one
-    batch); the GRU loop cut to 2 iterations for time."""
+    batch); the GRU loop cut to 2 iterations for time. A training forward
+    gives the initial disparity and TRAIN_ITERS iterates (cut to 2) at the
+    images' size, through neither wrapper."""
     calls = {"gwc": 0, "mbconv": 0}
 
     def counted(key, fn):
@@ -327,5 +330,7 @@ def test_build_model_runs_the_config_on_the_cpu_through_the_plain_kernels(monkey
         disp = model({"left": x, "right": x.roll(-3, dims=-1)})["disp_pred"]
     assert disp.shape == (1, 64, 128) and torch.isfinite(disp).all()
     assert calls == {"gwc": 1, "mbconv": 11}
-    with pytest.raises(NotImplementedError, match="item 14"):
-        model.train()({"left": x, "right": x})
+    model.train_iters = 2
+    with torch.no_grad():
+        ts.check_training_outputs(model, {"left": x, "right": x.roll(-3, dims=-1)})
+    assert calls == {"gwc": 1, "mbconv": 11}  # training runs the plain builders

@@ -30,8 +30,10 @@ from openstereo_tpu.utils.torch_convert import convert_igev_rt
 from openstereo_tpu_torch.config import load_config
 from openstereo_tpu_torch.models import build_model, set_kernels
 from openstereo_tpu_torch.models.igev_rt import IGEVRT
+from openstereo_tpu_torch.models.igevpp import IGEVPP
 from openstereo_tpu_torch.utils import jax_weights as jw
 
+import torch_train_step as ts
 from test_torch_gwcnet import close_to_scale
 from test_torch_layers import _random_variables_via, run_jitted_fast
 from test_torch_ops import to_nchw
@@ -150,7 +152,9 @@ def counted_plain_kernels(monkeypatch):
 def run_config_on_the_cpu(cfg_file, cls, monkeypatch, iters_attr, iters=2, hw=(64, 128)):
     """`build_model` on a config at full width on the CPU, its GRU loop cut to
     `iters` for time: a finite disparity, K3 once and K2 11 times (both views
-    in one batch) through their plain versions, and a raise in training."""
+    in one batch) through their plain versions; then a training forward: the
+    initial disparity (IGEV++: three) and `iters` iterates at the images'
+    size, through neither wrapper."""
     calls = counted_plain_kernels(monkeypatch)
     cfg = load_config(str(cfg_file))
     model = build_model(cfg.MODEL, device="cpu", seed=0)
@@ -161,8 +165,11 @@ def run_config_on_the_cpu(cfg_file, cls, monkeypatch, iters_attr, iters=2, hw=(6
         disp = model({"left": x, "right": x.roll(-3, dims=-1)})["disp_pred"]
     assert disp.shape == (1, *hw) and torch.isfinite(disp).all()
     assert calls == {"gwc": 1, "mbconv": 11}
-    with pytest.raises(NotImplementedError, match="item 14"):
-        model.train()({"left": x, "right": x})
+    model.train_iters = iters
+    with torch.no_grad():
+        ts.check_training_outputs(model, {"left": x, "right": x.roll(-3, dims=-1)},
+                                  3 if isinstance(model, IGEVPP) else 1)
+    assert calls == {"gwc": 1, "mbconv": 11}  # training runs the plain builders
     return cfg, model
 
 

@@ -7,8 +7,10 @@ its values are the plain version's (on the CPU the wrapper runs it), and a
 backward through it raises on every device, naming the plain function to
 train through, where a result without a graph would cut the gradient
 without a word. The models that run these kernels in eval (GwcNet, MSNet3D,
-CoEx) build their training forwards with the plain builders, so a gradient
-reaches their first backbone conv with `use_kernels` on.
+CoEx, and IGEV, IGEV-RT, StereoBase and IGEV++ with K3 and K2 in their
+trunks) build their training forwards with the plain builders and the
+trunk's eager blocks, so a gradient reaches their first backbone conv with
+`use_kernels` on: no K2 or K3 result enters a backward.
 """
 
 import pytest
@@ -17,7 +19,11 @@ import torch
 from openstereo_tpu_torch import ops
 from openstereo_tpu_torch.models.coex import CoExNet
 from openstereo_tpu_torch.models.gwcnet import GwcNet
+from openstereo_tpu_torch.models.igev import IGEV
+from openstereo_tpu_torch.models.igev_rt import IGEVRT
+from openstereo_tpu_torch.models.igevpp import IGEVPP
 from openstereo_tpu_torch.models.msnet import MSNet3D
+from openstereo_tpu_torch.models.stereobase import StereoBase
 
 from torch_port_threads import torch_threads_per_worker  # noqa: F401 (autouse fixture)
 
@@ -82,7 +88,13 @@ def test_kernel_wrapper_forward_equals_the_plain_version(name):
      "Backbone.feature_extraction.firstconv.0.0"),
     (MSNet3D, dict(max_disp=16), (32, 64), "feature_extraction.firstconv.0.conv.0"),
     (CoExNet, dict(max_disp=16), (48, 80), "Backbone.feat.conv_stem"),
-], ids=["GwcNet", "MSNet3D", "CoEx"])
+    (IGEV, dict(max_disp=32, train_iters=2), (32, 64), "feature.conv_stem"),
+    (IGEVRT, dict(max_disp=32, train_iters=2), (32, 64), "feature.conv_stem"),
+    (StereoBase, dict(max_disp=32, use_concat_volume=True, concat_channels=8, train_iters=2),
+     (32, 64), "feature.conv_stem"),
+    (IGEVPP, dict(max_disp=128, s_disp_range=16, m_disp_range=16, l_disp_range=32,
+                  train_iters=2), (32, 128), "feature.conv_stem"),
+], ids=["GwcNet", "MSNet3D", "CoEx", "IGEV", "IGEV-RT", "StereoBase", "IGEV++"])
 def test_training_forward_with_kernels_on_reaches_the_backbone(cls, kw, hw, first_conv):
     g = torch.Generator().manual_seed(3)
     model = cls(**kw).train()

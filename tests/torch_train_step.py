@@ -1,6 +1,6 @@
 """One train step of a port model against the JAX package's, on the CPU: the
 shared part of `tests/test_torch_train_{gwcnet,psmnet,coex,msnet3d,msnet2d,cfnet,
-casgwcnet,caspsmnet,fadnet}.py`.
+casgwcnet,caspsmnet,fadnet,igev,igev_rt,stereobase,igevpp}.py`.
 
 A tiny model (the eval tests' sizes) with flax variables drawn with numpy in
 the tree that the JAX converter makes of the port's state_dict
@@ -93,7 +93,7 @@ def opt_cfg(case: Case, max_norm: Optional[float]) -> Dict:
     """The config's OPTIMIZATION without the warm-up; a clip by norm at
     `max_norm`."""
     opt = case.config()["OPTIMIZATION"]
-    del opt["SCHEDULER"]["WARMUP"]
+    opt["SCHEDULER"].pop("WARMUP", None)
     clip = opt.get("CLIP_GRAD")
     if clip and clip.get("TYPE", "norm") == "norm":
         clip["MAX_NORM"] = max_norm
@@ -258,6 +258,82 @@ def check_batchnorm_statistics(ref, got, per_view: str, once: str):
     assert int(sd[f"{once}.num_batches_tracked"]) == 1
 
 
+def check_batchnorm_update_counts(got, twice=("feature.",)):
+    """Every BatchNorm of the stepped model updated its running statistics
+    twice (left, then right) where its key starts with one of `twice` (the
+    per-view trunk), else once: the IGEV family's context net, volume
+    stems, hourglasses and `spx_2_gru`, whose one update covers every
+    iterate folded into its batch."""
+    sd = got["model"].state_dict()
+    counts = {k[:-len(".num_batches_tracked")]: int(v) for k, v in sd.items()
+              if k.endswith("num_batches_tracked")}
+    want = {k: 2 if k.startswith(tuple(twice)) else 1 for k in counts}
+    assert counts == want, {k: v for k, v in counts.items() if v != want[k]}
+    print(f"{len(counts)} BatchNorms: {sum(v == 2 for v in counts.values())} updated twice, "
+          f"{sum(v == 1 for v in counts.values())} once")
+
+
+def check_detach_matters(case: Case, ref, got):
+    """The control of the IGEV family's GRU loop: with `igev.carried` (the
+    detach of the carried disparity) made the identity, the gradient flows
+    through the carried disparity, and some gradient leaves JAX's by more
+    than `check_gradients`' tolerance; the loss stays the same."""
+    from openstereo_tpu_torch.models.igev import igev as mod
+
+    saved = mod.carried
+    mod.carried = lambda disp: disp
+    try:
+        ctl = port_grads(case, ref)
+    finally:
+        mod.carried = saved
+    assert abs(ctl["loss"] - got["loss"]) <= 1e-12 * abs(got["loss"])
+    beyond = [k for k, g in ctl["grads"].items()
+              if not np.allclose(g.numpy(), ref["grads"][k].double().numpy(), rtol=0,
+                                 atol=1e-6 * float(ref["grads"][k].abs().max()))]
+    print(f"without the detach: {len(beyond)} of {len(ctl['grads'])} gradients beyond 1e-6·max|g| "
+          f"of JAX's")
+    assert beyond
+
+
+def check_sequence_loss(case: Case, n_init: int = 1, **kwargs):
+    """The model's `get_loss` alone (its masks and weights) against flax's on
+    the same random predictions and a ground truth of -5..300 px (past
+    max_disp, IGEV-RT's 192 gate and IGEV++'s caps), 3 iterates, f64: rtol
+    1e-12. `kwargs` over `case.tiny` (a MAX_DISP above 192, other caps)."""
+    kw = {**case.tiny, **kwargs}
+    rng = np.random.RandomState(7)
+    shape = (2, 8, 16)
+    gt = rng.uniform(-5.0, 300.0, shape)
+    gt[:, :2] = 0.0
+    init = [rng.uniform(0.0, 300.0, shape) for _ in range(n_init)]
+    preds = [rng.uniform(0.0, 300.0, shape) for _ in range(3)]
+    t = lambda a: torch.from_numpy(a)  # noqa: E731
+    got, _ = case.port_model(**kw).get_loss(
+        {"init_disp": [t(a) for a in init] if n_init > 1 else t(init[0]),
+         "disp_preds": [t(a) for a in preds]}, {"disp": t(gt)})
+    with jax.enable_x64(True):
+        j = lambda a: jnp.asarray(a, jnp.float64)  # noqa: E731
+        ref, _ = case.flax_model(**kw).get_loss(
+            {"init_disp": [j(a) for a in init] if n_init > 1 else j(init[0]),
+             "disp_preds": [j(a) for a in preds]}, {"disp": j(gt)})
+    print(f"get_loss alone: port {float(got)!r}, JAX {float(ref)!r}")
+    np.testing.assert_allclose(float(got), float(ref), rtol=1e-12)
+
+
+def check_training_outputs(model, batch, n_init: int = 1):
+    """A training forward gives 'init_disp' (`n_init` of them) and the model's
+    `train_iters` 'disp_preds', each of the images' [B,H,W], the last
+    'disp_pred'."""
+    out = model.train()(batch)
+    b, _, h, w = batch["left"].shape
+    init = out["init_disp"] if n_init > 1 else [out["init_disp"]]
+    assert len(init) == n_init and len(out["disp_preds"]) == model.train_iters
+    for t in init + out["disp_preds"]:
+        assert t.shape == (b, h, w) and torch.isfinite(t).all()
+    assert out["disp_pred"] is out["disp_preds"][-1]
+    return out
+
+
 def check_freeze_bn(case: Case, ref, bn: str):
     """FREEZE_BN: the running statistics stay; the BatchNorm `bn` still gets
     gradients for its scale and bias."""
@@ -298,11 +374,14 @@ def check_eval_after_step(case: Case, ref, got, atol=1e-4):
     np.testing.assert_allclose(wired.numpy(), eager.numpy(), rtol=0, atol=atol)
 
 
-def check_remat(case: Case, ref):
+def check_remat(case: Case, ref, plain: Optional[Dict] = None):
     """MODEL.REMAT: the same step with the hourglasses and regression heads
-    recomputed in the backward gives bit-equal gradients and running
-    statistics, each BatchNorm updated once."""
-    plain = port_grads(case, ref, remat=False)
+    (GwcNet, PSMNet) or the GRU iterations (the IGEV family) recomputed in
+    the backward gives bit-equal gradients and running statistics, each
+    BatchNorm updated as often as without it. `plain`: the step without it,
+    if already taken (`steps`' port record: its model has since been
+    stepped, but only its parameters)."""
+    plain = plain or port_grads(case, ref, remat=False)
     rem = port_grads(case, ref, remat=True)
     assert rem["model"].remat and not plain["model"].remat
     assert rem["loss"] == plain["loss"]
@@ -337,16 +416,46 @@ def write_sceneflow_set(root: Path, n: int, hw, max_disp: int = 16):
     return split
 
 
+def write_kitti_set(root: Path, n: int, hw, max_disp: int = 16):
+    """`n` random-dot pairs in the KITTI 2015 layout (training/image_2 and
+    image_3 PNG views, disp_occ_0 and, for RETURN_RIGHT_DISP, disp_occ_1
+    uint16 PNG disparities × 256; the right one the left's, as no reader
+    derives one from the other) and a split file listing them: its path."""
+    from PIL import Image
+
+    from openstereo_tpu_torch.tools.overfit_check import make_stereogram
+
+    train = root / "training"
+    for sub in ("image_2", "image_3", "disp_occ_0", "disp_occ_1"):
+        (train / sub).mkdir(parents=True, exist_ok=True)
+    lines = []
+    for i in range(n):
+        left, right, disp = make_stereogram(np.random.RandomState(i), *hw, max_disp)
+        name = f"{i:06d}_10.png"
+        for sub, img in (("image_2", left), ("image_3", right)):
+            Image.fromarray(np.clip(np.round(img), 0, 255).astype(np.uint8)).save(
+                train / sub / name)
+        for sub in ("disp_occ_0", "disp_occ_1"):
+            Image.fromarray(np.round(disp * 256.0).astype(np.uint16)).save(train / sub / name)
+        lines.append(f"training/image_2/{name} training/image_3/{name} training/disp_occ_0/{name}")
+    split = root / "split.txt"
+    split.write_text("\n".join(lines))
+    return split
+
+
 def check_train_cli(case: Case, tmp_path: Path, monkeypatch, resume: bool = False,
                     cfg: Optional[str] = None, pad: Optional[Tuple[int, int]] = None):
     """`tools/train.py` on the model's config (or `cfg`) as it is but for the
     data paths, the model's size (`case.tiny`), the crop and the evaluation's
-    pad or crop (`case.crop`, `pad` or `case.pad`), the batch (2, for 2 steps
-    over 4 random-dot pairs) and NUM_EPOCHS 1: 2 steps with the config's
-    optimizer, finite losses, the evaluation and a checkpoint; with
-    `resume`, a resumed Trainer bit-equal to it. A config that resumes from
-    MODEL.CKPT (CFNet's part 2) starts afresh (`--ckpt -1`): the tiny run
-    has no such checkpoint."""
+    pad or crop (`case.crop`, `pad` or `case.pad`: every transform's SIZE),
+    the batch (2, for 2 steps over 4 random-dot pairs) and NUM_EPOCHS 1 (an
+    evaluation and a checkpoint after it, whatever the config's intervals):
+    2 steps with the config's optimizer, finite losses, the evaluation and a
+    checkpoint; with `resume`, a resumed Trainer bit-equal to it. A KITTI
+    config gets its pairs in the KITTI layout, every one of its data sets
+    the same pairs (4 in all for training; a split the config leaves empty
+    stays empty). A config that resumes from MODEL.CKPT (CFNet's part 2)
+    starts afresh (`--ckpt -1`): the tiny run has no such checkpoint."""
     import json
 
     from openstereo_tpu_torch.config import load_config
@@ -358,16 +467,24 @@ def check_train_cli(case: Case, tmp_path: Path, monkeypatch, resume: bool = Fals
     monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)
     d = yaml.safe_load((ROOT / cfg).read_text()) if cfg else case.config()
     pair_hw = (case.crop[0] + 8, case.crop[1] + 8)
-    split = write_sceneflow_set(tmp_path / "SceneFlow", 4, pair_hw)
-    info = d["DATA_CONFIG"]["DATA_INFOS"][0]
-    info["DATA_PATH"] = str(split.parent)
-    info["DATA_SPLIT"] = {k: str(split) for k in ("TRAINING", "EVALUATING", "TESTING")}
+    infos = d["DATA_CONFIG"]["DATA_INFOS"]
+    if infos[0]["DATASET"] == "KittiDataset":
+        split = write_kitti_set(tmp_path / "KITTI", 4 // len(infos), pair_hw)
+    else:
+        split = write_sceneflow_set(tmp_path / "SceneFlow", 4, pair_hw)
+    for info in infos:
+        info["DATA_PATH"] = str(split.parent)
+        info["DATA_SPLIT"] = {k: str(split) if info["DATA_SPLIT"].get(k, "x") else ""
+                              for k in ("TRAINING", "EVALUATING", "TESTING")}
     tf = d["DATA_CONFIG"]["DATA_TRANSFORM"]
-    tf["TRAINING"][0]["SIZE"] = list(case.crop)
-    tf["EVALUATING"][0]["SIZE"] = list(pad or case.pad)
+    for mode, size in (("TRAINING", case.crop), ("EVALUATING", pad or case.pad)):
+        for t in tf[mode]:
+            if "SIZE" in t:
+                t["SIZE"] = list(size)
     d["MODEL"].update({k.upper(): list(v) if isinstance(v, tuple) else v
                        for k, v in case.tiny.items()})
     d["OPTIMIZATION"].update(NUM_EPOCHS=1, BATCH_SIZE_PER_GPU=2)
+    d.setdefault("TRAINER", {}).update(EVAL_INTERVAL=1, CKPT_SAVE_INTERVAL=1)
     d["EVALUATOR"]["BATCH_SIZE_PER_GPU"] = 2
     cfg_file = tmp_path / "cfg.yaml"
     cfg_file.write_text(yaml.safe_dump(d))
