@@ -62,7 +62,11 @@ without the repository around it). Phases, each of which fails the run:
    cases (the JAX test's shape, W ragged against the 8-column chunks, D over
    six disparity chunks, d >= W, cg = 1, cg = 12), f32 (TF32 off) and bf16
    (checked as K1's, with the unrounded control at the GwcNet, CFNet and
-   IGEV shapes), and with G = 1 against K1;
+   IGEV shapes), and with G = 1 against K1; then with divisor 1 (the sum) on
+   group-normalised features against the plain cosine builder
+   (`ops.build_cosine_gwc_volume`) at FoundationStereo's and
+   FastFoundationStereo's [1,224,136,240] G 8, D 104 and 48: f32 bit-equal,
+   bf16 as K1's, the unrounded control rejected (`cosine_k3_check`);
 10. the GwcNet path: GwcNet at 544x960 (`cfgs/gwcnet/gwcnet_sceneflow.yaml`),
    b1, bf16, through `run_pair` on the synthetic pairs, with 1 K3 launch
    per frame at the main shape and no other kernel; the kernel path against
@@ -105,10 +109,12 @@ without the repository around it). Phases, each of which fails the run:
    and bf16 (MSNets mean-abs <= 0.5 px; CoEx the cost feeding its top-2
    head within 2^-7 of its largest magnitude on average, and the kernel
    path's disparity no more than 5 % further from the f32 one than the
-   eager path's); frames/s of both paths (4 groups each, with their spread
-   and the host's time to issue a frame), a torch.profiler pass over each
-   (tables in `chiprun_out/<model>_profile/`), and each kernel at the
-   path's shapes beside its plain version and bound.
+   eager path's); frames/s of both paths (2 groups each, with their spread
+   and the host's time to issue a frame), a torch.profiler pass over 3
+   frames of the kernel path (table in `chiprun_out/<model>_profile/`), and
+   each kernel at the path's shapes beside its plain version and bound.
+   (Before phases 46-47 were added: 4 groups, 5-10 profiled frames of both
+   paths and the f32 check on every pair; cut for the script's time.)
 19-22. (run after phase 18) the CFNet, FADNet, CasGwcNet and CasPSMNet paths
    in the same way, each at its config's EVALUATING size
    (`cfgs/cfnet/cfnet_sceneflow.yaml` and `cfgs/fadnet/fadnet_sceneflow.yaml`
@@ -265,6 +271,18 @@ without the repository around it). Phases, each of which fails the run:
    b2 at 192x384, bf16, AdamW 2e-4 constant, clip by norm 35; 60 in a first
    run, cut for the script's time: loss ratio 0.185): the mean loss of the
    last 20 steps below 0.8 of the first 5 steps'.
+46-47. (run after phase 40) the FoundationStereo and FastFoundationStereo
+   paths (`foundationstereo_paths`: `cfgs/foundationstereo/fstereo_foundationstereo.yaml`,
+   vitl, D/4 104, 32 iterations of the three-scale selective GRU, 371.7M
+   parameters; `cfgs/fast_foundationstereo/ffstereo_sceneflow.yaml`, 8
+   iterations of one scale) at 544x960, b1, bf16, as phases 36-40 run theirs:
+   the synthetic pairs through the TRAINING list's NormalizeImage where the
+   config has no EVALUATING list (`eval_transforms`); K3 once a frame with
+   divisor 1 at [1,224,136,240] D 104 and D 48 (the cosine volume), nothing
+   else; f32 kernels vs eager max-abs <= 5e-3 px under cuDNN's deterministic
+   algorithms, bf16 mean-abs <= 0.5 px; parameters, peak memory, frames/s,
+   profile (device busy, idle share), K3's device time beside its bound; then,
+   for FoundationStereo, the measure CLI with FS_MEASURE_REPS timed frames.
 
 Each phase prints its seconds on a `[phase-time]` line as it ends, and all
 of them once more before the JSON lines.
@@ -287,6 +305,9 @@ import numpy as np
 
 H, W = 544, 960
 N_PAIRS = 3
+# pairs of the f32 kernel-vs-eager check of phases 16-22, 36-40 and 46-47 (all N_PAIRS before phases
+# 46-47 were added; cut for the script's time)
+F32_PAIRS = 1
 ROOT = Path(__file__).resolve().parent
 OUT_DIR = ROOT / "chiprun_out"  # git-ignored: profiler tables
 CFG_FILE = ROOT / "cfgs/lightstereo/lightstereo_s_sceneflow.yaml"
@@ -305,6 +326,8 @@ IGEV_CFG = ROOT / "cfgs/igev/igev_sceneflow_amp.yaml"
 IGEV_RT_CFG = ROOT / "cfgs/igev_rt/igev_rt_sceneflow_amp.yaml"
 STEREOBASE_CFG = ROOT / "cfgs/stereobase/stereobase_sceneflow.yaml"
 IGEVPP_CFG = ROOT / "cfgs/igevpp/igevpp_sceneflow_amp.yaml"
+FS_CFG = ROOT / "cfgs/foundationstereo/fstereo_foundationstereo.yaml"
+FFS_CFG = ROOT / "cfgs/fast_foundationstereo/ffstereo_sceneflow.yaml"
 KITTI_EVAL_CFG = ROOT / "cfgs/kitti15_eval.yaml"
 
 # expected K2 launches per LightStereo-S frame: (batch, H, W, Cin, Ch, Cout, residual) → count
@@ -396,6 +419,12 @@ IGEV_K3_SHAPE = (1, 96, 136, 240, 48, 8)
 # IGEV++ (phase 40): one K3 volume over all MAX_DISP/4 = 192 planes (768 / 4), 24 of the
 # kernel's 8-plane chunks, from which its three ranges are carved
 IGEVPP_K3_SHAPE = (1, 96, 136, 240, 192, 8)
+# FoundationStereo and FastFoundationStereo (phases 46-47): K3 with divisor 1, the cosine volume's
+# sum over the group-normalised 1/4 features (C 224 = 96 + 128 at the vitl budget, G 8, C/G 28),
+# D 416/4 and 192/4; the wrapper records a launch under its shape with the divisor appended
+FS_K3_SHAPE = (1, 224, 136, 240, 104, 8, 1)
+FFS_K3_SHAPE = (1, 224, 136, 240, 48, 8, 1)
+FS_MEASURE_REPS = 3  # the measure CLI's timed frames on FoundationStereo (phase 46)
 IGEV_EVAL_BATCH, IGEV_EVAL_PAIRS, KITTI_HW = 4, 8, (375, 1242)
 IGEV_EVAL_K3_SHAPE = (IGEV_EVAL_BATCH, 96, 96, 312, 48, 8)
 IGEV_EVAL_K2_SHAPES = {
@@ -1225,9 +1254,10 @@ def volume_timing(dev, per_frame, card, g, tag, grouped):
         b, c, h, w, d = shape[:5]
         left, right = (torch.randn(b, c, h, w, generator=g).to(dev, torch.bfloat16)
                        for _ in range(2))
-        if grouped:
-            kernel = lambda: ops.gwc_volume(left, right, d, shape[5])  # noqa: E731
-            plain = lambda: ops.build_gwc_volume(left, right, d, shape[5])  # noqa: E731
+        if grouped:  # shape[6], where given, is K3's divisor (1: the cosine volume's sum)
+            div = shape[6] if len(shape) > 6 else None
+            kernel = lambda: ops.gwc_volume(left, right, d, shape[5], div)  # noqa: E731
+            plain = lambda: ops.build_gwc_volume(left, right, d, shape[5], div)  # noqa: E731
             nbytes, flops = k3_work(shape, 2)
         else:
             kernel = lambda: ops.corr_volume(left, right, d)  # noqa: E731
@@ -1424,8 +1454,47 @@ def phase_k3(dev):
     err1 = err1.abs().max().item()
     check(err1 <= 1e-6, f"K3 with G = 1 vs K1: max-abs {err1} > 1e-6")
     print(f"[K3] G = 1 vs K1 at (1, 24, 136, 240, D 48), f32: max-abs {err1:.3g} (tol 1e-6)")
+    for shape, tag in ((FS_K3_SHAPE, "FoundationStereo cosine"),
+                       (FFS_K3_SHAPE, "FastFoundationStereo cosine")):
+        errs[tag] = cosine_k3_check(dev, shape, g, tag)
     torch.cuda.synchronize()
     return errs
+
+
+def cosine_k3_check(dev, shape, g, tag):
+    """K3 with divisor 1 on the group-normalised features (the kernel route of
+    FoundationStereo's cosine volume) against the plain cosine builder
+    (`ops.build_cosine_gwc_volume`), f32 (bit-equal: C/G 28, the kernel's sum
+    in PyTorch's CUDA order, times 1) and bf16 (`volume_bf16_check` against
+    the plain sum on the same normalised bf16 inputs, which is also the plain
+    builder's own bf16 result), and the unrounded control (products in f32),
+    which must fail that check. Returns (f32 max-abs, bf16 max-abs, share not
+    bit-equal)."""
+    import torch
+
+    from openstereo_tpu_torch import ops
+
+    b, c, h, w, d, gr, div = shape
+    left, right = (torch.randn(b, c, h, w, generator=g).to(dev) for _ in range(2))
+    ref = ops.build_cosine_gwc_volume(left, right, d, gr)
+    got = ops.gwc_volume(ops.normalize_groups(left, gr), ops.normalize_groups(right, gr), d, gr,
+                         div)
+    check(got.shape == (b, gr, d, h, w), f"K3 {tag}: shape {tuple(got.shape)}")
+    err32, bits32 = volume_f32_check(got, ref, c // gr, f"K3 f32 {tag} {shape}")
+    nl, nr = (ops.normalize_groups(t.bfloat16(), gr) for t in (left, right))
+    ref16 = ops.build_gwc_volume(nl, nr, d, gr, div)
+    check(torch.equal(ref16, ops.build_cosine_gwc_volume(left.bfloat16(), right.bfloat16(), d,
+                                                         gr)), f"K3 bf16 {tag}: plain routes differ")
+    got16 = ops.gwc_volume(nl, nr, d, gr, div)
+    err16, share = volume_bf16_check(got16, ref16, f"K3 bf16 {tag}")
+    no, c_share = volume_rejected(ops.build_gwc_volume(nl.float(), nr.float(), d, gr,
+                                                       div).bfloat16(), ref16)
+    check(no, f"K3 bf16 {tag}: the unrounded control passes the check")
+    print(f"[K3] {tag} {shape} (divisor {div}): f32 max-abs {err32:.3g} (tol 1e-5), {bits32:.3g} "
+          f"not bit-equal (cap 0), bf16 max-abs {err16:.3g} (tol 8e-3·|ref| + 1e-3), {share:.3g} "
+          f"not bit-equal (cap {VOLUME_FLIP_SHARE}); unrounded control rejected ({c_share:.3g} "
+          f"not bit-equal)")
+    return err32, err16, share
 
 
 def phase_gwcnet(dev):
@@ -1497,7 +1566,7 @@ def phase_psmnet(dev):
 
 
 def k3_work(shape, elem):
-    b, c, h, w, d, g = shape
+    b, c, h, w, d, g = shape[:6]
     nbytes = (2 * b * c * h * w + b * g * d * h * w) * elem
     flops = 2 * b * c * h * sum(max(w - k, 0) for k in range(d))  # products with w - d >= 0
     return nbytes, flops
@@ -1554,17 +1623,19 @@ def model_paths():
     disparity against the eager path's. Its f32 check is a share of pixels,
     as near-ties may flip there too (as STTR's argmax may). The protocol:
     (timing groups, chained frames per group, frames profiled), about 0.25-1
-    s per group, as LightStereo-S's groups of 20; 4 groups a path."""
+    s per group, as LightStereo-S's groups of 20; 2 groups a path (one in each of
+    the bench's two turns; 4 and 5-10 profiled frames before phases 46-47 were
+    added, cut for the script's time)."""
     return [
         ("CoEx", COEX_CFG, {"corr_volume": {COEX_K1_SHAPE: 1}, "fused_mbconv": COEX_K2_SHAPES},
-         "CostProcessor.cost_agg", (4, 20, 10)),
+         "CostProcessor.cost_agg", (2, 20, 3)),
         ("MSNet3D", MSNET3D_CFG, {"gwc_volume": {K3_SHAPE: 1}, "fused_mbconv": MSNET3D_K2_SHAPES},
-         None, (4, 12, 6)),
-        ("MSNet2D", MSNET2D_CFG, {"fused_mbconv": MSNET2D_K2_SHAPES}, None, (4, 20, 5)),
-        ("CFNet", CFNET_CFG, {"gwc_volume": CFNET_K3_SHAPES}, "share", (4, 5, 5)),
-        ("FADNet", FADNET_CFG, {"corr_volume": {FADNET_K1_SHAPE: 1}}, None, (4, 10, 5)),
-        ("CasGwcNet", CASGWC_CFG, {}, None, (4, 6, 6)),
-        ("CasPSMNet", CASPSM_CFG, {}, None, (4, 6, 6)),
+         None, (2, 12, 3)),
+        ("MSNet2D", MSNET2D_CFG, {"fused_mbconv": MSNET2D_K2_SHAPES}, None, (2, 20, 3)),
+        ("CFNet", CFNET_CFG, {"gwc_volume": CFNET_K3_SHAPES}, "share", (2, 5, 3)),
+        ("FADNet", FADNET_CFG, {"corr_volume": {FADNET_K1_SHAPE: 1}}, None, (2, 10, 3)),
+        ("CasGwcNet", CASGWC_CFG, {}, None, (2, 6, 3)),
+        ("CasPSMNet", CASPSM_CFG, {}, None, (2, 6, 3)),
     ]
 
 
@@ -1572,8 +1643,10 @@ def phase_model(dev, name, cfg_file, want, rule):
     """One of the paths of `model_paths` at its config's EVALUATING size, b1,
     bf16, random weights (seed 0), through `run_pair` on the synthetic
     pairs: the launch records, peak memory, and the kernel path against the
-    eager path. f32 (TF32 off): max-abs <= 5e-3 px, or (`rule` "share" or a
-    top-k head) >= 99.9 % of the pixels within 5e-3 px. bf16: mean-abs <=
+    eager path. f32 (TF32 off, on the first F32_PAIRS pairs): max-abs <= 5e-3
+    px (`rule` None, or "deterministic" under cuDNN's deterministic
+    algorithms), or (`rule` "share" or a top-k head) >= 99.9 % of the pixels
+    within 5e-3 px. bf16: mean-abs <=
     0.5 px; with a top-k head (`rule`, the module whose output feeds it),
     that cost within one bf16 unit of its largest magnitude on average, and
     the kernel path's disparity no more than 5 % further from the f32 eager
@@ -1582,7 +1655,6 @@ def phase_model(dev, name, cfg_file, want, rule):
     import torch
 
     from openstereo_tpu_torch.config import load_config
-    from openstereo_tpu_torch.data.transforms import build_transforms
     from openstereo_tpu_torch.models import build_model, set_kernels
     from openstereo_tpu_torch.tools.bench import eval_size
     from openstereo_tpu_torch.tools.infer import run_pair
@@ -1590,8 +1662,8 @@ def phase_model(dev, name, cfg_file, want, rule):
     tag = f"[{name.lower()}]"
     cfg = load_config(str(cfg_file))
     size = eval_size(cfg)
-    topk_input = rule if rule not in (None, "share") else None
-    tf = build_transforms(cfg.DATA_CONFIG.DATA_TRANSFORM["EVALUATING"])
+    topk_input = rule if rule not in (None, "share", "deterministic") else None
+    tf = eval_transforms(cfg)
     pairs = list(synthetic_pairs(size))
     model = build_model(cfg.MODEL, dtype=torch.bfloat16, device=dev, seed=0)
     n_params = sum(p.numel() for p in model.parameters())
@@ -1623,9 +1695,11 @@ def phase_model(dev, name, cfg_file, want, rule):
     max32, share32, eager32 = 0.0, 1.0, []
     # the "share" rule's models (CFNet's floored sample grids, IGEV's 32 GRU iterations) carry a
     # rounding far: both paths run cuDNN's deterministic algorithms, so that two eager runs are
-    # bit-equal and what differs is the kernels' (`zoo_eval` says why)
-    with cudnn_deterministic(rule == "share"):
-        for p in pairs:
+    # bit-equal and what differs is the kernels' (`zoo_eval` says why); "deterministic" does the
+    # same under the max-abs rule
+    t32 = time.perf_counter()
+    with cudnn_deterministic(rule in ("share", "deterministic")):
+        for p in pairs[:F32_PAIRS]:
             a = run_pair(set_kernels(model32, True), tf, *p)
             eager32.append(run_pair(set_kernels(model32, False), tf, *p))
             d = np.abs(a - eager32[-1])
@@ -1635,8 +1709,11 @@ def phase_model(dev, name, cfg_file, want, rule):
     torch.cuda.empty_cache()
     to_f32 = {k: max(float(np.abs(a - b).mean()) for a, b in zip(ds, eager32))
               for k, ds in (("kernels", wired), ("eager", eager))}
-    print(f"{tag} f32 kernel vs eager: max-abs {max32:.3g} px, share within 5e-3 px "
-          f"{share32:.6f} (tol {'max-abs 5e-3' if rule is None else '>= 0.999'}); bf16 kernel vs "
+    max_abs_rule = rule in (None, "deterministic")
+    t32 = time.perf_counter() - t32
+    print(f"{tag} f32 kernel vs eager on {F32_PAIRS} pair(s) ({t32:.1f} s): max-abs {max32:.3g} px, "
+          f"share within 5e-3 px "
+          f"{share32:.6f} (tol {'max-abs 5e-3' if max_abs_rule else '>= 0.999'}); bf16 kernel vs "
           f"eager: mean-abs {mean16:.4g} px (tol {'-' if topk_input else '0.5'}); bf16 vs the f32 "
           f"eager disparity, mean-abs: kernels {to_f32['kernels']:.4g} px, eager "
           f"{to_f32['eager']:.4g} px; bf16 disparity range {wired[0].min():.2f}.."
@@ -1644,7 +1721,7 @@ def phase_model(dev, name, cfg_file, want, rule):
     rec = {"size": list(size), "launches": launches, "per_frame": per_frame, "peak_bytes": peak,
            "max_abs_f32": max32, "share_within_5e-3_f32": share32, "mean_abs_bf16": mean16,
            "mean_abs_bf16_to_f32": to_f32}
-    if rule is not None:
+    if not max_abs_rule:
         check(share32 >= 0.999, f"{name} f32 kernel vs eager: only {share32} of pixels within "
                                 f"5e-3 px")
     else:
@@ -1664,14 +1741,28 @@ def phase_model(dev, name, cfg_file, want, rule):
     return model, rec
 
 
+def eval_transforms(cfg):
+    """A config's EVALUATING transforms. FoundationStereo's config has none (the
+    JAX infer CLI raises on it, as the port's does): its pairs, made at
+    544x960, go through the TRAINING list's NormalizeImage alone, the
+    ImageNet normalisation the model expects."""
+    from openstereo_tpu_torch.data.transforms import build_transforms
+
+    lists = cfg.DATA_CONFIG.DATA_TRANSFORM
+    if "EVALUATING" in lists:
+        return build_transforms(lists["EVALUATING"])
+    return build_transforms([t for t in lists["TRAINING"] if t["NAME"] == "NormalizeImage"])
+
+
 def phase_timing_model(dev, name, model, card, per_frame, protocol, size=(H, W)):
     """Each kernel of the path at its shapes beside its plain version and its
     bound (first: its device-time trace is short, and one run's trace of a
     kernel right after a long model profile recorded no launch three times),
     frames/s of both paths (the bench protocol: `groups` groups of `reps`
     chained frames, with the spread between groups and the host's issue time
-    per frame) and a torch.profiler pass over `frames` frames of each
-    (tables in `chiprun_out/<name>_profile/`)."""
+    per frame) and a torch.profiler pass over `frames` frames of the kernel
+    path (its table in `chiprun_out/<name>_profile/`; the eager path's pass
+    was cut for the script's time when phases 46-47 were added)."""
     import torch
 
     from openstereo_tpu_torch.tools.bench import bench_eager_vs_kernels, profile_paths
@@ -1682,20 +1773,21 @@ def phase_timing_model(dev, name, model, card, per_frame, protocol, size=(H, W))
                     for k, shapes in per_frame.items()}
     groups, reps, frames = protocol
     res = bench_eager_vs_kernels(model, groups=groups, reps=reps, size=size)
-    prof = profile_paths(model, frames, str(OUT_DIR / f"{name.lower()}_profile"), size=size)
+    prof = profile_paths(model, frames, str(OUT_DIR / f"{name.lower()}_profile"), size=size,
+                         paths=("kernels",))
     for path in ("eager", "kernels"):
-        r, b = prof[path], res[path]
-        ms = b["ms_per_frame"]
-        r["idle_share"] = 1.0 - r["device_busy_ms_per_frame"] / ms
-        top = "; ".join(f"{t['kernel'][:60]} {t['ms_per_frame']:.3f} ms x{t['calls_per_frame']:g}"
-                        for t in r["top"][:8])
-        print(f"[time] {name} {path}: {b['fps']:.3f} frames/s, {ms:.3f} ms/frame (median of "
-              f"{len(b['group_ms'])} groups of {reps} chained frames; groups "
+        b = res[path]
+        print(f"[time] {name} {path}: {b['fps']:.3f} frames/s, {b['ms_per_frame']:.3f} ms/frame "
+              f"(median of {len(b['group_ms'])} groups of {reps} chained frames; groups "
               f"{min(b['group_ms']):.3f}..{max(b['group_ms']):.3f} ms, spread "
               f"{b['group_spread']:.1%}); host issue {b['host_issue_ms']:.3f} ms/frame")
-        print(f"[profile] {name} {path}: device busy {r['device_busy_ms_per_frame']:.3f} "
-              f"ms/frame over {frames} frames, {r['device_ops_per_frame']:g} device operations "
-              f"a frame, idle share {r['idle_share']:.4f}; top: {top}")
+    r = prof["kernels"]
+    r["idle_share"] = 1.0 - r["device_busy_ms_per_frame"] / res["kernels"]["ms_per_frame"]
+    top = "; ".join(f"{t['kernel'][:60]} {t['ms_per_frame']:.3f} ms x{t['calls_per_frame']:g}"
+                    for t in r["top"][:8])
+    print(f"[profile] {name} kernels: device busy {r['device_busy_ms_per_frame']:.3f} ms/frame "
+          f"over {frames} frames, {r['device_ops_per_frame']:g} device operations a frame, idle "
+          f"share {r['idle_share']:.4f}; top: {top}")
     return res, prof, kernel_times
 
 
@@ -3392,11 +3484,11 @@ def igev_path():
     config at its 544x960 pad, K3 once a frame at C/G 12 and K2 11 times (its
     trunk is CoEx's), the f32 rule "share" (32 GRU iterations carry a
     one-ulp difference forward: >= 99.9 % of the pixels within 5e-3 px, the
-    max-abs printed), 4 timing groups of 3 frames (~0.7 s a group), 1 frame
+    max-abs printed), 2 timing groups of 3 frames (~0.7 s a group), 1 frame
     profiled (~12,000 device operations a frame; the profiler takes ~5 s a
     frame)."""
     return ("IGEV", IGEV_CFG, {"gwc_volume": {IGEV_K3_SHAPE: 1}, "fused_mbconv": COEX_K2_SHAPES},
-            "share", (4, 3, 1))
+            "share", (2, 3, 1))
 
 
 def igev_family_paths():
@@ -3405,16 +3497,31 @@ def igev_family_paths():
     iterations, StereoBase 32, IGEV++ 32), K2 11 times a frame in IGEV's
     trunk and K3 once: [1,96,136,240] D 48 G 8 in IGEV-RT and StereoBase,
     D 192 in IGEV++; the f32 rule "share" (the GRU iterations carry a
-    one-ulp difference forward), 4 timing groups (IGEV-RT's of 8 frames,
+    one-ulp difference forward), 2 timing groups (IGEV-RT's of 8 frames,
     the others' of 3) and 1 frame profiled."""
     trunk = COEX_K2_SHAPES
     return [
         ("IGEV-RT", IGEV_RT_CFG, {"gwc_volume": {IGEV_K3_SHAPE: 1}, "fused_mbconv": trunk},
-         "share", (4, 8, 1)),
+         "share", (2, 8, 1)),
         ("StereoBase", STEREOBASE_CFG, {"gwc_volume": {IGEV_K3_SHAPE: 1}, "fused_mbconv": trunk},
-         "share", (4, 3, 1)),
+         "share", (2, 3, 1)),
         ("IGEV++", IGEVPP_CFG, {"gwc_volume": {IGEVPP_K3_SHAPE: 1}, "fused_mbconv": trunk},
-         "share", (4, 3, 1)),
+         "share", (2, 3, 1)),
+    ]
+
+
+def foundationstereo_paths():
+    """FoundationStereo and FastFoundationStereo (phases 46-47), as `model_paths`
+    entries: each config at full width and depth (vitl, D/4 104, 32 iterations
+    of the three-scale selective GRU; 8 of one scale) at 544x960 b1 bf16, the
+    cosine volume through K3 with divisor 1 once a frame and no other kernel;
+    the f32 rule "deterministic" (max-abs 5e-3 px with cuDNN's deterministic
+    algorithms: K3's f32 sum is bit-equal to the plain one); 2 timing groups
+    (of 2 and 4 frames) and 1 frame profiled."""
+    return [
+        ("FoundationStereo", FS_CFG, {"gwc_volume": {FS_K3_SHAPE: 1}}, "deterministic", (2, 2, 1)),
+        ("FastFoundationStereo", FFS_CFG, {"gwc_volume": {FFS_K3_SHAPE: 1}}, "deterministic",
+         (2, 4, 1)),
     ]
 
 
@@ -3621,6 +3728,10 @@ def main():
             label = f"{number} {path[0]}"
             models[path[0]] = run_phase(label, phase_gru_model, dev, card, path, label,
                                         5 if path[0] == "IGEV++" else None)
+        for number, path in zip((46, 47), foundationstereo_paths()):
+            label = f"{number} {path[0]}"
+            models[path[0]] = run_phase(label, phase_gru_model, dev, card, path, label,
+                                        FS_MEASURE_REPS if path[0] == "FoundationStereo" else None)
         k1_eval, k2_eval, k2_eval_splits = run_phase("13 evaluation batch", phase_eval_batch, dev)
         trained = run_phase("14 LightStereo training", phase_train, dev)
         overfit = run_phase("15 LightStereo overfit", phase_overfit)
@@ -3705,7 +3816,9 @@ def main():
                                    .tolist())),
                  **{name: dict(zip(VOLUME_ERR_KEYS, k3_err["IGEV"]))
                     for name in ("IGEV", "IGEV-RT", "StereoBase")},
-                 "IGEV++": dict(zip(VOLUME_ERR_KEYS, k3_err["IGEV++"]))}),
+                 "IGEV++": dict(zip(VOLUME_ERR_KEYS, k3_err["IGEV++"])),
+                 **{name: dict(zip(VOLUME_ERR_KEYS, k3_err[f"{name} cosine"]))
+                    for name, *_ in foundationstereo_paths()}}),
              igev_eval=dict(launches=igev_eval["launches"]["gwc_volume"],
                             batches=igev_eval["batches"], batch=igev_eval["batch"],
                             **dict(zip(VOLUME_ERR_KEYS, k3_err["IGEV evaluation"])),
@@ -3740,12 +3853,11 @@ def main():
               f"({rec['share_within_5e-3_f32']:.6f} within 5e-3), bf16 mean-abs "
               f"{rec['mean_abs_bf16']:.3g} px; device busy "
               f"{p['kernels']['device_busy_ms_per_frame']:.3f} ms/frame (kernels, idle "
-              f"{p['kernels']['idle_share']:.4f}), {p['eager']['device_busy_ms_per_frame']:.3f} "
-              f"(eager, idle {p['eager']['idle_share']:.4f}); peak {rec['peak_bytes'] / 2**30:.3f} "
-              f"GiB")
+              f"{p['kernels']['idle_share']:.4f}); peak {rec['peak_bytes'] / 2**30:.3f} GiB")
     print(f"[igev-eval] eval CLI, KITTI-format 384x1248 b{igev_eval['batch']} bf16: metrics with "
           f"kernels {igev_eval['metrics_kernels']}, eager {igev_eval['metrics_eager']}; measure "
-          f"CLI: {models['IGEV']['measure']}; IGEV++: {models['IGEV++']['measure']}")
+          f"CLI: {models['IGEV']['measure']}; IGEV++: {models['IGEV++']['measure']}; "
+          f"FoundationStereo: {models['FoundationStereo']['measure']}")
     print(f"[train] LightStereo-S 320x736 b24 bf16: {trained['ms_per_step']:.2f} ms/step (median "
           f"of steps 2-4), {trained['samples_per_s']:.1f} samples/s, peak "
           f"{trained['peak_bytes'] / 2**30:.3f} GiB; losses {trained['losses']}; evaluation EPE "

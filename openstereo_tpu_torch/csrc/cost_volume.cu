@@ -6,20 +6,24 @@
 // LightStereo), num_groups > 1 the group-wise volume of `build_gwc_volume_pallas`
 // (K3, GwcNet):
 //
-//     out[b,g,d,h,w] = (1/cg) * sum_{c<cg} round_T(L[b,g*cg+c,h,w] * R[b,g*cg+c,h,w-d]),
+//     out[b,g,d,h,w] = (1/div) * sum_{c<cg} round_T(L[b,g*cg+c,h,w] * R[b,g*cg+c,h,w-d]),
 //     cg = C/G,  0 where w-d < 0 (so planes with d >= W are 0)
+//
+// The divisor `div` is cg for the mean of K1 and K3, and 1 for the plain sum
+// that FoundationStereo's cosine volume takes over its L2-normalised features
+// (`openstereo_tpu/models/foundationstereo/foundationstereo.py:60-74`).
 //
 // round_T rounds each product to T, as JAX's `l * r` does
 // (`openstereo_tpu/ops/cost_volume.py:correlation_volume` and
 // `groupwise_correlation`, which the JAX models run) and as the plain version
 // (`ops/cost_volume.py:groupwise_correlation`) does. The sum is f32, divided by
-// cg, and rounded once to T. A [B,1,D,H,W] volume is the same memory as
+// div, and rounded once to T. A [B,1,D,H,W] volume is the same memory as
 // [B,D,H,W], so G = 1 is K1.
 //
 // In f32 the kernel sums in the order of PyTorch's CUDA mean over the group's
 // channels (four partial sums, partial k taking channels c = k mod 4 in
 // channel order, then ((s0 + s1) + s2) + s3) and multiplies by the f32
-// reciprocal of cg, as that mean does, so that it equals the plain version bit
+// reciprocal of div, as that mean does (and by 1, exactly, for the sum), so that it equals the plain version bit
 // for bit where cg < 64 (from 64 on, that mean splits a sum over warps, and
 // the two differ by about an ulp). A model whose sample grids are floors of
 // its prediction (CFNet) then takes the same grids on both paths: one ulp in
@@ -230,7 +234,7 @@ __device__ __forceinline__ Tile tile_at(int t, const Plan& p, int C, int H, int 
 template <typename T>
 __global__ void __launch_bounds__(NT_MAX, 2)
 cv_kernel(const T* __restrict__ left, const T* __restrict__ right, T* __restrict__ out, int C,
-          int H, int W, int D, int G, Plan p, bool vec) {
+          int H, int W, int D, int G, int div, Plan p, bool vec) {
   constexpr bool f32 = std::is_same<T, float>::value;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* smem = reinterpret_cast<T*>(smem_raw);
@@ -311,8 +315,8 @@ cv_kernel(const T* __restrict__ left, const T* __restrict__ right, T* __restrict
     const Tile t = tile_at(blockIdx.x + (q / p.n_chunks) * gridDim.x, p, C, H, W, D, G);
     const int w0 = t.w_s + w0l;
     if (has_item && w0 < W) {
-      const bool pow2 = (cg & (cg - 1)) == 0;
-      const float cgf = static_cast<float>(cg), inv = 1.f / cgf;
+      const bool pow2 = (div & (div - 1)) == 0;
+      const float divf = static_cast<float>(div), inv = 1.f / divf;
       T* orow = out + t.out + static_cast<size_t>(d0) * plane;
 #pragma unroll
       for (int k = 0; k < DPT; ++k) {
@@ -320,11 +324,12 @@ cv_kernel(const T* __restrict__ left, const T* __restrict__ right, T* __restrict
         float v[CW];
 #pragma unroll
         for (int j = 0; j < CW; ++j) {
-          // f32: acc * (1/cg), as PyTorch's mean scales; bf16: the rounded f32
-          // quotient acc / cg, as JAX's mean divides: acc * (1/cg), exact for a
-          // power of two, else refined by one FMA step (Markstein)
+          // f32: acc * (1/div), as PyTorch's mean scales; bf16: the rounded f32
+          // quotient acc / div, as JAX's mean divides: acc * (1/div), exact for
+          // a power of two (the sum's div 1 among them), else refined by one FMA
+          // step (Markstein)
           const float q0 = __fmul_rn(acc[k][j], inv);
-          v[j] = f32 || pow2 ? q0 : fmaf(fmaf(-q0, cgf, acc[k][j]), inv, q0);
+          v[j] = f32 || pow2 ? q0 : fmaf(fmaf(-q0, divf, acc[k][j]), inv, q0);
         }
         store8(orow + k * plane, v, w0, W, vec);
       }
@@ -402,7 +407,7 @@ cudaError_t make_plan(Plan* p, int B, int C, int H, int W, int D, int G, int* gr
 
 template <typename T>
 cudaError_t launch(const void* left, const void* right, void* out, int B, int C, int H, int W,
-                   int D, int G, cudaStream_t stream) {
+                   int D, int G, int div, cudaStream_t stream) {
   Plan p;
   int grid = 0;
   cudaError_t err = make_plan<T>(&p, B, C, H, W, D, G, &grid);
@@ -414,17 +419,17 @@ cudaError_t launch(const void* left, const void* right, void* out, int B, int C,
                     reinterpret_cast<uintptr_t>(out)) % 16 == 0;
   cv_kernel<T><<<grid, p.nt, p.stage * sizeof(T) * STAGES, stream>>>(
       static_cast<const T*>(left), static_cast<const T*>(right), static_cast<T*>(out), C, H, W,
-      D, G, p, vec);
+      D, G, div, p, vec);
   return cudaGetLastError();
 }
 
 cudaError_t dispatch(const void* left, const void* right, void* out, int B, int C, int H, int W,
-                     int D, int G, int dtype, void* stream) {
-  if (B <= 0 || C <= 0 || H <= 0 || W <= 0 || D <= 0 || G <= 0 || C % G != 0)
+                     int D, int G, int div, int dtype, void* stream) {
+  if (B <= 0 || C <= 0 || H <= 0 || W <= 0 || D <= 0 || G <= 0 || C % G != 0 || div <= 0)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(left, right, out, B, C, H, W, D, G, s);
-  if (dtype == 1) return launch<__nv_bfloat16>(left, right, out, B, C, H, W, D, G, s);
+  if (dtype == 0) return launch<float>(left, right, out, B, C, H, W, D, G, div, s);
+  if (dtype == 1) return launch<__nv_bfloat16>(left, right, out, B, C, H, W, D, G, div, s);
   return cudaErrorInvalidValue;
 }
 
@@ -432,13 +437,14 @@ cudaError_t dispatch(const void* left, const void* right, void* out, int B, int 
 
 // dtype: 0 = float32, 1 = bfloat16. left/right are contiguous [B,C,H,W] on the
 // device; out is a contiguous [B,D,H,W] (corr) or [B,G,D,H,W] (gwc, G dividing C).
+// gwc's `div` divides each sum: C/G for the group-wise mean, 1 for the sum.
 extern "C" cudaError_t corr_volume_launch(const void* left, const void* right, void* out, int B,
                                           int C, int H, int W, int D, int dtype, void* stream) {
-  return dispatch(left, right, out, B, C, H, W, D, 1, dtype, stream);
+  return dispatch(left, right, out, B, C, H, W, D, 1, C, dtype, stream);
 }
 
 extern "C" cudaError_t gwc_volume_launch(const void* left, const void* right, void* out, int B,
-                                         int C, int H, int W, int D, int G, int dtype,
+                                         int C, int H, int W, int D, int G, int div, int dtype,
                                          void* stream) {
-  return dispatch(left, right, out, B, C, H, W, D, G, dtype, stream);
+  return dispatch(left, right, out, B, C, H, W, D, G, div, dtype, stream);
 }

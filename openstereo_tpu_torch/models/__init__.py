@@ -3,8 +3,9 @@
 LightStereo, STTR, GwcNet, PSMNet, CoEx, MSNet3D, MSNet2D, CFNet, FADNet,
 CasGwcNet, CasPSMNet, IGEV, IGEV-RT, StereoBase (also under its configs'
 name StereoBaseGRU) and IGEV++ are ported, for inference and for training;
-the other names of the JAX zoo raise NotImplementedError naming the
-ROADMAP item that brings them.
+FoundationStereo and FastFoundationStereo for inference; the other names
+of the JAX zoo raise NotImplementedError naming the ROADMAP item that
+brings them.
 """
 
 from __future__ import annotations
@@ -18,8 +19,13 @@ from ..config import Config, get_valid_kwargs
 from ..device import resolve_device
 from .casnet import CasGwcNet, CasPSMNet
 from .cfnet import CFNet
+from .backbones.dinov2 import DinoViT, LayerScale
+from .backbones.edgenext import XCA, ConvEncoder, SDTAEncoder
 from .coex import CoExNet
 from .fadnet import FADNet
+from .fastfoundationstereo import FastFoundationStereo
+from .foundationstereo import FoundationStereo
+from .foundationstereo.blocks import EdgeNextConvEncoderPlain
 from .gwcnet import GwcNet
 from .igev import IGEV
 from .igev_rt import IGEVRT
@@ -38,11 +44,11 @@ MODELS = {"LightStereo": LightStereo, "STTR": STTR, "GwcNet": GwcNet, "PSMNet": 
           "CoExNet": CoExNet, "MSNet3D": MSNet3D, "MSNet2D": MSNet2D, "CFNet": CFNet,
           "FADNet": FADNet, "CasGwcNet": CasGwcNet, "CasPSMNet": CasPSMNet, "IGEV": IGEV,
           "IGEVRT": IGEVRT, "StereoBase": StereoBase, "StereoBaseGRU": StereoBase,
-          "IGEVPP": IGEVPP}
+          "IGEVPP": IGEVPP, "FoundationStereo": FoundationStereo,
+          "FastFoundationStereo": FastFoundationStereo}
 
 # JAX-zoo names still to be ported → the ROADMAP item (queue 1) that ports them
 NOT_PORTED = {
-    "FoundationStereo": "Slice E, item 15", "FastFoundationStereo": "Slice E, item 15",
     "MonSter": "Slice E, item 15",
     "AANet": "Slice F, item 17", "NMRF": "Slice F, item 18",
     "IINet": "Slice F, item 19",
@@ -58,6 +64,9 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     affine and weight-norm gains are near identity but not equal to it, so
     a folded BN or a LayerNorm's affine is exercised. STTR's dustbin cost
     `phi` is uniform ±0.5, CFNet's range scalars (γ, β per stage) ±0.1.
+    Scales that flax initialises to a constant c (the ViT's and EdgeNeXt's
+    LayerScale, XCA's temperature) are uniform in [0.5·c, 1.5·c]; the ViT's
+    class token ±0.02 and position table ±0.04 (flax: 0 and N(0, 0.02)).
     Raises if a parameter or buffer is left undrawn.
     """
     drawn = set()
@@ -98,6 +107,18 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
             elif isinstance(m, CFNet):
                 for p in (m.gamma_s3, m.beta_s3, m.gamma_s2, m.beta_s2):
                     draw(p, -0.1, 0.1)
+            elif isinstance(m, LayerScale):
+                draw(m.gamma, 0.5, 1.5)
+            elif isinstance(m, (ConvEncoder, EdgeNextConvEncoderPlain)):
+                draw(m.gamma, 0.5e-6, 1.5e-6)
+            elif isinstance(m, SDTAEncoder):
+                draw(m.gamma, 0.5e-6, 1.5e-6)
+                draw(m.gamma_xca, 0.5e-6, 1.5e-6)
+            elif isinstance(m, XCA):
+                draw(m.temperature, 0.5, 1.5)
+            elif isinstance(m, DinoViT):
+                draw(m.cls_token, -0.02, 0.02)
+                draw(m.pos_embed, -0.04, 0.04)
     missed = [k for k, t in list(model.named_parameters()) + list(model.named_buffers())
               if id(t) not in drawn]
     if missed:

@@ -133,12 +133,21 @@ class CombinedGeoEncodingVolume:
         self.geo_lookup = MultiLookup(geo_pyramid)
         self.corr_lookup = MultiLookup(corr_pyramid)
 
+    def lookups(self, geo_pos: Sequence[torch.Tensor],
+                corr_pos: Sequence[torch.Tensor]) -> torch.Tensor:
+        """The two pyramids sampled at their own per-level positions
+        ([B,H,W,T] each, pixel coordinates of each level), as FoundationStereo's
+        iteration calls `geo_lookup` and `corr_lookup` (`foundationstereo.py:
+        160-170`) → [B,H,W,num_levels·(G+1)·T], per level the geometry taps
+        then the correlation taps."""
+        geo, corr = self.geo_lookup(geo_pos), self.corr_lookup(corr_pos)
+        return torch.cat([f for pair in zip(geo, corr) for f in pair], dim=-1)
+
     def __call__(self, disp: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
-        """disp, coords: [B,H,W] → [B,H,W,num_levels·(G+1)·(2r+1)], per level
-        the geometry taps then the correlation taps."""
+        """disp, coords: [B,H,W] → `lookups` at the 2r+1 taps around disp / 2^i
+        (geometry) and (coords - disp) / 2^i (correlation) on level i."""
         r = self.radius
         dx = torch.arange(-r, r + 1, dtype=disp.dtype, device=disp.device)
         scales = [2.0 ** i for i in range(self.num_levels)]
-        geo = self.geo_lookup([disp[..., None] / s + dx for s in scales])
-        corr = self.corr_lookup([(coords - disp)[..., None] / s + dx for s in scales])
-        return torch.cat([f for pair in zip(geo, corr) for f in pair], dim=-1)
+        return self.lookups([disp[..., None] / s + dx for s in scales],
+                            [(coords - disp)[..., None] / s + dx for s in scales])

@@ -59,16 +59,18 @@ class BasicMotionEncoder(nn.Module):
     are IGEV's by default: `corr` (convc1, convc2) 64, 64, `disp` (convd1,
     convd2) 64, 64, out 128; IGEV-RT's encoder has out 96
     (`igev_rt.py:43`), IGEV++'s `BasicDispEncoder` corr 128, 96 and disp
-    32, 32 (`igevpp.py:114`). Keys: convc1, convc2, convd1, convd2, conv."""
+    32, 32 (`igevpp.py:114`), FoundationStereo's corr 256, 256 (its fusing
+    conv `fuse_kernel` 3, FastFoundationStereo's 1; `foundationstereo/
+    blocks.py:386-404`). Keys: convc1, convc2, convd1, convd2, conv."""
 
     def __init__(self, cor_planes: int, corr: Sequence[int] = (64, 64),
-                 disp: Sequence[int] = (64, 64), out: int = 128):
+                 disp: Sequence[int] = (64, 64), out: int = 128, fuse_kernel: int = 3):
         super().__init__()
         self.convc1 = nn.Conv2d(cor_planes, corr[0], 1)
         self.convc2 = nn.Conv2d(corr[0], corr[1], 3, padding=1)
         self.convd1 = nn.Conv2d(1, disp[0], 7, padding=3)
         self.convd2 = nn.Conv2d(disp[0], disp[1], 3, padding=1)
-        self.conv = nn.Conv2d(corr[1] + disp[1], out - 1, 3, padding=1)
+        self.conv = nn.Conv2d(corr[1] + disp[1], out - 1, fuse_kernel, padding=fuse_kernel // 2)
 
     def forward(self, disp, geo):
         cor = F.relu(run_conv(geo, self.convc1))

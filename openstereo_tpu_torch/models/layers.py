@@ -110,6 +110,39 @@ def run_conv(x: torch.Tensor, conv: nn.Module) -> torch.Tensor:
     return y + b.reshape((-1,) + (1,) * (y.dim() - 2)) if split else y
 
 
+def linear(x: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
+    """An nn.Linear (or a 1×1 conv, as a dense layer) in x's dtype, as flax's
+    `nn.Dense(dtype=)` computes it: below f32 the bias is added after the
+    product is rounded (as `run_conv`)."""
+    w, b = compute_weight(lin.weight, x.dtype).flatten(1), compute_weight(lin.bias, x.dtype)
+    split = b is not None and x.dtype in (torch.bfloat16, torch.float16)
+    y = F.linear(x, w, None if split else b)
+    return y + b if split else y
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """Exact GELU as `jax.nn.gelu(approximate=False)` writes it, x·erfc(−x·√½)/2,
+    each op rounded to x's dtype (√½ too): in bf16 the rounded erfc argument
+    moves the result by up to ~250 units where it is small, against a GELU
+    computed in f32 and rounded once."""
+    return x * (torch.special.erfc(-x * _in_dtype(0.5 ** 0.5, x.dtype)) / 2)
+
+
+def layer_norm(x: torch.Tensor, norm: nn.LayerNorm, dim: int = -1) -> torch.Tensor:
+    """flax's `nn.LayerNorm` over axis `dim` (the channels of NCHW with dim=1):
+    statistics in at least f32 with flax's fast variance E[x²] − E[x]²
+    (clipped at 0), y = (x − µ)·(γ·rsqrt(σ² + eps)) + β in that precision,
+    then x's dtype (flax 0.12's `_compute_stats` and `_normalize`)."""
+    acc = head_dtype(x.dtype)
+    xf = x.to(acc)
+    mean = xf.mean(dim, keepdim=True)
+    var = ((xf * xf).mean(dim, keepdim=True) - mean * mean).clamp(min=0.0)
+    shape = [1] * x.dim()
+    shape[dim] = -1
+    mul = torch.rsqrt(var + norm.eps) * norm.weight.to(acc).reshape(shape)
+    return ((xf - mean) * mul + norm.bias.to(acc).reshape(shape)).to(x.dtype)
+
+
 _BN_STATE = threading.local()
 
 

@@ -10,6 +10,8 @@ training builds its volume with the plain version.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from . import kernels
@@ -20,12 +22,17 @@ __all__ = ["gwc_volume", "gwc_volume_plain"]
 
 
 def gwc_volume(left: torch.Tensor, right: torch.Tensor, max_disp: int,
-               num_groups: int) -> torch.Tensor:
+               num_groups: int, divisor: Optional[int] = None) -> torch.Tensor:
     """[B,C,H,W] ×2 (f32 or bf16) → [B,G,D,H,W] in the input dtype, D = max_disp,
-    G = num_groups dividing C; any C/G.
+    G = num_groups dividing C; any C/G. Each group's sum of products is
+    divided by `divisor`: C/G (None, the mean) or 1 (the sum, which
+    FoundationStereo's cosine volume takes over normalised features,
+    `ops.cost_volume.build_cosine_gwc_volume`).
 
     JAX counterpart: `build_gwc_volume_pallas(l, r, D, G)` on the NHWC
     transposes, whose [B,D,H,W,G] result is this one's transpose (0,2,3,4,1).
+    A launch is counted under (B, C, H, W, D, G), with the divisor appended
+    where it is not C/G.
     """
     if left.shape != right.shape or left.dim() != 4:
         raise ValueError(f"left/right must be equal [B,C,H,W], got {left.shape}, {right.shape}")
@@ -36,15 +43,19 @@ def gwc_volume(left: torch.Tensor, right: torch.Tensor, max_disp: int,
     if max_disp <= 0 or num_groups <= 0 or left.shape[1] % num_groups:
         raise ValueError(f"need max_disp > 0 and num_groups dividing C={left.shape[1]}, "
                          f"got {max_disp}, {num_groups}")
+    cg = left.shape[1] // num_groups
+    divisor = cg if divisor is None else divisor
+    if divisor not in (cg, 1):
+        raise ValueError(f"divisor {divisor}: K3 takes C/G = {cg} or 1")
     return kernels.without_backward(
         "gwc_volume", "ops.cost_volume.build_gwc_volume",
-        lambda lt, rt: _gwc_volume(lt, rt, max_disp, num_groups), left, right)
+        lambda lt, rt: _gwc_volume(lt, rt, max_disp, num_groups, divisor), left, right)
 
 
 def _gwc_volume(left: torch.Tensor, right: torch.Tensor, max_disp: int,
-                num_groups: int) -> torch.Tensor:
+                num_groups: int, divisor: int) -> torch.Tensor:
     if left.device.type == "cpu":
-        return gwc_volume_plain(left, right, max_disp, num_groups)
+        return gwc_volume_plain(left, right, max_disp, num_groups, divisor)
     if left.device.type != "cuda":
         raise RuntimeError(f"gwc_volume has no kernel for device {left.device}")
     if not (left.is_contiguous() and right.is_contiguous()):
@@ -53,8 +64,9 @@ def _gwc_volume(left: torch.Tensor, right: torch.Tensor, max_disp: int,
     out = torch.empty((b, num_groups, max_disp, h, w), dtype=left.dtype, device=left.device)
     lib = build.load("cost_volume")
     err = lib.gwc_volume_launch(left.data_ptr(), right.data_ptr(), out.data_ptr(),
-                                b, c, h, w, max_disp, num_groups,
+                                b, c, h, w, max_disp, num_groups, divisor,
                                 kernels.DTYPE_CODES[left.dtype],
                                 kernels.stream_handle(left.device))
-    kernels.check_launch("gwc_volume", err, (b, c, h, w, max_disp, num_groups))
+    shape = (b, c, h, w, max_disp, num_groups) + ((divisor,) if divisor != c // num_groups else ())
+    kernels.check_launch("gwc_volume", err, shape)
     return out

@@ -117,8 +117,8 @@ def _declare(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
         # left, right, out, B, C, H, W, D, dtype, stream
         lib.corr_volume_launch.argtypes = [p, p, p, i, i, i, i, i, i, p]
         lib.corr_volume_launch.restype = i
-        # left, right, out, B, C, H, W, D, G, dtype, stream
-        lib.gwc_volume_launch.argtypes = [p, p, p, i, i, i, i, i, i, i, p]
+        # left, right, out, B, C, H, W, D, G, divisor, dtype, stream
+        lib.gwc_volume_launch.argtypes = [p, p, p, i, i, i, i, i, i, i, i, p]
         lib.gwc_volume_launch.restype = i
     elif name == "fused_mbconv":
         # x, w1, b1, dw, b2, w2, b3, out, workspace (or None), B, Cin, Ch, Cout, H, W,

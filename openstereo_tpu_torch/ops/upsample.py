@@ -118,3 +118,18 @@ def resize_linear_align_corners(x: torch.Tensor, size) -> torch.Tensor:
     if size == tuple(x.shape[2:]):
         return x
     return _interpolate(x, size, mode, True)
+
+
+def resize_bicubic_torch(x: torch.Tensor, size) -> torch.Tensor:
+    """[B,C,h,w] → [B,C,*size], PyTorch's bicubic with align_corners=False (the
+    cubic kernel with A = -0.75, half-pixel centres, edge taps clamped, no
+    antialiasing), up or down (counterpart of `openstereo_tpu/ops/upsample.py:156`,
+    `resize_bicubic_torch`, which applies `_interp_matrix_cubic_hp` along each
+    axis; FoundationStereo's ViT input). Computed in at least f32 and rounded
+    once to x's dtype: the JAX matrices take x's dtype, so on a bf16 x JAX
+    rounds the weights and each axis's result (ROADMAP §3, 3b), where the
+    port rounds once; on the main path x is f32 on both sides."""
+    size = tuple(size)
+    if size == tuple(x.shape[-2:]):
+        return x
+    return _interpolate(x, size, "bicubic", False)

@@ -40,8 +40,10 @@ LIGHTSTEREO_S = Config.from_dict({"NAME": "LightStereo", "MAX_DISP": 192, "EXPAN
 
 
 def eval_size(cfg: Config) -> Tuple[int, int]:
-    """The EVALUATING pad size (RightTopPad's SIZE) of a config, else 544×960."""
-    pads = [t for t in cfg.DATA_CONFIG.DATA_TRANSFORM["EVALUATING"] if t["NAME"] == "RightTopPad"]
+    """The EVALUATING pad size (RightTopPad's SIZE) of a config, else 544×960
+    (also for a config with no EVALUATING list, as FoundationStereo's)."""
+    pads = [t for t in cfg.DATA_CONFIG.DATA_TRANSFORM.get("EVALUATING", [])
+            if t["NAME"] == "RightTopPad"]
     return tuple(pads[0]["SIZE"]) if pads else (H, W)
 
 

@@ -5,7 +5,8 @@ The port's own inverse of `openstereo_tpu/utils/torch_convert.py`
 `convert_sttr`, `convert_gwcnet`, `convert_psmnet`, `convert_coex`,
 `convert_msnet3d`, `convert_msnet2d`, `convert_cfnet`, `convert_fadnet`,
 `convert_casnet`, `convert_igev`, `convert_igev_rt`, `convert_stereobase`,
-`convert_igevpp`); it copies none of that code by import. Layout rules, inverted:
+`convert_igevpp`, `convert_foundationstereo`, `convert_fastfoundationstereo`);
+it copies none of that code by import. Layout rules, inverted:
 
 - conv kernel (kh,kw,in,out) → weight (out,in,kh,kw); 3D (kd,kh,kw,in,out)
   → (out,in,kd,kh,kw);
@@ -888,4 +889,257 @@ def igevpp_state_dict_from_jax(variables) -> Dict[str, torch.Tensor]:
         for k in ("convg1", "convg2"):
             b.conv(f"{ub}/geo_encoder{i}/{k}", f"update_block.geo_encoder{i}.{k}", raw=True)
     update_block(b)
+    return b.finish()
+
+
+def raw_bn(b: FlaxToTorch, fpath: str, tkey: str):
+    """A directly named flax nn.BatchNorm at fpath → BatchNorm keys at tkey."""
+    b.put(f"{tkey}.weight", b.take("params", f"{fpath}/scale"))
+    b.put(f"{tkey}.bias", b.take("params", f"{fpath}/bias"))
+    b.put(f"{tkey}.running_mean", b.take("batch_stats", f"{fpath}/mean"))
+    b.put(f"{tkey}.running_var", b.take("batch_stats", f"{fpath}/var"))
+    b.sd[f"{tkey}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
+
+
+EDGENEXT_DEPTHS, EDGENEXT_GLOBAL = (3, 3, 9, 3), (0, 1, 1, 1)
+
+
+def edgenext(b: FlaxToTorch, fpre: str, tpre: str):
+    """flax EdgeNeXtFeatures at fpre → the port's EdgeNeXt keys (stem, stages)
+    at tpre."""
+    b.conv(f"{fpre}/stem_conv", f"{tpre}.stem.0", raw=True)
+    b.layer_norm(f"{fpre}/stem_norm", f"{tpre}.stem.1")
+    for s, depth in enumerate(EDGENEXT_DEPTHS):
+        sp = f"{tpre}.stages.{s}"
+        if s > 0:
+            b.layer_norm(f"{fpre}/down{s}_norm", f"{sp}.downsample.0")
+            b.conv(f"{fpre}/down{s}_conv", f"{sp}.downsample.1", raw=True)
+        n_local = depth - EDGENEXT_GLOBAL[s]
+        for i in range(depth):
+            fp = (f"{fpre}/stage{s}_block{i}" if i < n_local
+                  else f"{fpre}/stage{s}_sdta{i - n_local}")
+            edgenext_block(b, fp, f"{sp}.blocks.{i}", i < n_local)
+
+
+def edgenext_block(b: FlaxToTorch, fp: str, bp: str, local: bool):
+    """flax ConvEncoder (`local`) or SDTAEncoder at fp → the port's block keys
+    at bp."""
+    f, t = (lambda *p: _join(fp, *p)), (lambda *p: _join(bp, *p, sep="."))  # noqa: E731
+    if local:
+        b.conv(f("dwconv"), t("conv_dw"), raw=True)
+    else:
+        tree = _subtree(b, fp) if fp else b.trees["params"]
+        for ci in range(_count(tree, lambda k: k.startswith("conv"))):
+            b.conv(f(f"conv{ci}"), t("convs", str(ci)), raw=True)
+        if b.has("params", f("pos_proj")):
+            b.put(t("pos_embd.token_projection.weight"),
+                  b.take("params", f("pos_proj", "kernel")).T[..., None, None])
+            b.put(t("pos_embd.token_projection.bias"), b.take("params", f("pos_proj", "bias")))
+        b.layer_norm(f("norm_xca"), t("norm_xca"))
+        b.put(t("gamma_xca"), b.take("params", f("gamma_xca")))
+        b.put(t("xca.temperature"), b.take("params", f("xca", "temperature")))
+        b.dense(f("xca", "qkv"), t("xca.qkv"))
+        b.dense(f("xca", "proj"), t("xca.proj"))
+    b.layer_norm(f("norm"), t("norm"))
+    b.dense(f("pw1"), t("mlp.fc1"))
+    b.dense(f("pw2"), t("mlp.fc2"))
+    b.put(t("gamma"), b.take("params", f("gamma")))
+
+
+def dino_vit(b: FlaxToTorch, fpre: str, tpre: str):
+    """flax DinoViT at fpre → the port's DinoViT keys at tpre; the depth is
+    read from the variables."""
+    for k in ("cls_token", "pos_embed"):
+        b.put(f"{tpre}.{k}", b.take("params", f"{fpre}/{k}"))
+    b.conv(f"{fpre}/patch_embed", f"{tpre}.patch_embed.proj", raw=True)
+    depth = _count(_subtree(b, fpre), lambda k: k.startswith("block"))
+    for i in range(depth):
+        vit_block(b, f"{fpre}/block{i}", f"{tpre}.blocks.{i}")
+    b.layer_norm(f"{fpre}/norm", f"{tpre}.norm")
+
+
+def vit_block(b: FlaxToTorch, fp: str, bp: str):
+    """flax ViTBlock at fp → the port's ViTBlock keys at bp."""
+    f, t = (lambda *p: _join(fp, *p)), (lambda *p: _join(bp, *p, sep="."))  # noqa: E731
+    for n in ("norm1", "norm2"):
+        b.layer_norm(f(n), t(n))
+    for fk, tk in (("attn/qkv", "attn.qkv"), ("attn/proj", "attn.proj"), ("fc1", "mlp.fc1"),
+                   ("fc2", "mlp.fc2")):
+        b.dense(f(fk), t(tk))
+    for k in ("ls1", "ls2"):
+        b.put(t(k, "gamma"), b.take("params", f(k)))
+
+
+def _subtree(b: FlaxToTorch, path: str):
+    tree = b.trees["params"]
+    for part in path.split("/"):
+        tree = tree[part]
+    return tree
+
+
+def dpt_head(b: FlaxToTorch, fpre: str, tpre: str):
+    """flax DPTHead at fpre → the port's DPTHead keys at tpre."""
+    for i in range(4):
+        b.conv(f"{fpre}/project{i}", f"{tpre}.projects.{i}", raw=True)
+    for i in (0, 1, 3):
+        b.conv(f"{fpre}/resize{i}", f"{tpre}.resize_layers.{i}", deconv=i < 2, raw=True)
+    sc = f"{tpre}.scratch"
+    for i in range(1, 5):
+        b.conv(f"{fpre}/layer{i}_rn", f"{sc}.layer{i}_rn", raw=True)
+        rp, fp = f"{sc}.refinenet{i}", f"{fpre}/refinenet{i}"
+        for fu, tu in (("rcu1", "resConfUnit1"), ("rcu2", "resConfUnit2")):
+            if b.has("params", f"{fp}/{fu}"):
+                for c in ("conv1", "conv2"):
+                    b.conv(f"{fp}/{fu}/{c}", f"{rp}.{tu}.{c}", raw=True)
+        b.conv(f"{fp}/out_conv", f"{rp}.out_conv", raw=True)
+    b.conv(f"{fpre}/output_conv1", f"{sc}.output_conv1", raw=True)
+    b.conv(f"{fpre}/output_conv2a", f"{sc}.output_conv2.0", raw=True)
+    b.conv(f"{fpre}/output_conv2b", f"{sc}.output_conv2.2", raw=True)
+
+
+def depth_anything(b: FlaxToTorch, fpre: str, tpre: str):
+    """flax DepthAnythingV2 at fpre → the port's keys (pretrained, depth_head)."""
+    dino_vit(b, _join(fpre, "pretrained"), _join(tpre, "pretrained", sep="."))
+    dpt_head(b, _join(fpre, "depth_head"), _join(tpre, "depth_head", sep="."))
+
+
+def fs_reduced(b: FlaxToTorch, fpre: str, tpre: str):
+    """flax Conv3dNormActReduced → conv1.{0,1}, conv2.{0,1}."""
+    for f, t in (("conv_sp", "conv1"), ("conv_d", "conv2")):
+        b.conv(f"{fpre}/{f}", f"{tpre}.{t}.0")
+        b.bn(f"{fpre}/{f}", f"{tpre}.{t}.1")
+
+
+def fs_res3d(b: FlaxToTorch, fpre: str, tpre: str):
+    """flax ResnetBasicBlock3D → conv1, bn1, conv2, bn2."""
+    for i in (1, 2):
+        b.conv(f"{fpre}/conv{i}", f"{tpre}.conv{i}")
+        b.bn(f"{fpre}/conv{i}", f"{tpre}.bn{i}")
+
+
+def disp_transformer(b: FlaxToTorch, fpre: str, tpre: str):
+    """flax CostVolumeDisparityAttention → sa.i.{self_attn.*, linear1, linear2,
+    norm1, norm2}; the layer count is read from the variables."""
+    for i in range(_count(_subtree(b, fpre), lambda k: k.startswith("sa"))):
+        fp, tp = f"{fpre}/sa{i}", f"{tpre}.sa.{i}"
+        for f, t in (("q", "q_proj"), ("k", "k_proj"), ("v", "v_proj"), ("out_proj", "out_proj")):
+            b.dense(f"{fp}/{f}", f"{tp}.self_attn.{t}")
+        b.dense(f"{fp}/fc1", f"{tp}.linear1")
+        b.dense(f"{fp}/fc2", f"{tp}.linear2")
+        b.layer_norm(f"{fp}/norm1", f"{tp}.norm1")
+        b.layer_norm(f"{fp}/norm2", f"{tp}.norm2")
+
+
+def ahcf_hourglass(b: FlaxToTorch, fpre: str, tpre: str):
+    """flax AHCFHourglass at fpre → the port's AHCFHourglass keys at tpre."""
+    def conv_bn(f, t, deconv=False):
+        b.conv(f"{fpre}/{f}", f"{tpre}.{t}.conv", deconv=deconv)
+        b.bn(f"{fpre}/{f}", f"{tpre}.{t}.bn")
+
+    for lvl in (1, 2, 3):
+        conv_bn(f"conv{lvl}a", f"conv{lvl}.0")
+        fs_reduced(b, f"{fpre}/conv{lvl}b", f"{tpre}.conv{lvl}.1")
+    for name in ("conv3_up", "conv2_up", "conv1_up"):
+        conv_bn(name, name, deconv=True)
+    for f, t in (("agg0", "agg_0"), ("agg1", "agg_1")):
+        conv_bn(f"{f}a", f"{t}.0")
+        fs_reduced(b, f"{fpre}/{f}b", f"{tpre}.{t}.1")
+        fs_reduced(b, f"{fpre}/{f}c", f"{tpre}.{t}.2")
+    for f, t in HOURGLASS_ATTS:
+        feature_att(b, f"{fpre}/{f}", f"{tpre}.{t}.feat_att")
+    b.conv(f"{fpre}/conv_patch", f"{tpre}.conv_patch.0", raw=True)
+    raw_bn(b, f"{fpre}/conv_patch_bn", f"{tpre}.conv_patch.1")
+    disp_transformer(b, f"{fpre}/disp_att", f"{tpre}.atts.4")
+    fs_reduced(b, f"{fpre}/out0", f"{tpre}.conv_out.0")
+    fs_reduced(b, f"{fpre}/out1", f"{tpre}.conv_out.1")
+
+
+def edgenext_plain(b: FlaxToTorch, fpre: str, tpre: str):
+    """flax EdgeNextConvEncoderPlain → dwconv, pwconv1, pwconv2, gamma."""
+    b.conv(f"{fpre}/dwconv", f"{tpre}.dwconv", raw=True)
+    b.dense(f"{fpre}/pw1", f"{tpre}.pwconv1")
+    b.dense(f"{fpre}/pw2", f"{tpre}.pwconv2")
+    b.put(f"{tpre}.gamma", b.take("params", f"{fpre}/gamma"))
+
+
+def selective_update_block(b: FlaxToTorch, ub: str = "gru_loop/update_block",
+                           tb: str = "update_block"):
+    """flax BasicSelectiveMultiUpdateBlock under the scanned loop → port keys;
+    the GRU scales are read from the variables."""
+    for k in ("convc1", "convc2", "convd1", "convd2", "conv"):
+        b.conv(f"{ub}/encoder/{k}", f"{tb}.encoder.{k}", raw=True)
+    for g in ("gru04", "gru08", "gru16"):
+        if not b.has("params", f"{ub}/{g}"):
+            continue
+        b.conv(f"{ub}/{g}/conv0", f"{tb}.{g}.conv0.0", raw=True)
+        b.conv(f"{ub}/{g}/conv1", f"{tb}.{g}.conv1.0", raw=True)
+        for gru in ("small_gru", "large_gru"):
+            for k in ("convz", "convr", "convq"):
+                b.conv(f"{ub}/{g}/{gru}/{k}", f"{tb}.{g}.{gru}.{k}", raw=True)
+    dh = f"{ub}/disp_head"
+    b.conv(f"{dh}/conv_in", f"{tb}.disp_head.conv.0", raw=True)
+    edgenext_plain(b, f"{dh}/enc0", f"{tb}.disp_head.conv.2")
+    edgenext_plain(b, f"{dh}/enc1", f"{tb}.disp_head.conv.3")
+    b.conv(f"{dh}/conv_out", f"{tb}.disp_head.conv.4", raw=True)
+    b.conv(f"{ub}/mask0", f"{tb}.mask.0", raw=True)
+    b.conv(f"{ub}/mask1", f"{tb}.mask.2", raw=True)
+
+
+def fs_common(b: FlaxToTorch):
+    """What FoundationStereo's and FastFoundationStereo's flax variables share
+    besides the features' extras and the context net: the trunk and decoder,
+    the stem, the superpixel heads, the volume's stem, hourglass and
+    classifier, cam, sam and the update block."""
+    edgenext(b, "feature/trunk", "feature")
+    for name in ("deconv32_16", "deconv16_8", "deconv8_4"):
+        f, t = f"feature/{name}", f"feature.{name}"
+        b.conv(f"{f}/conv1/conv", f"{t}.conv1.conv", deconv=True)
+        b.conv(f"{f}/fuse1", f"{t}.conv2.conv1")
+        b.conv(f"{f}/fuse2", f"{t}.conv2.conv2")
+    basic_conv(b, "stem_2a", "stem_2.0", bn=False)
+    b.conv("stem_2b", "stem_2.1")
+    conv2x(b, "spx_2_gru", "spx_2_gru", bn=False)
+    b.conv("spx_gru", "spx_gru.0", deconv=True, raw=True)
+    b.conv("proj_cmb", "proj_cmb", raw=True)
+    b.conv("corr_stem0", "corr_stem.0", raw=True)
+    basic_conv(b, "corr_stem1", "corr_stem.1")
+    fs_res3d(b, "corr_stem2", "corr_stem.2")
+    fs_res3d(b, "corr_stem3", "corr_stem.3")
+    feature_att(b, "corr_feature_att", "corr_feature_att.feat_att")
+    ahcf_hourglass(b, "cost_agg", "cost_agg")
+    basic_conv(b, "classifier0", "classifier.0")
+    fs_res3d(b, "classifier1", "classifier.1")
+    b.conv("classifier2", "classifier.2", raw=True)
+    b.conv("cam/fc1", "cam.fc.0", raw=True)
+    b.conv("cam/fc2", "cam.fc.2", raw=True)
+    b.conv("sam/samconv", "sam.samconv", raw=True)
+    selective_update_block(b)
+
+
+def foundationstereo_state_dict_from_jax(variables) -> Dict[str, torch.Tensor]:
+    """flax FoundationStereo {"params", "batch_stats"} → port state_dict (the
+    reference's key names, as `torch_convert.convert_foundationstereo` reads
+    them). Raises if a flax variable is left unconsumed."""
+    b = FlaxToTorch(variables)
+    fs_common(b)
+    depth_anything(b, "feature/dino", "feature.dino.depth_anything")
+    basic_conv(b, "feature/conv4a", "feature.conv4.0", bn=False)
+    for f, t in (("conv4b", "1"), ("conv4c", "2")):
+        for c in ("conv1", "conv2"):
+            b.conv(f"feature/{f}/{c}", f"feature.conv4.{t}.{c}")
+    multi_basic_encoder(b, "cnet", "cnet")
+    b.conv("cnet/conv2", "cnet.conv2.conv")
+    b.bn("cnet/conv2", "cnet.conv2.bn")
+    return b.finish()
+
+
+def fastfoundationstereo_state_dict_from_jax(variables) -> Dict[str, torch.Tensor]:
+    """flax FastFoundationStereo → port state_dict (as
+    `torch_convert.convert_fastfoundationstereo` reads it). Raises if a flax
+    variable is left unconsumed."""
+    b = FlaxToTorch(variables)
+    fs_common(b)
+    b.conv("feature/conv4", "feature.conv4", raw=True)
+    b.conv("cnet/conv04_net", "cnet.conv04.0", raw=True)
+    b.conv("cnet/conv04_inp", "cnet.conv04.1", raw=True)
     return b.finish()
