@@ -283,6 +283,17 @@ without the repository around it). Phases, each of which fails the run:
    algorithms, bf16 mean-abs <= 0.5 px; parameters, peak memory, frames/s,
    profile (device busy, idle share), K3's device time beside its bound; then,
    for FoundationStereo, the measure CLI with FS_MEASURE_REPS timed frames.
+48. (run after phase 47) the MonSter path (`monster_path`:
+   `cfgs/monster/monster_sceneflow.yaml`, full width and depth: the frozen
+   DepthAnythingV2 ViT-S and DPT depth head, the DPT pyramid decoder, 25
+   IGEV GRU iterations and 7 mutual-refinement iterations, REMP) at 544x960,
+   b1, bf16, its EVALUATING transforms (DivisiblePad 32,
+   NormalizeToMinusOneOne), as phases 46-47 run theirs: K3 once a frame at
+   [1,96,136,240] D 48 G 8 (IGEV's shape, checked in phase 9), nothing else;
+   f32 kernels vs eager max-abs <= 5e-3 px under cuDNN's deterministic
+   algorithms, bf16 mean-abs <= 0.5 px; parameters, peak memory, frames/s
+   (2 groups of 2 frames), profile of 1 frame (device busy, idle share),
+   K3's device time beside its bound. No measure CLI.
 
 Each phase prints its seconds on a `[phase-time]` line as it ends, and all
 of them once more before the JSON lines.
@@ -305,7 +316,7 @@ import numpy as np
 
 H, W = 544, 960
 N_PAIRS = 3
-# pairs of the f32 kernel-vs-eager check of phases 16-22, 36-40 and 46-47 (all N_PAIRS before phases
+# pairs of the f32 kernel-vs-eager check of phases 16-22, 36-40 and 46-48 (all N_PAIRS before phases
 # 46-47 were added; cut for the script's time)
 F32_PAIRS = 1
 ROOT = Path(__file__).resolve().parent
@@ -328,6 +339,7 @@ STEREOBASE_CFG = ROOT / "cfgs/stereobase/stereobase_sceneflow.yaml"
 IGEVPP_CFG = ROOT / "cfgs/igevpp/igevpp_sceneflow_amp.yaml"
 FS_CFG = ROOT / "cfgs/foundationstereo/fstereo_foundationstereo.yaml"
 FFS_CFG = ROOT / "cfgs/fast_foundationstereo/ffstereo_sceneflow.yaml"
+MONSTER_CFG = ROOT / "cfgs/monster/monster_sceneflow.yaml"
 KITTI_EVAL_CFG = ROOT / "cfgs/kitti15_eval.yaml"
 
 # expected K2 launches per LightStereo-S frame: (batch, H, W, Cin, Ch, Cout, residual) → count
@@ -410,11 +422,11 @@ K3_EDGES = [
     ((1, 96, 5, 70, 24, 8), "cg = 12 (C 96, G 8)"),
 ]
 
-# IGEV-Stereo (phases 36-37): K3 at its group width C/G = 12 (96 descriptor channels, G 8,
-# D 192/4), at the SceneFlow config's 544x960 b1 and at the KITTI evaluation's 384x1248 b4
-# (`cfgs/kitti15_eval.yaml`: RightTopPad, EVALUATOR.BATCH_SIZE_PER_GPU 4); its MobileNetV2
-# trunk is CoEx's, both views in one batch: K2 11 a frame, at batch 2 (COEX_K2_SHAPES) and at
-# batch 8 in the evaluation
+# IGEV-Stereo (phases 36-37) and MonSter (phase 48): K3 at its group width C/G = 12 (96
+# descriptor channels, G 8, D 192/4), at the SceneFlow config's 544x960 b1 and at the KITTI
+# evaluation's 384x1248 b4 (`cfgs/kitti15_eval.yaml`: RightTopPad,
+# EVALUATOR.BATCH_SIZE_PER_GPU 4); IGEV's MobileNetV2 trunk is CoEx's, both views in one batch:
+# K2 11 a frame, at batch 2 (COEX_K2_SHAPES) and at batch 8 in the evaluation
 IGEV_K3_SHAPE = (1, 96, 136, 240, 48, 8)
 # IGEV++ (phase 40): one K3 volume over all MAX_DISP/4 = 192 planes (768 / 4), 24 of the
 # kernel's 8-plane chunks, from which its three ranges are carved
@@ -3525,6 +3537,16 @@ def foundationstereo_paths():
     ]
 
 
+def monster_path():
+    """MonSter (phase 48), as a `model_paths` entry: its SceneFlow config at
+    full width and depth (vits, 32 iterations of which 7 mutual) at 544x960
+    b1 bf16, K3 once a frame at IGEV's shape and no other kernel; the f32
+    rule "deterministic" (K3's f32 sum at C/G 12 is bit-equal to the plain
+    one); 2 timing groups of 2 frames and 1 frame profiled."""
+    return ("MonSter", MONSTER_CFG, {"gwc_volume": {IGEV_K3_SHAPE: 1}}, "deterministic",
+            (2, 2, 1))
+
+
 def phase_gru_model(dev, card, path, label, measure_reps=None):
     """A GRU model's path through `run_pair` as phases 16-22 run theirs
     (`phase_model`, `phase_timing_model`), then, with `measure_reps`, the
@@ -3732,6 +3754,8 @@ def main():
             label = f"{number} {path[0]}"
             models[path[0]] = run_phase(label, phase_gru_model, dev, card, path, label,
                                         FS_MEASURE_REPS if path[0] == "FoundationStereo" else None)
+        models["MonSter"] = run_phase("48 MonSter", phase_gru_model, dev, card, monster_path(),
+                                      "48 MonSter")
         k1_eval, k2_eval, k2_eval_splits = run_phase("13 evaluation batch", phase_eval_batch, dev)
         trained = run_phase("14 LightStereo training", phase_train, dev)
         overfit = run_phase("15 LightStereo overfit", phase_overfit)
@@ -3815,7 +3839,7 @@ def main():
                                                             if t.startswith("CFNet")], axis=0)
                                    .tolist())),
                  **{name: dict(zip(VOLUME_ERR_KEYS, k3_err["IGEV"]))
-                    for name in ("IGEV", "IGEV-RT", "StereoBase")},
+                    for name in ("IGEV", "IGEV-RT", "StereoBase", "MonSter")},
                  "IGEV++": dict(zip(VOLUME_ERR_KEYS, k3_err["IGEV++"])),
                  **{name: dict(zip(VOLUME_ERR_KEYS, k3_err[f"{name} cosine"]))
                     for name, *_ in foundationstereo_paths()}}),

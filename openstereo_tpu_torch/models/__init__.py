@@ -3,7 +3,7 @@
 LightStereo, STTR, GwcNet, PSMNet, CoEx, MSNet3D, MSNet2D, CFNet, FADNet,
 CasGwcNet, CasPSMNet, IGEV, IGEV-RT, StereoBase (also under its configs'
 name StereoBaseGRU) and IGEV++ are ported, for inference and for training;
-FoundationStereo and FastFoundationStereo for inference; the other names
+FoundationStereo, FastFoundationStereo and MonSter for inference; the other names
 of the JAX zoo raise NotImplementedError naming the ROADMAP item that
 brings them.
 """
@@ -32,6 +32,7 @@ from .igev_rt import IGEVRT
 from .igevpp import IGEVPP
 from .layers import set_kernels  # noqa: F401
 from .lightstereo import LightStereo
+from .monster import MonSter
 from .msnet import MSNet2D, MSNet3D
 from .psmnet import PSMNet
 from .stereobase import StereoBase
@@ -45,11 +46,10 @@ MODELS = {"LightStereo": LightStereo, "STTR": STTR, "GwcNet": GwcNet, "PSMNet": 
           "FADNet": FADNet, "CasGwcNet": CasGwcNet, "CasPSMNet": CasPSMNet, "IGEV": IGEV,
           "IGEVRT": IGEVRT, "StereoBase": StereoBase, "StereoBaseGRU": StereoBase,
           "IGEVPP": IGEVPP, "FoundationStereo": FoundationStereo,
-          "FastFoundationStereo": FastFoundationStereo}
+          "FastFoundationStereo": FastFoundationStereo, "MonSter": MonSter}
 
 # JAX-zoo names still to be ported → the ROADMAP item (queue 1) that ports them
 NOT_PORTED = {
-    "MonSter": "Slice E, item 15",
     "AANet": "Slice F, item 17", "NMRF": "Slice F, item 18",
     "IINet": "Slice F, item 19",
 }

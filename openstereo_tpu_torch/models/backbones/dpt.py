@@ -10,7 +10,12 @@ into its 1/4 features. The relative-depth branch (`output_conv2`) runs only
 when asked; its parameters exist for the state_dict's round trip. Keys
 follow the reference DPTHead as `openstereo_tpu/utils/torch_convert.py:_dpt_head`
 reads them; refinenet4's `resConfUnit1`, which the reference holds and never
-runs, is not held (FoundationStereo's `REFERENCE_ONLY_KEYS` skips it).
+runs, is not held (FoundationStereo's and MonSter's `REFERENCE_ONLY_KEYS`
+skip it).
+
+`DPTPyramidDecoder` (MonSter's trainable `feat_decoder`) reassembles the
+same taps and returns the four fusion paths, each refinenet at its own
+level's resolution, instead of a full-resolution feature.
 """
 
 from __future__ import annotations
@@ -68,45 +73,60 @@ class FeatureFusionBlock(nn.Module):
 
 
 class Scratch(nn.Module):
-    """The reference's `scratch`: layer{1..4}_rn, refinenet{1..4},
-    output_conv1, output_conv2 (conv, relu, conv, relu)."""
+    """The reference's `scratch`: layer{1..4}_rn, refinenet{1..4} and, with
+    `outputs`, output_conv1, output_conv2 (conv, relu, conv, relu)."""
 
-    def __init__(self, features: int, out_channels: Sequence[int]):
+    def __init__(self, features: int, out_channels: Sequence[int], outputs: bool = True):
         super().__init__()
         for i, oc in enumerate(out_channels):
             setattr(self, f"layer{i + 1}_rn", nn.Conv2d(oc, features, 3, padding=1, bias=False))
         for k in range(1, 5):
             setattr(self, f"refinenet{k}", FeatureFusionBlock(features, skip=k != 4))
-        self.output_conv1 = nn.Conv2d(features, features // 2, 3, padding=1)
-        self.output_conv2 = nn.Sequential(nn.Conv2d(features // 2, 32, 3, padding=1), nn.ReLU(),
-                                          nn.Conv2d(32, 1, 1), nn.ReLU())
+        if outputs:
+            self.output_conv1 = nn.Conv2d(features, features // 2, 3, padding=1)
+            self.output_conv2 = nn.Sequential(nn.Conv2d(features // 2, 32, 3, padding=1),
+                                              nn.ReLU(), nn.Conv2d(32, 1, 1), nn.ReLU())
 
 
-class DPTHead(nn.Module):
-    """ViT taps → fused pyramid → (feat [B, features/2, 14·ph, 14·pw], depth
-    [B, 14·ph, 14·pw] or None) (`dpt.py:74-132`). Keys: projects.i,
-    resize_layers.{0,1,3}, scratch.*."""
+class Reassemble(nn.Module):
+    """The four ViT taps → the DPT pyramid at 4×, 2×, 1× and ½× the patch grid,
+    `features` wide: 1×1 projections, ×4 and ×2 transposed convs, identity,
+    a symmetric-pad stride-2 conv (`dpt.py:89-107`), then scratch.layer{i}_rn.
+    Keys: projects.i, resize_layers.{0,1,3}, scratch.*."""
 
-    def __init__(self, in_dim: int, features: int = 64,
-                 out_channels: Sequence[int] = (48, 96, 192, 384)):
+    def __init__(self, in_dim: int, features: int, out_channels: Sequence[int], outputs: bool):
         super().__init__()
         oc = list(out_channels)
         self.projects = nn.ModuleList(nn.Conv2d(in_dim, c, 1) for c in oc)
         self.resize_layers = nn.ModuleList([
             nn.ConvTranspose2d(oc[0], oc[0], 4, 4), nn.ConvTranspose2d(oc[1], oc[1], 2, 2),
             nn.Identity(), nn.Conv2d(oc[3], oc[3], 3, 2, 1)])
-        self.scratch = Scratch(features, oc)
+        self.scratch = Scratch(features, oc, outputs)
 
-    def forward(self, taps: List[Tuple[torch.Tensor, torch.Tensor]], patch_h: int, patch_w: int,
-                depth: bool = False):
-        levels = []
+    def levels(self, taps: List[Tuple[torch.Tensor, torch.Tensor]], patch_h: int,
+               patch_w: int) -> List[torch.Tensor]:
+        out = []
         for i, (tok, _cls) in enumerate(taps):
             x = tok.transpose(1, 2).reshape(tok.shape[0], tok.shape[2], patch_h, patch_w)
             x = run_conv(x, self.projects[i])
             if i != 2:
                 x = run_conv(x, self.resize_layers[i])
-            levels.append(run_conv(x, getattr(self.scratch, f"layer{i + 1}_rn")))
-        l1, l2, l3, l4 = levels
+            out.append(run_conv(x, getattr(self.scratch, f"layer{i + 1}_rn")))
+        return out
+
+
+class DPTHead(Reassemble):
+    """ViT taps → fused pyramid → (feat [B, features/2, 14·ph, 14·pw], depth
+    [B, 14·ph, 14·pw] or None) (`dpt.py:74-132`). Keys: projects.i,
+    resize_layers.{0,1,3}, scratch.*."""
+
+    def __init__(self, in_dim: int, features: int = 64,
+                 out_channels: Sequence[int] = (48, 96, 192, 384)):
+        super().__init__(in_dim, features, out_channels, outputs=True)
+
+    def forward(self, taps: List[Tuple[torch.Tensor, torch.Tensor]], patch_h: int, patch_w: int,
+                depth: bool = False):
+        l1, l2, l3, l4 = self.levels(taps, patch_h, patch_w)
         s = self.scratch
         p = s.refinenet4(l4, out_hw=l3.shape[2:])
         p = s.refinenet3(p, l3, out_hw=l2.shape[2:])
@@ -120,6 +140,29 @@ class DPTHead(nn.Module):
             return up, None
         d = run_conv(F.relu(run_conv(up, s.output_conv2[0])), s.output_conv2[2])
         return up, F.relu(d[:, 0])
+
+
+class DPTPyramidDecoder(Reassemble):
+    """ViT taps → the four fusion paths [p1 @4×, p2 @2×, p3 @1×, p4 @½× the patch
+    grid], each `features` wide (`dpt.py:135-181`): each refinenet runs at its
+    own level's resolution (its resize to the same size is the identity), the
+    coarser path resized to the finer level (align corners) before it is
+    fused there; refinenet4 takes l4 alone. Keys as `DPTHead`'s without the
+    output convs."""
+
+    def __init__(self, in_dim: int, features: int = 64,
+                 out_channels: Sequence[int] = (48, 96, 192, 384)):
+        super().__init__(in_dim, features, out_channels, outputs=False)
+
+    def forward(self, taps: List[Tuple[torch.Tensor, torch.Tensor]], patch_h: int,
+                patch_w: int) -> List[torch.Tensor]:
+        l1, l2, l3, l4 = self.levels(taps, patch_h, patch_w)
+        s = self.scratch
+        p4 = s.refinenet4(l4, out_hw=l4.shape[2:])
+        p3 = s.refinenet3(resize_linear_align_corners(p4, l3.shape[2:]), l3, out_hw=l3.shape[2:])
+        p2 = s.refinenet2(resize_linear_align_corners(p3, l2.shape[2:]), l2, out_hw=l2.shape[2:])
+        p1 = s.refinenet1(resize_linear_align_corners(p2, l1.shape[2:]), l1, out_hw=l1.shape[2:])
+        return [p1, p2, p3, p4]
 
 
 class DepthAnythingV2(nn.Module):

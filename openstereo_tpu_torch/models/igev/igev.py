@@ -136,15 +136,16 @@ class GeoHourglass(nn.Module):
 
 
 class IGEVFamily(nn.Module):
-    """What IGEV, IGEV-RT, StereoBase and IGEV++ share, over the attributes
+    """What IGEV, IGEV-RT, StereoBase, IGEV++ and MonSter share, over the attributes
     each holds under the reference's names: `feature`, `stem_2`, `stem_4`,
     `conv`, `desc` (the matching descriptors), `classifier`, `cnet` and
     `context_zqr_convs` (the context net), `update_block`, `spx_2_gru` and
     `spx_gru` (the iterates' superpixel upsample), `spx_4`, `spx_2` and
     `spx` (the training heads); and `valid_iters` (StereoBase: `eval_iters`),
     `train_iters` and, IGEV's only, as in the JAX package, `remat`
-    (MODEL.REMAT: each GRU iteration recomputed in the backward).
-    `use_kernels` routes the group-wise volume through K3 in eval
+    (MODEL.REMAT: each GRU iteration recomputed in the backward). MonSter
+    holds no `feature` or `cnet`: its features and context come from its
+    mono branch. `use_kernels` routes the group-wise volume through K3 in eval
     (`set_kernels`); the trunk's blocks hold their own switch for K2."""
 
     use_kernels = True

@@ -5,6 +5,9 @@
   (`sampler.py:161-182`).
 - `bilinear_sampler`: `grid_sample(align_corners=True, padding_mode="zeros")`
   on pixel coordinates (`sampler.py:80-96`): FADNet's warp.
+- `disp_warp`: the right view sampled at (x − d, y) through
+  `bilinear_sampler`, zero outside the frame or clamped to its border
+  (`sampler.py:185-218`): MonSter's warps.
 
 The JAX package's packed-patch and hat-matrix forms (`_pack_2x2`,
 `_sample_packed`, `bilinear_sampler_mxu`) only work around TPU gathers;
@@ -83,3 +86,38 @@ def bilinear_sampler(img: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
             contrib = torch.gather(flat, 2, idx) * (ay * ax).to(img.dtype)[:, None]
             out = contrib if out is None else out + contrib
     return out.reshape(b, c, *coords.shape[1:-1])
+
+
+def disp_warp(right: torch.Tensor, disp: torch.Tensor, padding: str = "zeros",
+              torch_unaligned: bool = False):
+    """Warp the right view to the left camera: right [B,C,H,W] sampled at
+    (x − disp, y), disp [B,H,W] → (warped [B,C,H,W] in right's dtype, valid
+    [B,1,H,W]: 1 where the source x lies in [0, W−1]).
+
+    `padding` "zeros" zeroes the warped values where the source lies outside
+    the frame (FADNet's convention); "border" clamps the source to the frame
+    before sampling (grid_sample's padding_mode="border", MonSter's). With
+    `torch_unaligned` the source is (x − d)·W/(W−1) − 0.5 and y·H/(H−1) −
+    0.5: the reference normalises its grid by W−1 but samples it with
+    align_corners=False, a shear of up to half a pixel toward the right
+    and bottom edges. The coordinates are formed in disp's dtype, as the JAX
+    counterpart forms them (`sampler.py:185-218`, which takes and returns
+    NHWC).
+    """
+    if padding not in ("zeros", "border"):
+        raise ValueError(f"unknown padding {padding!r}")
+    b, _, h, w = right.shape
+    xs = torch.arange(w, dtype=disp.dtype, device=disp.device)
+    ys = torch.arange(h, dtype=disp.dtype, device=disp.device)[:, None]
+    x_src = xs - disp
+    y_src = ys + torch.zeros_like(disp)
+    if torch_unaligned:
+        x_src = x_src * (w / max(w - 1, 1)) - 0.5
+        y_src = y_src * (h / max(h - 1, 1)) - 0.5
+    valid = ((x_src >= 0) & (x_src <= w - 1)).to(right.dtype)[:, None]
+    if padding == "border":
+        x_src, y_src = x_src.clamp(0.0, w - 1), y_src.clamp(0.0, h - 1)
+    warped = bilinear_sampler(right, torch.stack([x_src, y_src], dim=-1))
+    if padding == "zeros":
+        warped = warped * valid
+    return warped, valid

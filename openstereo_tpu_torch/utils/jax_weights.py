@@ -5,7 +5,8 @@ The port's own inverse of `openstereo_tpu/utils/torch_convert.py`
 `convert_sttr`, `convert_gwcnet`, `convert_psmnet`, `convert_coex`,
 `convert_msnet3d`, `convert_msnet2d`, `convert_cfnet`, `convert_fadnet`,
 `convert_casnet`, `convert_igev`, `convert_igev_rt`, `convert_stereobase`,
-`convert_igevpp`, `convert_foundationstereo`, `convert_fastfoundationstereo`);
+`convert_igevpp`, `convert_foundationstereo`, `convert_fastfoundationstereo`,
+`convert_monster`);
 it copies none of that code by import. Layout rules, inverted:
 
 - conv kernel (kh,kw,in,out) → weight (out,in,kh,kw); 3D (kd,kh,kw,in,out)
@@ -801,17 +802,19 @@ def _context(b: FlaxToTorch):
 
 
 def update_block(b: FlaxToTorch, grus=("gru04", "gru08", "gru16"),
-                 ub: str = "gru_loop/update_block", tb: str = "update_block"):
+                 ub: str = "gru_loop/update_block", tb: str = "update_block",
+                 encoder: bool = True):
     """flax update block under the scanned loop → port keys: the motion
-    encoder, `grus`, disp_head, mask_feat_4."""
-    for k in ("convc1", "convc2", "convd1", "convd2", "conv"):
-        b.conv(f"{ub}/encoder/{k}", f"{tb}.encoder.{k}", raw=True)
+    encoder (with `encoder`), `grus`, disp_head, mask_feat_4."""
+    f, t = (lambda *p: _join(ub, *p)), (lambda *p: _join(tb, *p, sep="."))  # noqa: E731
+    for k in ("convc1", "convc2", "convd1", "convd2", "conv") if encoder else ():
+        b.conv(f("encoder", k), t("encoder", k), raw=True)
     for g in grus:
         for k in ("convz", "convr", "convq"):
-            b.conv(f"{ub}/{g}/{k}", f"{tb}.{g}.{k}", raw=True)
+            b.conv(f(g, k), t(g, k), raw=True)
     for k in ("conv1", "conv2"):
-        b.conv(f"{ub}/disp_head/{k}", f"{tb}.disp_head.{k}", raw=True)
-    b.conv(f"{ub}/mask_feat_4", f"{tb}.mask_feat_4.0", raw=True)
+        b.conv(f("disp_head", k), t("disp_head", k), raw=True)
+    b.conv(f("mask_feat_4"), t("mask_feat_4", "0"), raw=True)
 
 
 def igev_state_dict_from_jax(variables) -> Dict[str, torch.Tensor]:
@@ -977,8 +980,9 @@ def _subtree(b: FlaxToTorch, path: str):
     return tree
 
 
-def dpt_head(b: FlaxToTorch, fpre: str, tpre: str):
-    """flax DPTHead at fpre → the port's DPTHead keys at tpre."""
+def dpt_pyramid_decoder(b: FlaxToTorch, fpre: str, tpre: str):
+    """flax DPTPyramidDecoder at fpre → the port's keys at tpre: the
+    reassembly and the refinenets (refinenet4 without its first unit)."""
     for i in range(4):
         b.conv(f"{fpre}/project{i}", f"{tpre}.projects.{i}", raw=True)
     for i in (0, 1, 3):
@@ -992,6 +996,12 @@ def dpt_head(b: FlaxToTorch, fpre: str, tpre: str):
                 for c in ("conv1", "conv2"):
                     b.conv(f"{fp}/{fu}/{c}", f"{rp}.{tu}.{c}", raw=True)
         b.conv(f"{fp}/out_conv", f"{rp}.out_conv", raw=True)
+
+
+def dpt_head(b: FlaxToTorch, fpre: str, tpre: str):
+    """flax DPTHead at fpre → the port's DPTHead keys at tpre."""
+    dpt_pyramid_decoder(b, fpre, tpre)
+    sc = f"{tpre}.scratch"
     b.conv(f"{fpre}/output_conv1", f"{sc}.output_conv1", raw=True)
     b.conv(f"{fpre}/output_conv2a", f"{sc}.output_conv2.0", raw=True)
     b.conv(f"{fpre}/output_conv2b", f"{sc}.output_conv2.2", raw=True)
@@ -1142,4 +1152,73 @@ def fastfoundationstereo_state_dict_from_jax(variables) -> Dict[str, torch.Tenso
     b.conv("feature/conv4", "feature.conv4", raw=True)
     b.conv("cnet/conv04_net", "cnet.conv04.0", raw=True)
     b.conv("cnet/conv04_inp", "cnet.conv04.1", raw=True)
+    return b.finish()
+
+
+def mix_update_block(b: FlaxToTorch, ub: str, tb: str):
+    """flax MixUpdateBlock at ub → the port's keys at tb: the twin motion
+    encoder, the three GRUs, disp_head, mask_feat_4."""
+    for k in ("convc1", "convc2", "convd1", "convd2", "conv"):
+        for sfx in ("", "_mono"):
+            b.conv(_join(ub, "encoder", k + sfx), _join(tb, "encoder", k + sfx, sep="."),
+                   raw=True)
+    update_block(b, ub=ub, tb=tb, encoder=False)
+
+
+def monster_state_dict_from_jax(variables) -> Dict[str, torch.Tensor]:
+    """flax MonSter {"params", "batch_stats"}, drawn with the training heads,
+    → port state_dict (the reference's key names, as
+    `torch_convert.convert_monster` reads them). Raises if a flax variable
+    is left unconsumed."""
+    b = FlaxToTorch(variables)
+    dino_vit(b, "mono/mono_encoder", "mono_encoder")
+    dpt_head(b, "mono/mono_decoder", "mono_decoder")
+    dpt_pyramid_decoder(b, "mono/feat_decoder", "feat_decoder")
+    ft = "feat_transfer"
+    for s in ("4", "8", "16", "32"):
+        b.conv(f"{ft}/conv{s}x", f"{ft}.conv{s}x.0")
+        if s != "4":
+            b.conv(f"{ft}/up{s}", f"{ft}.conv_up_{s}x", deconv=True)
+        if s != "32":
+            b.conv(f"{ft}/res{s}x", f"{ft}.res_{s}x", raw=True)
+            b.conv(f"feat_transfer_cnet/res_{s}x", f"feat_transfer_cnet.res_{s}x", raw=True)
+    for s in ("stem_2", "stem_4", "stem_8", "stem_16", "spx_4"):
+        basic_conv(b, f"{s}a", f"{s}.0", bn=False)
+        b.conv(f"{s}b", f"{s}.1")
+    conv2x(b, "spx_2", "spx_2", bn=False)
+    b.conv("spx", "spx.0", deconv=True, raw=True)
+    conv2x(b, "spx_2_gru", "spx_2_gru")
+    b.conv("spx_gru", "spx_gru.0", deconv=True, raw=True)
+    basic_conv(b, "conv", "conv", bn=False)
+    b.conv("desc", "desc", raw=True)
+    basic_conv(b, "corr_stem", "corr_stem")
+    feature_att(b, "corr_feature_att", "corr_feature_att.feat_att")
+    for f, t in HOURGLASS_CONVS + (("conv3_up", "conv3_up"), ("conv2_up", "conv2_up")):
+        b.conv(f"cost_agg/{f}", f"cost_agg.{t}.conv", deconv=f.endswith("_up"))
+        b.bn(f"cost_agg/{f}", f"cost_agg.{t}.bn")
+    b.conv("cost_agg/conv1_up", "cost_agg.conv1_up.conv", deconv=True)
+    for f, t in HOURGLASS_ATTS:
+        feature_att(b, f"cost_agg/{f}", f"cost_agg.{t}.feat_att")
+    b.conv("classifier", "classifier", raw=True)
+    for i in range(3):
+        b.conv(f"context_zqr{i}", f"context_zqr_convs.{i}", raw=True)
+    update_block(b)
+    for branch in ("stereo", "mono"):
+        mix_update_block(b, f"gru_loop_mix/update_mix_{branch}", f"update_block_mix_{branch}")
+    for t in ("conv1_mono", "conv1_stereo", "conv2_mono", "conv2_stereo"):
+        b.convbn(f"REMP/{t}", f"REMP.{t}")
+    b.conv("REMP/conv_start", "REMP.conv_start.conv")
+    b.bn("REMP/conv_start", "REMP.conv_start.bn")
+    for i in range(1, 5):
+        b.conv(f"REMP/unet/conv{i}a", f"REMP.RefinementBlock.conv{i}a.conv")
+        b.bn(f"REMP/unet/conv{i}a", f"REMP.RefinementBlock.conv{i}a.bn")
+        for t in (f"deconv{i}a", f"conv{i}b", f"deconv{i}b"):
+            fp, tp = f"REMP/unet/{t}", f"REMP.RefinementBlock.{t}"
+            b.conv(f"{fp}/conv1", f"{tp}.conv1.conv", deconv=t.startswith("deconv"))
+            b.bn(f"{fp}/conv1", f"{tp}.conv1.bn")
+            b.conv(f"{fp}/conv2", f"{tp}.conv2.conv")
+            b.bn(f"{fp}/conv2", f"{tp}.conv2.bn")
+    for f, t in (("lfe1", "LFE.0"), ("lfe2", "LFE.2"), ("lmc1", "LMC.0"), ("lmc2", "LMC.1"),
+                 ("lmc3", "LMC.3"), ("final_conv", "final_conv")):
+        b.conv(f"REMP/{f}", f"REMP.{t}", raw=True)
     return b.finish()

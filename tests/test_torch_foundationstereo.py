@@ -438,7 +438,7 @@ def test_build_model_runs_the_config_on_the_cpu_through_the_plain_k3(monkeypatch
     """At full width (vitl, D/4 104, 371.7M parameters) on a 64×128 pair, the
     GRU loop cut to 2 iterations for time: a finite disparity, K3 once with
     divisor 1 (its plain version); training waits (a training forward raises);
-    MonSter, AANet, NMRF and IINet are still unported. The config has no
+    AANet, NMRF and IINet are still unported. The config has no
     EVALUATING transforms: the bench's `eval_size` falls back to 544×960."""
     calls = counted_plain_kernels(monkeypatch)
     cfg = load_config(str(CFG))
@@ -461,7 +461,7 @@ def test_build_model_runs_the_config_on_the_cpu_through_the_plain_k3(monkeypatch
     model.train()
     with pytest.raises(NotImplementedError, match="training"):
         model({"left": x, "right": x})
-    for name in ("MonSter", "AANet", "NMRF", "IINet"):
+    for name in ("AANet", "NMRF", "IINet"):
         assert name in NOT_PORTED
         with pytest.raises(NotImplementedError):
             build_model(Config.from_dict({"NAME": name}), device="cpu")

@@ -99,8 +99,8 @@ def test_build_model_seeded_and_unported_names():
     a = build_model(Config.from_dict(TINY), device="cpu", seed=3).state_dict()
     b = build_model(Config.from_dict(TINY), device="cpu", seed=3).state_dict()
     assert all(torch.equal(a[k], b[k]) for k in a)
-    with pytest.raises(NotImplementedError, match="Slice E, item 15"):
-        build_model(Config.from_dict({"NAME": "MonSter"}), device="cpu")
+    with pytest.raises(NotImplementedError, match="Slice F, item 17"):
+        build_model(Config.from_dict({"NAME": "AANet"}), device="cpu")
 
 
 def test_load_pretrained_reads_reference_checkpoints(tmp_path):
