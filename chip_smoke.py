@@ -95,7 +95,7 @@ without the repository around it). Phases, each of which fails the run:
    Trainer starts at epoch 1, bit-equal to the checkpoint. Prints ms per
    step (CUDA events, median of steps 2-4), samples/s, peak memory;
 15. the learning check: the port's `tools/overfit_check.py`, LightStereo,
-   60 steps (cut from 150, then 100, for the script's time) on one batch of 4
+   40 steps (cut from 150, then 100, then 60, for the script's time) on one batch of 4
    random-dot pairs at 192x384, max_disp 64, bf16, AdamW 4e-4, clip 0.1: the
    final train EPE must be below 3 px.
 16-18. (run after phase 12) the CoEx, MSNet3D and MSNet2D paths, each at
@@ -156,7 +156,7 @@ without the repository around it). Phases, each of which fails the run:
    the steps after the first), samples/s, the backward's share, peak memory,
    device busy and idle share of both paths;
 25. STTR's learning check: the port's `tools/overfit_check.py --model STTR`,
-   60 steps (cut from 100 for the script's time) on one batch of 2
+   40 steps (cut from 100, then 60, for the script's time) on one batch of 2
    random-dot pairs at 192x384, f32, RMSprop
    1e-4 constant, clip by norm 35: the mean loss of the last 20 steps must
    fall below 0.8 of the first 5 steps'.
@@ -186,7 +186,7 @@ without the repository around it). Phases, each of which fails the run:
    against the same step in f64 on the card (`zoo_grad_check`), where a
    control that detaches the features before the volume must fail; and
    last GwcNet's learning check (`tools/overfit_check.py --model GwcNet`,
-   60 steps (cut from 200, then 100, for the script's time) at 192x384, b2, f32,
+   40 steps (cut from 200, then 100, then 60, for the script's time) at 192x384, b2, f32,
    RMSprop 1e-4, clip 35: the mean loss of the last 20 steps below 0.8 of
    the first 5 steps').
 31-34. (run after phase 30, in the same loop) training of CFNet, CasGwcNet,
@@ -211,7 +211,7 @@ without the repository around it). Phases, each of which fails the run:
    builders. Left out against phases 26-30, for the script's time: the
    TF32-off timing, MODEL.REMAT and the resume check.
 35. FADNet's learning check through Lamb (`tools/overfit_check.py --model
-   FADNet`, 60 steps (cut from 100 for the script's time) of b1 at 192x384,
+   FADNet`, 40 steps (cut from 100, then 60, for the script's time) of b1 at 192x384,
    f32, Lamb 4e-3 constant): the mean
    loss of the last 20 steps below 0.8 of the first 5 steps'.
 36. (run after phase 22) the IGEV-Stereo path (`cfgs/igev/igev_sceneflow_amp.yaml`,
@@ -252,7 +252,7 @@ without the repository around it). Phases, each of which fails the run:
    checks, K3 at their trainer evaluations' shapes ([10,96,136,240] D 48 for
    IGEV, [8,...] for IGEV-RT, [4,...] for StereoBase, [4,96,136,240] D 192
    for IGEV++, all G 8) and K2 at CoEx's trunk shapes at batch 20, 16 and 8,
-   each also timed beside its bound (`igev_family_eval_timing`); then each
+   each also timed beside its bound (`trainer_eval_timing`); then each
    SceneFlow config as written (`cfgs/igev/igev_sceneflow_amp.yaml` 320x736
    b4 with MODEL.REMAT, `cfgs/igev_rt/igev_rt_sceneflow_amp.yaml` 320x768 b1,
    `cfgs/stereobase/stereobase_sceneflow.yaml` 320x736 b2,
@@ -294,6 +294,33 @@ without the repository around it). Phases, each of which fails the run:
    algorithms, bf16 mean-abs <= 0.5 px; parameters, peak memory, frames/s
    (2 groups of 2 frames), profile of 1 frame (device busy, idle share),
    K3's device time beside its bound. No measure CLI.
+49-51. (in phases 26-34's loop, after 44) training of FoundationStereo,
+   FastFoundationStereo and MonSter (`fs_family_train_paths`): first, with
+   phases 26-34's kernel checks, K3 at their trainer evaluations' shapes:
+   FoundationStereo vits [1,128,136,240] D 48 G 8 divisor 1 (the cosine
+   volume, C/G 16: f32 bit-equal to the plain cosine builder, bf16
+   `volume_bf16_check` and its unrounded control, `cosine_k3_check`),
+   FastFoundationStereo [1,224,136,240] D 48 divisor 1, MonSter
+   [8,96,136,240] D 48 G 8, each also timed beside its bound
+   (`trainer_eval_timing`); then each SceneFlow config as written
+   (`cfgs/foundationstereo/fstereo_sceneflow.yaml` vits 320x736 b2,
+   `cfgs/fast_foundationstereo/ffstereo_sceneflow.yaml` 320x736 b2 with 12
+   iterations of one GRU scale, `cfgs/monster/monster_sceneflow.yaml` 320x736
+   b3 with its colour, erase and scale transforms, 15 IGEV and 7 mutual
+   iterations and FREEZE_BN; bf16, AdamW, OneCycleLR, clip by norm 1) through
+   `tools/train.py` for 4 steps, evaluated in one batch at its config's
+   EVALUATOR batch (1, 1, 8) at 544x960 (RightTopPad; MonSter's DivisiblePad
+   32 of the 540x960 pairs): K3 once a batch, nothing in training; kernels
+   vs eager by the rule "share_f32" (FoundationStereo's and
+   FastFoundationStereo's f32 passes at b1 under cuDNN's deterministic
+   algorithms, MonSter's at b8 through PyTorch's own convolutions); ms/step,
+   the split, peak memory, 1 profiled step; the gradient check at 128x256
+   with `FS_FAMILY_BOUNDS`, whose control, the GRU loops without their
+   detach (`carried` in each model's module), must fail it.
+52. FastFoundationStereo's learning check (`tools/overfit_check.py --model
+   FastFoundationStereo`, 40 steps of b1 at 192x384, bf16, AdamW 2e-4
+   constant, clip by norm 1, 12 GRU iterations): the mean loss of the last 20
+   steps below 0.8 of the first 5 steps'.
 
 Each phase prints its seconds on a `[phase-time]` line as it ends, and all
 of them once more before the JSON lines.
@@ -305,6 +332,7 @@ the last line is {"ok": true, "device": {...}}.
 import copy
 import importlib
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -437,6 +465,7 @@ IGEVPP_K3_SHAPE = (1, 96, 136, 240, 192, 8)
 FS_K3_SHAPE = (1, 224, 136, 240, 104, 8, 1)
 FFS_K3_SHAPE = (1, 224, 136, 240, 48, 8, 1)
 FS_MEASURE_REPS = 3  # the measure CLI's timed frames on FoundationStereo (phase 46)
+FS_SF_CFG = ROOT / "cfgs/foundationstereo/fstereo_sceneflow.yaml"
 IGEV_EVAL_BATCH, IGEV_EVAL_PAIRS, KITTI_HW = 4, 8, (375, 1242)
 IGEV_EVAL_K3_SHAPE = (IGEV_EVAL_BATCH, 96, 96, 312, 48, 8)
 IGEV_EVAL_K2_SHAPES = {
@@ -460,7 +489,8 @@ K2_EVAL_SHAPES = {(s[0] * EVAL_BATCH,) + s[1:]: n for s, n in K2_SHAPES.items()}
 # the training phase: a synthetic SceneFlow-layout set written by this script
 TRAIN_PAIRS, EVAL_PAIRS, PAIR_HW = 96, 12, (540, 960)
 TRAIN_DIR = OUT_DIR / "train_smoke"
-OVERFIT_ARGS = ["--steps", "60", "--batch", "4", "--size", "192", "384", "--max_disp", "64",
+SET_DIR = OUT_DIR / "sceneflow_set"  # `sceneflow_set`: phases 14 and 26-51 read it
+OVERFIT_ARGS = ["--steps", "40", "--batch", "4", "--size", "192", "384", "--max_disp", "64",
                 "--lr", "4e-4", "--device", "cuda"]
 
 # The bf16 K2 and K4 checks (`bf16_close_flips`): the share of output elements that
@@ -487,7 +517,7 @@ K4_TRAIN_SHAPES = {
 STTR_TRAIN_PAIRS, STTR_EVAL_PAIRS, STTR_PAIR_MAX_DISP = 8, 4, 192
 STTR_TRAIN_DIR = OUT_DIR / "sttr_train_smoke"
 STTR_GRAD_RUNS = 12  # f32 steps of each path in phase 24's gradient check
-STTR_OVERFIT_ARGS = ["--model", "STTR", "--steps", "60", "--batch", "2", "--size", "192", "384",
+STTR_OVERFIT_ARGS = ["--model", "STTR", "--steps", "40", "--batch", "2", "--size", "192", "384",
                      "--max_disp", "64", "--lr", "1e-4", "--device", "cuda"]
 
 # Training of GwcNet, PSMNet, CoEx, MSNet3D and MSNet2D (phases 26-30): each SceneFlow config
@@ -519,20 +549,45 @@ IGEV_FAMILY_BOUNDS = {"IGEV": 0.39, "IGEV-RT": 0.01, "StereoBase": 0.05, "IGEV++
 IGEV_FAMILY_BF16_MEAN_ABS = 0.31
 IGEV_OVERFIT_ARGS = ["--model", "IGEV", "--steps", "40", "--batch", "2", "--size", "192", "384",
                      "--max_disp", "64", "--lr", "2e-4", "--device", "cuda"]
-ZOO_OVERFIT_ARGS = ["--model", "GwcNet", "--steps", "60", "--batch", "2", "--size", "192", "384",
+ZOO_OVERFIT_ARGS = ["--model", "GwcNet", "--steps", "40", "--batch", "2", "--size", "192", "384",
                     "--max_disp", "64", "--lr", "1e-4", "--device", "cuda"]
 # Training of CFNet, CasGwcNet, CasPSMNet and FADNet (phases 31-35): each main SceneFlow config
 # as written through `tools/train.py` for 4 steps, the trainer's evaluation at the config's own
 # EVALUATOR.BATCH_SIZE_PER_GPU and pad (CFNet 2 pairs at b1, 576x960; the cascades and FADNet
-# 10 pairs at b10, 544x960 and 576x960). The set holds ZOO_TRAIN_PAIRS + ZOO_CFG_EVAL_PAIRS
-# pairs; phases 26-30 evaluate the first ZOO_EVAL_PAIRS of the evaluation pairs
+# 10 pairs at b10, 544x960 and 576x960). They read the first ZOO_TRAIN_PAIRS + ZOO_CFG_EVAL_PAIRS
+# pairs of `sceneflow_set`; phases 26-30 evaluate the first ZOO_EVAL_PAIRS of the evaluation pairs
 ZOO_CFG_EVAL_PAIRS = 10
 # K1 at the configs' evaluation batch of 10: FADNet's [10,128,72,120] D 40 (phase 34) and
 # CoEx's [10,48,136,240] D 48 (its config's batch; phase 28 evaluates at 2), each checked and
 # timed in the dtype its trainer's evaluation runs (FADNet f32, CoEx bf16)
 K1_EVAL10_SHAPES = {(10,) + FADNET_K1_SHAPE[1:]: "f32", (10,) + COEX_K1_SHAPE[1:]: "bf16"}
-FADNET_OVERFIT_ARGS = ["--model", "FADNet", "--steps", "60", "--batch", "1", "--size", "192",
+FADNET_OVERFIT_ARGS = ["--model", "FADNet", "--steps", "40", "--batch", "1", "--size", "192",
                        "384", "--max_disp", "64", "--lr", "4e-3", "--device", "cuda"]
+# Training of FoundationStereo, FastFoundationStereo and MonSter (phases 49-51, in phases 26-34's
+# loop): each SceneFlow config as written through `tools/train.py` for 4 steps, the trainer's
+# evaluation of one batch at the config's EVALUATOR.BATCH_SIZE_PER_GPU (1, 1, 8) at 544x960,
+# through K3 once a batch: FoundationStereo's vits cosine volume (C 96 + 32, G 8, C/G 16, D
+# 192/4, divisor 1), FastFoundationStereo's of phase 47, MonSter's at IGEV's width at b8
+FS_FAMILY_EVAL_BATCH = {"FoundationStereo": 1, "FastFoundationStereo": 1, "MonSter": 8}
+FS_VITS_K3_SHAPE = (1, 128, 136, 240, 48, 8, 1)
+MONSTER_EVAL_K3_SHAPE = (8,) + IGEV_K3_SHAPE[1:]
+# their gradient bounds, relative to each tensor's largest magnitude: twice the worst f32 error
+# of 3 runs on the card relative to its tensor (`fs_family_train_paths` says what they hold)
+FS_FAMILY_BOUNDS = {"FoundationStereo": 0.33, "FastFoundationStereo": 0.54, "MonSter": 0.05}
+FFS_OVERFIT_ARGS = ["--model", "FastFoundationStereo", "--steps", "40", "--batch", "1", "--size",
+                    "192", "384", "--max_disp", "64", "--lr", "2e-4", "--device", "cuda"]
+# the learning checks that launch no kernel of the port (phase label, model, arguments of
+# `tools/overfit_check.py`): they run in worker processes beside the kernels' build (phase 2),
+# which leaves the card idle (`start_beside_build`); STTR's (phase 25) trains through K4 and
+# runs after the build
+OVERFITS = [("15 LightStereo overfit", "LightStereo", OVERFIT_ARGS),
+            ("30 GwcNet overfit", "GwcNet", ZOO_OVERFIT_ARGS),
+            ("35 FADNet overfit (Lamb)", "FADNet", FADNET_OVERFIT_ARGS),
+            ("45 IGEV overfit", "IGEV", IGEV_OVERFIT_ARGS),
+            ("52 FastFoundationStereo overfit", "FastFoundationStereo", FFS_OVERFIT_ARGS)]
+# the worker processes that run the gradient checks of phases 26-51 (`zoo_grad_check`, no kernel
+# either) beside the build, each a third of the paths
+GRAD_WORKERS = 3
 
 
 # dense peaks: (memory bytes/s, bf16 tensor flop/s, f32 flop/s outside the tensor
@@ -1703,7 +1758,10 @@ def phase_model(dev, name, cfg_file, want, rule):
               f"{name} bf16 disparity not finite {list(size)}")
     mean16 = max(float(np.abs(a - b).mean()) for a, b in zip(wired, eager))
 
-    model32 = build_model(cfg.MODEL, dtype=torch.float32, device=dev, seed=0)
+    # the same weights in f32 compute: the parameters are f32 in either dtype, and building
+    # FoundationStereo's 372M of them again took ~10 s of the host
+    model32 = copy.deepcopy(model)
+    model32.dtype = torch.float32
     max32, share32, eager32 = 0.0, 1.0, []
     # the "share" rule's models (CFNet's floored sample grids, IGEV's 32 GRU iterations) carry a
     # rounding far: both paths run cuDNN's deterministic algorithms, so that two eager runs are
@@ -1816,49 +1874,106 @@ def phase_eval_batch(dev):
     return k1, (worst32, worst16), splits_by_shape
 
 
+WRITERS = []  # the process pool of `write_pairs` (`start_writers`); `main` stops it
+
+
+def warm_writer(_):
+    """What a writer of `write_pairs` imports (`start_writers`)."""
+    import PIL.Image  # noqa: F401
+
+    import openstereo_tpu_torch.data.readers  # noqa: F401
+    import openstereo_tpu_torch.tools.overfit_check  # noqa: F401
+
+
+def start_writers():
+    """Starts the 8 worker processes of `write_pairs` (spawned: this process
+    holds the card) and their imports, without waiting for them: the first
+    set then finds them ready (their start took ~8 s of phase 37's time)."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    pool = ProcessPoolExecutor(8, mp_context=multiprocessing.get_context("spawn"))
+    WRITERS.append(pool)
+    for i in range(8):
+        pool.submit(warm_writer, i)
+
+
+def write_pairs(one, indices):
+    """`one(i)` for each of `indices` in the 8 worker processes of
+    `start_writers` (the stereogram's row loop holds the interpreter lock,
+    which made 8 threads little faster than one): their results, in order."""
+    if not WRITERS:
+        start_writers()
+    return list(WRITERS[0].map(one, indices))
+
+
+def save_png(img, path):
+    """An image as PNG at zlib level 1 (random dots barely compress; level 6
+    took most of a pair's writing time)."""
+    from PIL import Image
+
+    Image.fromarray(img).save(path, compress_level=1)
+
+
+def stereo_pair(root, hw, max_disp, i):
+    """Random-dot stereogram `i` (`write_stereo_set`)."""
+    from openstereo_tpu_torch.data.readers import write_pfm
+    from openstereo_tpu_torch.tools.overfit_check import make_stereogram
+
+    left, right, disp = make_stereogram(np.random.RandomState(i), *hw, max_disp)
+    for sub, img in (("left", left), ("right", right)):
+        save_png(np.clip(np.round(img), 0, 255).astype(np.uint8), root / sub / f"{i:04d}.png")
+    write_pfm(str(root / "left" / f"{i:04d}.pfm"), disp)
+    return f"left/{i:04d}.png right/{i:04d}.png left/{i:04d}.pfm"
+
+
 def write_stereo_set(root, n, first, hw, max_disp):
     """`n` random-dot stereograms (the port's `make_stereogram`, seeds
     first..first+n-1) in the SceneFlow layout: left/, right/ PNG and left/
     PFM disparities; returns the split lines."""
-    from concurrent.futures import ThreadPoolExecutor
-
-    from PIL import Image
-
-    from openstereo_tpu_torch.data.readers import write_pfm
-    from openstereo_tpu_torch.tools.overfit_check import make_stereogram
+    import functools
 
     for sub in ("left", "right"):
         (root / sub).mkdir(parents=True, exist_ok=True)
+    return write_pairs(functools.partial(stereo_pair, root, hw, max_disp),
+                       range(first, first + n))
 
-    def one(i):
-        left, right, disp = make_stereogram(np.random.RandomState(i), *hw, max_disp)
-        for sub, img in (("left", left), ("right", right)):
-            Image.fromarray(np.clip(np.round(img), 0, 255).astype(np.uint8)).save(
-                root / sub / f"{i:04d}.png")
-        write_pfm(str(root / "left" / f"{i:04d}.pfm"), disp)
-        return f"left/{i:04d}.png right/{i:04d}.png left/{i:04d}.pfm"
 
-    with ThreadPoolExecutor(8) as pool:
-        return list(pool.map(one, range(first, first + n)))
+SET_LINES = []  # the split lines of `sceneflow_set`, once written
+
+
+def sceneflow_set():
+    """The random-dot SceneFlow-layout set of phases 14 and 26-51 under
+    `chiprun_out/`, written the first time (TRAIN_PAIRS + EVAL_PAIRS pairs at
+    PAIR_HW, max_disp 192, seeds from 0; `main` deletes it): (root, its split
+    lines)."""
+    import shutil
+
+    root = SET_DIR / "SceneFlow"
+    if not SET_LINES:
+        shutil.rmtree(SET_DIR, ignore_errors=True)
+        t0 = time.perf_counter()
+        SET_LINES.extend(write_stereo_set(root, TRAIN_PAIRS + EVAL_PAIRS, 0, PAIR_HW, 192))
+        print(f"[sceneflow-set] wrote {len(SET_LINES)} random-dot pairs at {PAIR_HW[0]}x"
+              f"{PAIR_HW[1]} (PNG, PFM) in {time.perf_counter() - t0:.1f} s")
+    return root, list(SET_LINES)
 
 
 def phase_train(dev):
-    """`run_training` on a data set written for it under `chiprun_out/`,
-    which is deleted afterwards with the run's checkpoints (the run's log,
-    metrics and config stay)."""
+    """`run_training` on `sceneflow_set`; the run's checkpoints are deleted
+    afterwards (its log, metrics and config stay)."""
     import shutil
 
     shutil.rmtree(TRAIN_DIR, ignore_errors=True)
-    data_root = TRAIN_DIR / "SceneFlow"
+    TRAIN_DIR.mkdir(parents=True)
     try:
-        return run_training(dev, data_root)
+        return run_training(dev, *sceneflow_set())
     finally:
-        shutil.rmtree(data_root, ignore_errors=True)
         for ckpt in TRAIN_DIR.glob("runs/**/ckpt"):
             shutil.rmtree(ckpt, ignore_errors=True)
 
 
-def run_training(dev, data_root):
+def run_training(dev, data_root, lines):
     """The port's training entry point (`tools/train.py`) on the LightStereo-S
     SceneFlow config at full width: crop 320x736, batch 24, AMP bf16, AdamW
     2.4e-3, OneCycleLR, clip by value 0.1. Cuts: NUM_EPOCHS 1 (4 steps) and
@@ -1874,13 +1989,10 @@ def run_training(dev, data_root):
     from openstereo_tpu_torch.runtime import Trainer
     from openstereo_tpu_torch.tools import train
 
-    t0 = time.perf_counter()
     split = {}
-    for mode, n, first in (("train", TRAIN_PAIRS, 0), ("test", EVAL_PAIRS, TRAIN_PAIRS)):
+    for mode, part in (("train", lines[:TRAIN_PAIRS]), ("test", lines[TRAIN_PAIRS:])):
         split[mode] = TRAIN_DIR / f"sceneflow_{mode}.txt"
-        split[mode].write_text("\n".join(write_stereo_set(data_root, n, first, PAIR_HW, 192)))
-    print(f"[train] wrote {TRAIN_PAIRS} + {EVAL_PAIRS} random-dot pairs at {PAIR_HW[0]}x"
-          f"{PAIR_HW[1]} (PNG, PFM) in {time.perf_counter() - t0:.1f} s")
+        split[mode].write_text("\n".join(part))
 
     cfg = yaml.safe_load(CFG_FILE.read_text())
     info = cfg["DATA_CONFIG"]["DATA_INFOS"][0]
@@ -1963,38 +2075,39 @@ def run_training(dev, data_root):
             "eval_batches": n_eval, "profile": prof}
 
 
-def profile_train_steps(trainer, untraced_ms, steps=1, label="b24 320x736 bf16",
+def profile_train_steps(trainer, untraced_ms, batch=None, steps=1, label="b24 320x736 bf16",
                         table=TRAIN_DIR / "profile_train_step.txt"):
-    """torch.profiler over `steps` train steps of `trainer` on one batch of its
-    loader, the device's activity only: device busy ms per step (the kernel
-    rows summed; one stream), its idle share against `untraced_ms` per step,
-    and the top kernels (the table in `table`)."""
+    """torch.profiler over `steps` train steps of `trainer` on `batch`, the
+    device's activity only: device busy ms per step (the kernel rows summed;
+    one stream), its idle share against `untraced_ms` per step, and the top
+    kernels (the 40 largest rows in `table`). Without `batch`, one batch of
+    its loader and a warm-up step outside the trace; a caller that passes
+    `batch` has just run steps on it."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from openstereo_tpu_torch.data.loader import batch_to_device
+    from openstereo_tpu_torch.tools.bench import device_rows, write_rows
 
-    batches = trainer.train_loader.epoch(1)
-    batch = batch_to_device(next(batches), trainer.device)
-    batches.close()
-    trainer.train_step(batch)  # warm-up outside the trace
+    if batch is None:
+        batches = trainer.train_loader.epoch(1)
+        batch = batch_to_device(next(batches), trainer.device)
+        batches.close()
+        trainer.train_step(batch)  # warm-up outside the trace
     torch.cuda.synchronize()
-    # the device's activity only: tracing the host's too and averaging its events takes longer
-    # than the step itself at ~20,000 launches a step, for the same device busy time
+    # the device's activity only: tracing the host's too takes longer than the step itself at
+    # ~20,000 launches a step, for the same device busy time
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
             trainer.train_step(batch)
         torch.cuda.synchronize()
         traced = 1e3 * (time.perf_counter() - t0) / steps
-    averages = prof.key_averages()  # computed once: it takes seconds for ~10^4 launches a step
-    events = [e for e in averages if e.device_type == DeviceType.CUDA]
-    events.sort(key=lambda e: -e.self_device_time_total)
-    busy = sum(e.self_device_time_total for e in events) / 1e3 / steps
-    table.write_text(averages.table(sort_by="self_device_time_total", row_limit=40))
-    top = [{"kernel": e.key[:90], "ms_per_step": e.self_device_time_total / 1e3 / steps,
-            "calls_per_step": e.count / steps} for e in events[:10]]
+    rows = device_rows(prof)
+    busy = sum(ms for _, _, ms in rows) / steps
+    write_rows(rows, str(table), steps, "step")
+    top = [{"kernel": k[:90], "ms_per_step": ms / steps, "calls_per_step": n / steps}
+           for k, n, ms in rows[:10]]
     idle = 1.0 - busy / untraced_ms
     print(f"[profile] train step ({label}): device busy {busy:.2f} ms/step, idle share "
           f"{idle:.4f} (against {untraced_ms:.2f} ms/step untraced; {1.0 - busy / traced:.4f} "
@@ -2005,19 +2118,109 @@ def profile_train_steps(trainer, untraced_ms, steps=1, label="b24 320x736 bf16",
             "idle_share_traced": 1.0 - busy / traced, "top": top}
 
 
-def phase_overfit():
-    """The port's learning check: LightStereo, 60 steps, 192x384, batch 4,
-    max_disp 64, bf16, AdamW 4e-4, clip 0.1; the final train EPE must be
-    below 3 px (the JAX tool's CONVERGED line)."""
+def in_worker(fn, *args):
+    """`fn(*args)` in a worker process of `start_beside_build`, with this
+    script's f32 settings (TF32 off) and one host thread (eight workers share
+    the host's cores with the build): (its result, or None and the check it
+    failed, the lines it printed, its seconds)."""
+    import contextlib
+    import io
+
+    import torch
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_num_threads(1)
+    log, res, failure = io.StringIO(), None, None
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        try:
+            res = fn(*args)
+        except SmokeFailure as e:
+            failure = str(e)
+    return res, failure, log.getvalue(), time.perf_counter() - t0
+
+
+def overfit_run(args):
+    """`tools/overfit_check.py` with `args`: its result, with the port's kernel
+    launches it made."""
+    from openstereo_tpu_torch.ops import kernels
     from openstereo_tpu_torch.tools import overfit_check
 
-    t0 = time.perf_counter()
-    res = overfit_check.main(OVERFIT_ARGS)
-    took = time.perf_counter() - t0
-    traj = [(s, round(l, 4), round(e, 3)) for s, l, e in res["trajectory"]]
-    print(f"[overfit] trajectory (step, loss, train EPE px): {traj}; {took:.1f} s")
-    check(res["final_epe"] < 3.0, f"overfit check: final train EPE {res['final_epe']} px >= 3.0")
+    res = overfit_check.main(args)
+    res["launches"] = dict(kernels.launch_counts)
     return res
+
+
+def grad_checks(names):
+    """`zoo_grad_check` of the paths of `zoo_train_paths` named `names`, by name."""
+    import torch
+
+    paths = {p.name: p for p in zoo_train_paths()}
+    return {name: zoo_grad_check(torch.device("cuda"), paths[name]) for name in names}
+
+
+def start_beside_build():
+    """Starts the checks that launch no kernel of the port, without waiting
+    for them: the learning checks of OVERFITS, one spawned worker process
+    each (this process holds the card), and the gradient checks of
+    `zoo_train_paths` in GRAD_WORKERS more. Returns the pool and their
+    futures."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    names = [p.name for p in zoo_train_paths()]
+    pool = ProcessPoolExecutor(len(OVERFITS) + GRAD_WORKERS,
+                               mp_context=multiprocessing.get_context("spawn"))
+    return pool, ([pool.submit(in_worker, overfit_run, args) for _, _, args in OVERFITS],
+                  [pool.submit(in_worker, grad_checks, names[i::GRAD_WORKERS])
+                   for i in range(GRAD_WORKERS)])
+
+
+def phase_beside_build(futures):
+    """The results of `start_beside_build`. The learning checks of OVERFITS,
+    each reported as its phase: the lines it printed, no kernel launched and
+    its rule. LightStereo (phase 15: 40 steps, 192x384, batch 4, max_disp
+    64, bf16, AdamW 4e-4, clip by value 0.1): the final train EPE below 3 px
+    (the JAX tool's CONVERGED line). The others, the mean loss of the last 20
+    steps below 0.8 of the first 5 steps': GwcNet (phase 30: 40 steps on one
+    batch of 2 at 192x384, max_disp 64, f32, RMSprop 1e-4 constant, clip by
+    norm 35), FADNet (phase 35: 40 steps of b1, f32, Lamb 4e-3 constant, no
+    clip), IGEV (phase 45: 40 steps of b2, bf16, AdamW 2e-4 constant, clip by
+    norm 35, 22 GRU iterations) and FastFoundationStereo (phase 52: 40 steps
+    of b1, bf16, AdamW 2e-4 constant, clip by norm 1, 12 GRU iterations).
+    Then the gradient checks' lines and checks. Returns (the learning
+    checks' results by model, the gradient checks' by path)."""
+    learned, grads = {}, {}
+    for (label, name, _), fut in zip(OVERFITS, futures[0]):
+        res, failure, log, took = fut.result()
+        sys.stdout.write(log)
+        check(failure is None, failure)
+        traj = [(s, round(l, 4), round(e, 3)) for s, l, e in res["trajectory"]]
+        print(f"[overfit] {name} trajectory (step, loss, train EPE px): {traj}; final train EPE "
+              f"{res['final_epe']:.3f} px, loss ratio (last 20 / first 5) "
+              f"{res['loss_ratio']:.4f} (tol {'EPE < 3 px' if name == 'LightStereo' else '< 0.8'})"
+              f"; kernel launches {res['launches']}; {took:.1f} s")
+        check(sum(res["launches"].values()) == 0,
+              f"{name} overfit check launched kernels: {res['launches']}")
+        if name == "LightStereo":
+            check(res["final_epe"] < 3.0,
+                  f"overfit check: final train EPE {res['final_epe']} px >= 3.0")
+        else:
+            check(res["loss_ratio"] < 0.8,
+                  f"{name} overfit check: loss ratio {res['loss_ratio']} >= 0.8")
+        res["seconds"] = PHASE_SECONDS[f"{label}, beside the build"] = took
+        print(f"[phase-time] {label}: {took:.1f} s (beside the build)")
+        learned[name] = res
+    for i, fut in enumerate(futures[1]):
+        res, failure, log, took = fut.result()
+        sys.stdout.write(log)
+        check(failure is None, failure)
+        PHASE_SECONDS[f"26-51 gradient checks {i + 1}/{GRAD_WORKERS}, beside the build"] = took
+        print(f"[phase-time] 26-51 gradient checks of {', '.join(res)}: {took:.1f} s (beside the "
+              f"build)")
+        grads.update(res)
+    return learned, grads
 
 
 def bound_f32(nbytes, flops, card):
@@ -2209,36 +2412,37 @@ def occlusions_from_disparity(disp):
     return right, occ_left, occ_right
 
 
+THINGS_SUBS = ("left", "right", "disparity", "disparity_right", "occlusion", "occlusion_right")
+
+
+def things_pair(root, hw, max_disp, i):
+    """Random-dot stereogram `i` in the FlyingThings3D-subset layout (`write_things_set`)."""
+    from openstereo_tpu_torch.data.readers import write_pfm
+    from openstereo_tpu_torch.tools.overfit_check import make_stereogram
+
+    left, right, disp = make_stereogram(np.random.RandomState(i), *hw, max_disp)
+    disp_right, occ, occ_right = occlusions_from_disparity(disp)
+    paths = [f"{sub}/{i:04d}.{'pfm' if sub.startswith('disp') else 'png'}" for sub in THINGS_SUBS]
+    for path, img in zip(paths[:2], (left, right)):
+        save_png(np.clip(np.round(img), 0, 255).astype(np.uint8), root / path)
+    write_pfm(str(root / paths[2]), disp)
+    write_pfm(str(root / paths[3]), disp_right)
+    for path, mask in zip(paths[4:], (occ, occ_right)):
+        save_png(mask.astype(np.uint8) * 255, root / path)
+    return " ".join(paths)
+
+
 def write_things_set(root, n, first, hw, max_disp):
     """`n` random-dot stereograms in the FlyingThings3D-subset layout that
     `FlyingThings3DSubsetDataset` reads: left/, right/ PNG, disparity/ and
     disparity_right/ PFM, occlusion/ and occlusion_right/ PNG (255 where
     occluded); returns the split lines."""
-    from concurrent.futures import ThreadPoolExecutor
+    import functools
 
-    from PIL import Image
-
-    from openstereo_tpu_torch.data.readers import write_pfm
-    from openstereo_tpu_torch.tools.overfit_check import make_stereogram
-
-    subs = ("left", "right", "disparity", "disparity_right", "occlusion", "occlusion_right")
-    for sub in subs:
+    for sub in THINGS_SUBS:
         (root / sub).mkdir(parents=True, exist_ok=True)
-
-    def one(i):
-        left, right, disp = make_stereogram(np.random.RandomState(i), *hw, max_disp)
-        disp_right, occ, occ_right = occlusions_from_disparity(disp)
-        paths = [f"{sub}/{i:04d}.{'pfm' if sub.startswith('disp') else 'png'}" for sub in subs]
-        for path, img in zip(paths[:2], (left, right)):
-            Image.fromarray(np.clip(np.round(img), 0, 255).astype(np.uint8)).save(root / path)
-        write_pfm(str(root / paths[2]), disp)
-        write_pfm(str(root / paths[3]), disp_right)
-        for path, mask in zip(paths[4:], (occ, occ_right)):
-            Image.fromarray(mask.astype(np.uint8) * 255).save(root / path)
-        return " ".join(paths)
-
-    with ThreadPoolExecutor(8) as pool:
-        return list(pool.map(one, range(first, first + n)))
+    return write_pairs(functools.partial(things_pair, root, hw, max_disp),
+                       range(first, first + n))
 
 
 def phase_sttr_train(dev, card, k4_train):
@@ -2552,7 +2756,8 @@ def run_sttr_training(dev, card, data_root, k4_train):
         times, peak = timed_train_steps(again, batch)
         ms = float(np.median([t[0] for t in times[1:]]))
         fwd, bwd, optim = (float(np.median([t[i] for t in times[1:]])) for i in (1, 2, 3))
-        prof = profile_train_steps(again, ms, label=f"STTR b1 360x640 f32, {path}",
+        prof = profile_train_steps(again, ms, batch,
+                                   label=f"STTR b1 360x640 f32, {path}",
                                    table=STTR_TRAIN_DIR / f"profile_train_step_{path}.txt")
         paths_res[path] = {"ms_per_step": ms, "samples_per_s": 1e3 / ms, "step_ms": times,
                            "forward_ms": fwd, "backward_ms": bwd, "optimizer_ms": optim,
@@ -2581,7 +2786,7 @@ def run_sttr_training(dev, card, data_root, k4_train):
 
 
 def phase_sttr_overfit():
-    """The learning check of STTR: the port's `tools/overfit_check.py`, 60
+    """The learning check of STTR: the port's `tools/overfit_check.py`, 40
     steps on one batch of 2 random-dot pairs at 192x384, f32, RMSprop 1e-4
     constant, clip by norm 35; the mean loss of the last 20 steps must fall
     below 0.8 of the first 5 steps'."""
@@ -2762,6 +2967,7 @@ def zoo_train_paths():
                 None, [("fadnet.fadnet", "correlation_volume")], False, ZOO_NEW_BOUNDS["FADNet"],
                 None, ZOO_CFG_EVAL_PAIRS, False),
         *igev_family_train_paths(),
+        *fs_family_train_paths(),
     ]
 
 
@@ -2801,6 +3007,46 @@ def igev_family_train_paths():
                              IGEV_FAMILY_BOUNDS[name], None, b, False, "share_f32",
                              (128, 768) if name == "IGEV++" else ZOO_GRAD_HW, undetached))
     return paths
+
+
+def fs_family_train_paths():
+    """Phases 49-51: FoundationStereo, FastFoundationStereo and MonSter, as
+    `ZooPath`s. Each SceneFlow config as written (crop 320x736, batch 2, 2
+    and 3, bf16, AdamW, OneCycleLR, clip by norm 1; FoundationStereo vits
+    with its frozen ViT and 22 GRU iterations, FastFoundationStereo 12 of one
+    scale, MonSter 15 + 7 mutual with FREEZE_BN), evaluated in one batch at
+    its config's EVALUATOR batch (1, 1, 8) at 544x960: K3 once a batch
+    (`FS_VITS_K3_SHAPE`, `FFS_K3_SHAPE`, `MONSTER_EVAL_K3_SHAPE`), nothing
+    else; kernels vs eager by "share_f32", the f32 passes at b1 through cuDNN
+    (deterministic) and MonSter's at b8 through PyTorch's own convolutions;
+    no TF32-off timing, MODEL.REMAT or resume check (the script's time). The
+    gradient check's control is the GRU loops without their detach: each
+    model's module binds its own `carried` by import, so the control makes
+    the identity of `foundationstereo.foundationstereo.carried` (both
+    FoundationStereo models) or `monster.monster.carried` (MonSter's IGEV
+    and mutual iterations). The bounds (`FS_FAMILY_BOUNDS`) are twice the
+    worst f32 error of 3 runs on the card relative to its tensor's largest
+    magnitude, over the tensors above 1e-4 of the model's largest gradient,
+    rounded up to the next 0.01, against an f64 step that runs every
+    submodule in f64: FoundationStereo 2 x 0.164 (`cost_agg.agg_0.2`, the
+    hourglass's scale-invariant convs before training BatchNorms; 0.159 and
+    0.156 in the other runs), FastFoundationStereo 2 x 0.266
+    (`cost_agg.conv3_up`; 0.265 and 0.258), MonSter 2 x 0.0223
+    (`cost_agg.agg_0.1`; 0.0079 and 0.0213; the floor alone covers every
+    error). That is at least the rel at which each of those tensors' bound,
+    floor included, holds twice its error ("for twice each error": 0.241,
+    0.509, 0). The control leaves 40.5, 11 and 28.5 of a tensor's largest
+    magnitude beyond the floor (the update blocks, the context heads)."""
+    out = []
+    for name, cfg, shape, module in (
+            ("FoundationStereo", FS_SF_CFG, FS_VITS_K3_SHAPE, "foundationstereo"),
+            ("FastFoundationStereo", FFS_CFG, FFS_K3_SHAPE, "foundationstereo"),
+            ("MonSter", MONSTER_CFG, MONSTER_EVAL_K3_SHAPE, "monster")):
+        b = FS_FAMILY_EVAL_BATCH[name]
+        out.append(ZooPath(name, cfg, {"gwc_volume": {shape: 1}}, None,
+                           [(f"{module}.{module}", "carried")], False, FS_FAMILY_BOUNDS[name],
+                           None, b, False, "share_f32", ZOO_GRAD_HW, undetached))
+    return out
 
 
 def check_volume_kernel(dev, kernel, shape, g, tag):
@@ -2873,13 +3119,15 @@ def check_k2_shapes(dev, shapes, g, tag):
 
 def phase_zoo_kernels(dev, card, paths):
     """K1, K2 and K3 at the shapes that the trainer's evaluations of `paths`
-    (phases 26-34 and 41-44) launch them at (phases 26-30: batch 2 at
+    (phases 26-34, 41-44 and 49-51) launch them at (phases 26-30: batch 2 at
     544x960, K2 at 4 in the siamese trunks; CFNet's K3 at batch 1; FADNet's
     K1 at 10; the IGEV family's K3 at its configs' batches 10, 8, 4 and 4, K2
-    at twice those in the trunk), and K1 at CoEx's config's evaluation batch
-    of 10: the checks of phases 3, 4 and 9; then K1 at both batch-10 shapes
-    timed (`k1_eval_timing`) and K3 and K2 at the IGEV family's shapes
-    (`igev_family_eval_timing`)."""
+    at twice those in the trunk; FoundationStereo's and
+    FastFoundationStereo's cosine K3 at b1, MonSter's K3 at b8), and K1 at
+    CoEx's config's evaluation batch of 10: the checks of phases 3, 4 and 9
+    (`cosine_k3_check` where K3 takes divisor 1); then K1 at both batch-10
+    shapes timed (`k1_eval_timing`) and K3 and K2 at the IGEV family's and
+    phases 49-51's shapes (`trainer_eval_timing`)."""
     import torch
 
     g = torch.Generator().manual_seed(10)
@@ -2889,32 +3137,39 @@ def phase_zoo_kernels(dev, card, paths):
             want[kernel].update(shapes)
     k1 = {s: check_volume_kernel(dev, "corr_volume", s, g, "[zoo-eval] K1")
           for s in sorted(want["corr_volume"])}
-    k3 = {s: check_volume_kernel(dev, "gwc_volume", s, g, "[zoo-eval] K3")
+    # a shape with K3's divisor (the cosine volumes) is checked on group-normalised features
+    # against the plain cosine builder, with the unrounded control
+    k3 = {s: cosine_k3_check(dev, s, g, "[zoo-eval] K3 cosine") if len(s) > 6
+          else check_volume_kernel(dev, "gwc_volume", s, g, "[zoo-eval] K3")
           for s in sorted(want["gwc_volume"])}
     k2 = check_k2_shapes(dev, sorted(want["fused_mbconv"], reverse=True), g, "[zoo-eval]")
     print(f"[zoo-eval] K2 launcher split counts: {k2[2]}")
     k1_eval10 = [dict(k1_eval_timing(dev, s, dt, card, g), **dict(zip(VOLUME_ERR_KEYS, k1[s])))
                  for s, dt in K1_EVAL10_SHAPES.items()]
     return {"corr_volume": k1, "gwc_volume": k3, "fused_mbconv": k2, "k1_eval10": k1_eval10,
-            "igev_family": igev_family_eval_timing(dev, card, g, paths)}
+            "trainer_eval": trainer_eval_timing(dev, card, g, paths)}
 
 
-def igev_family_eval_timing(dev, card, g, paths):
+def trainer_eval_timing(dev, card, g, paths):
     """K3 and K2 timed beside their bounds (bf16, `k3_timing`, `k2_timing`) at
-    each shape the IGEV family's trainer evaluations launch them at (phases
-    41-44): K3 per model, K2 per batch of the siamese trunk (IGEV-RT's 16,
-    IGEV's 20, StereoBase's and IGEV++'s 8, timed once); each record per
-    evaluation batch, with the models that launch it."""
+    each shape the IGEV family's and phases 49-51's trainer evaluations
+    launch them at (phases 41-44, 49-51): K3 per model, K2 per batch of the
+    siamese trunk (IGEV-RT's 16, IGEV's 20, StereoBase's and IGEV++'s 8,
+    timed once; phases 49-51 launch none); each record per evaluation batch,
+    with the models that launch it."""
     import torch
 
+    batches = {**IGEV_FAMILY_EVAL_BATCH, **FS_FAMILY_EVAL_BATCH}
     out = {"gwc_volume": {}, "fused_mbconv": {}}
     for path in paths:
-        if path.name not in IGEV_FAMILY_EVAL_BATCH:
+        if path.name not in batches:
             continue
-        b = IGEV_FAMILY_EVAL_BATCH[path.name]
+        b = batches[path.name]
         out["gwc_volume"][path.name] = dict(
             k3_timing(dev, path.want["gwc_volume"], card, g,
                       tag=f"K3 ({path.name} evaluation, b{b})"), batch=b)
+        if "fused_mbconv" not in path.want:
+            continue
         key = f"b{2 * b} trunk"
         if key not in out["fused_mbconv"]:
             out["fused_mbconv"][key] = dict(
@@ -2957,16 +3212,16 @@ def zoo_eval(trainer, use_kernels, dtype=None, hook_module=None, deterministic=T
     """The trainer's evaluation set through its model in eval under
     `torch.inference_mode()` and, with `deterministic`, cuDNN's deterministic
     algorithms (without `cudnn`, PyTorch's own convolutions), with kernels or
-    eager, in the model's compute dtype or `dtype`: the disparities [N,H,W]
-    (f32) and, with `hook_module`, that module's outputs."""
+    eager, in the model's compute dtype or `dtype`: the disparities [N,H,W] (f32) and, with
+    `hook_module`, that module's outputs."""
     import torch
 
     from openstereo_tpu_torch.data.loader import batch_to_device
     from openstereo_tpu_torch.models import set_kernels
 
     model = trainer.model
-    saved = model.dtype, torch.backends.cudnn.deterministic, torch.backends.cudnn.enabled
-    model.dtype = dtype or saved[0]
+    saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.enabled
+    saved_dtype, model.dtype = model.dtype, dtype or model.dtype
     set_kernels(model.eval(), use_kernels)
     # cuDNN's deterministic algorithms: under its default choice two eager runs of the
     # same weights differ by rounding, which CFNet's floored sample grids turn into
@@ -2983,7 +3238,8 @@ def zoo_eval(trainer, use_kernels, dtype=None, hook_module=None, deterministic=T
     finally:
         if hook is not None:
             hook.remove()
-        model.dtype, torch.backends.cudnn.deterministic, torch.backends.cudnn.enabled = saved
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.enabled = saved
+        model.dtype = saved_dtype
         set_kernels(model, True)
     return torch.cat(disps), outs
 
@@ -2997,8 +3253,9 @@ def zoo_eval_agreement(name, trainer, topk_input, rule="max_abs"):
     grids are floors), f32 >= 99.9 % of the pixels within 5e-3 px; "share_f32"
     (the IGEV family, trained and evaluated in bf16: the GRU iterations carry
     a one-ulp difference forward) the same share with both paths run again in
-    f32 (TF32 off) at the same batch, and the bf16 paths' mean-abs <=
-    IGEV_FAMILY_BF16_MEAN_ABS; "finite"
+    f32 (TF32 off) at the same batch (through PyTorch's own convolutions, at
+    batch 1 cuDNN's deterministic algorithms), and the bf16 paths'
+    mean-abs <= IGEV_FAMILY_BF16_MEAN_ABS; "finite"
     (the cascades: no kernel on the path) nothing more; for CoEx (`topk_input`:
     bf16, a top-k head) the f32 share within 5e-3 px >= 0.999, and in bf16 the
     cost feeding the top-k head within 2^-7 of its largest magnitude on
@@ -3020,17 +3277,20 @@ def zoo_eval_agreement(name, trainer, topk_input, rule="max_abs"):
     if rule == "share_f32":
         # f32 through PyTorch's own convolutions: at the configs' batches cuDNN's heuristics pick
         # FFT-tiled f32 convolutions (TF32 off), millions of small complex GEMMs and 32-125 s a
-        # pass; without cuDNN a pass takes 0.4-3.4 s
+        # pass; without cuDNN a pass takes 0.4-3.4 s. At batch 1 cuDNN picks no FFT tiling, and
+        # PyTorch's own 3D conv would unfold FoundationStereo's 7x7x7 classifier into ~30 GB
+        f32_cudnn = trainer.eval_loader.batch_size == 1
         t0 = time.perf_counter()
-        w32, _ = zoo_eval(trainer, True, torch.float32, cudnn=False)
-        e32, _ = zoo_eval(trainer, False, torch.float32, cudnn=False)
+        w32, _ = zoo_eval(trainer, True, torch.float32, cudnn=f32_cudnn)
+        e32, _ = zoo_eval(trainer, False, torch.float32, cudnn=f32_cudnn)
         rec["f32_passes_s"] = time.perf_counter() - t0
         rec["share_within_5e-3_f32"] = float(((w32 - e32).abs() <= 5e-3).float().mean())
         rec["max_abs_f32"] = float((w32 - e32).abs().max())
         rec["mean_abs"] = float((wired - eager).abs().mean())
         print(f"{tag} evaluation kernels vs eager: f32 (TF32 off) "
               f"{rec['share_within_5e-3_f32']:.6f} of the pixels within 5e-3 px (tol >= 0.999), "
-              f"max-abs {rec['max_abs_f32']:.3g} px (PyTorch's own convolutions, both passes "
+              f"max-abs {rec['max_abs_f32']:.3g} px "
+              f"({'cuDNN' if f32_cudnn else 'PyTorch'}'s own convolutions, both passes "
               f"{rec['f32_passes_s']:.1f} s); "
               f"{trainer.model.dtype} mean-abs {rec['mean_abs']:.4g} px (tol "
               f"{IGEV_FAMILY_BF16_MEAN_ABS}), max-abs {rec['max_abs']:.3g} px")
@@ -3197,6 +3457,11 @@ def zoo_grad_check(dev, path):
     gmax = max(g.abs().max().item() for g in g64.values())
     top = sorted(((g32[k] - g64[k]).abs().max().item() / gmax, k, g64[k].abs().max().item() / gmax)
                  for k in g64 if k in g32)[-6:]
+    # the rel at which every tensor's bound, floor included, holds twice its f32 error (the rule
+    # the bounds of phases 31-34, 41-44 and 49-51 were set by, over 3 runs)
+    twice = max([0.0] + [(2 * (g32[k] - g64[k]).abs().max().item() - ZOO_GRAD_FLOOR * gmax)
+                         / g64[k].abs().max().item() for k in g64
+                         if k in g32 and g64[k].abs().max().item() > 0])
     del model, g32, g_ctl
     torch.cuda.empty_cache()
     print(f"[{name.lower()}-grad] one step at b1 {h}x{w}: loss f32 {loss32:.6f}, f64 {loss64:.6f} "
@@ -3205,7 +3470,8 @@ def zoo_grad_check(dev, path):
           f"largest), worst {of_model[1]:.3g}·max|g| of the model at {of_model[0]}; against the "
           f"bound ({bound[0]}·max|g| of the tensor + {bound[1]}·max|g| of the model) worst "
           f"{worst[1]:.3g} at {worst[0]} (tol 1); rel needed beyond the floor {needed[1]:.3g} at "
-          f"{needed[0] or '-'}; missing {missing}, extra {extra}; {path.control.__name__} control: "
+          f"{needed[0] or '-'}, for twice each error {twice:.3g}; missing {missing}, extra "
+          f"{extra}; {path.control.__name__} control: "
           f"{len(ctl_missing)} tensors without a gradient, worst {ctl_worst[1]:.3g} of the bound "
           f"at {ctl_worst[0]}, rel needed {ctl_needed[1]:.3g} at {ctl_needed[0] or '-'}, rejected "
           f"{not ctl_ok}; largest errors (of max|g| of the model, "
@@ -3216,23 +3482,20 @@ def zoo_grad_check(dev, path):
     check(not ctl_ok, f"{name}: the {path.control.__name__} control passes the gradient check")
     return {"loss_f32": loss32, "loss_f64": loss64, "worst_of_tensor": of_tensor,
             "worst_of_model": of_model, "worst_of_bound": worst, "bound": list(bound),
-            "rel_needed": needed, "control_rel_needed": ctl_needed,
+            "rel_needed": needed, "rel_for_twice": twice, "control_rel_needed": ctl_needed,
             "tensors": len(g64), "control_missing": len(ctl_missing),
             "control_worst_of_bound": ctl_worst, "f64_step_s": t64}
 
 
-def phase_zoo_train(dev, paths):
-    """Phases 26-34 (`paths`, of `zoo_train_paths`) on a SceneFlow-layout set
-    written for them under `chiprun_out/` (deleted afterwards with the runs'
-    checkpoints)."""
+def phase_zoo_train(dev, paths, grads):
+    """Phases 26-34 (`paths`, of `zoo_train_paths`) on the first
+    ZOO_TRAIN_PAIRS + ZOO_CFG_EVAL_PAIRS pairs of `sceneflow_set` (the
+    runs' checkpoints deleted afterwards), each with its gradient check's
+    result from `grads` (`phase_beside_build`)."""
     import shutil
 
     shutil.rmtree(ZOO_TRAIN_DIR, ignore_errors=True)
-    data_root = ZOO_TRAIN_DIR / "SceneFlow"
-    t0 = time.perf_counter()
-    lines = write_stereo_set(data_root, ZOO_TRAIN_PAIRS + ZOO_CFG_EVAL_PAIRS, 0, PAIR_HW, 192)
-    print(f"[zoo-train] wrote {ZOO_TRAIN_PAIRS} + {ZOO_CFG_EVAL_PAIRS} random-dot pairs at "
-          f"{PAIR_HW[0]}x{PAIR_HW[1]} (PNG, PFM) in {time.perf_counter() - t0:.1f} s")
+    data_root, lines = sceneflow_set()
     try:
         out = {}
         for path in paths:
@@ -3240,12 +3503,11 @@ def phase_zoo_train(dev, paths):
             out[path.name] = run_zoo_training(
                 dev, path, data_root, lines[:ZOO_TRAIN_PAIRS],
                 lines[ZOO_TRAIN_PAIRS:ZOO_TRAIN_PAIRS + path.eval_pairs])
-            out[path.name]["grad_check"] = zoo_grad_check(dev, path)
+            out[path.name]["grad_check"] = grads[path.name]
             out[path.name]["seconds"] = time.perf_counter() - t1
             print(f"[phase-time] {path.name} training: {out[path.name]['seconds']:.1f} s")
         return out
     finally:
-        shutil.rmtree(data_root, ignore_errors=True)
         for ckpt in ZOO_TRAIN_DIR.glob("**/ckpt"):
             shutil.rmtree(ckpt, ignore_errors=True)
 
@@ -3295,12 +3557,13 @@ def run_zoo_training(dev, path, data_root, train_lines, eval_lines):
     crop = next(t["SIZE"] for t in cfg["DATA_CONFIG"]["DATA_TRANSFORM"]["TRAINING"]
                 if t["NAME"] == "RandomCrop")
     dtype = "bf16" if opt["AMP"] else "f32"
+    pad = cfg["DATA_CONFIG"]["DATA_TRANSFORM"]["EVALUATING"][0]
     print(f"{tag} config: crop {crop}, batch {bsz}, {dtype}, {opt['OPTIMIZER']['NAME']} "
           f"{opt['OPTIMIZER']['LR']}, {opt['SCHEDULER']['NAME']} warm-up "
-          f"{opt['SCHEDULER'].get('WARMUP')}, clip {opt.get('CLIP_GRAD')}, NUM_EPOCHS 1 "
-          f"({ZOO_STEPS} steps); evaluation of {len(eval_lines)} pairs at batch {eval_batch}, "
-          f"{cfg['DATA_CONFIG']['DATA_TRANSFORM']['EVALUATING'][0]['NAME']} "
-          f"{cfg['DATA_CONFIG']['DATA_TRANSFORM']['EVALUATING'][0]['SIZE']}")
+          f"{opt['SCHEDULER'].get('WARMUP')}, clip {opt.get('CLIP_GRAD')}, FREEZE_BN "
+          f"{opt.get('FREEZE_BN', False)}, NUM_EPOCHS 1 ({ZOO_STEPS} steps); evaluation of "
+          f"{len(eval_lines)} pairs at batch {eval_batch}, {pad['NAME']} "
+          f"{pad.get('SIZE', pad.get('BY'))}")
 
     # the run, its timed and profiled steps in PyTorch's default numerics (f32 convolutions
     # in TF32 on cuDNN), as tools/train.py runs for a user; the checks with TF32 off
@@ -3371,7 +3634,7 @@ def run_zoo_training(dev, path, data_root, train_lines, eval_lines):
     t1 = time.perf_counter()
     label = f"{name} b{bsz} {crop[0]}x{crop[1]} {dtype}{' (TF32 convs)' if tf32 else ''}"
     with cudnn_tf32(tf32):
-        prof = profile_train_steps(trainer, ms, label=label,
+        prof = profile_train_steps(trainer, ms, batch, label=label,
                                    table=run_dir / "profile_train_step.txt")
     took["profile"] = time.perf_counter() - t1
     rec = {"ms_per_step": ms, "samples_per_s": bsz / ms * 1e3, "step_ms": step_ms,
@@ -3407,28 +3670,6 @@ def run_zoo_training(dev, path, data_root, train_lines, eval_lines):
     del trainer, batch
     torch.cuda.empty_cache()
     return rec
-
-
-def phase_zoo_overfit(name="GwcNet", args=ZOO_OVERFIT_ARGS):
-    """A learning check through the port's `tools/overfit_check.py`: GwcNet's
-    (phase 30: 60 steps on one batch of 2 random-dot pairs at 192x384,
-    max_disp 64, f32, RMSprop 1e-4 constant, clip by norm 35) or FADNet's
-    (phase 35, FADNET_OVERFIT_ARGS: 60 steps of b1 at 192x384, f32, Lamb
-    4e-3 constant, no clip) or IGEV's (phase 45, IGEV_OVERFIT_ARGS: 40 steps of
-    b2 at 192x384, max_disp 64, bf16, AdamW 2e-4 constant, clip by norm 35,
-    22 GRU iterations); the mean loss of the last 20 steps must fall below
-    0.8 of the first 5 steps'."""
-    from openstereo_tpu_torch.tools import overfit_check
-
-    t0 = time.perf_counter()
-    res = overfit_check.main(args)
-    took = time.perf_counter() - t0
-    traj = [(s, round(l, 4), round(e, 3)) for s, l, e in res["trajectory"]]
-    print(f"[zoo-overfit] {name} trajectory (step, loss, train EPE px): {traj}; loss ratio (last "
-          f"20 / first 5) {res['loss_ratio']:.4f} (tol < 0.8); {took:.1f} s")
-    check(res["loss_ratio"] < 0.8, f"{name} overfit check: loss ratio {res['loss_ratio']} >= 0.8")
-    res["seconds"] = took
-    return res
 
 
 def zoo_train_summary(zoo, overfits):
@@ -3497,8 +3738,8 @@ def igev_path():
     trunk is CoEx's), the f32 rule "share" (32 GRU iterations carry a
     one-ulp difference forward: >= 99.9 % of the pixels within 5e-3 px, the
     max-abs printed), 2 timing groups of 3 frames (~0.7 s a group), 1 frame
-    profiled (~12,000 device operations a frame; the profiler takes ~5 s a
-    frame)."""
+    profiled (~12,000 device operations a frame; reading them took ~5 s
+    through `key_averages()`, 0.3 s through `device_rows`)."""
     return ("IGEV", IGEV_CFG, {"gwc_volume": {IGEV_K3_SHAPE: 1}, "fused_mbconv": COEX_K2_SHAPES},
             "share", (2, 3, 1))
 
@@ -3578,31 +3819,27 @@ def phase_igev(dev, card):
     return phase_gru_model(dev, card, igev_path(), "36 IGEV", measure_reps=10)
 
 
+def kitti_pair(root, hw, max_disp, i):
+    """Random-dot stereogram `i` in the KITTI 2015 layout (`write_kitti_set`)."""
+    from openstereo_tpu_torch.tools.overfit_check import make_stereogram
+
+    left, right, disp = make_stereogram(np.random.RandomState(i), *hw, max_disp)
+    name = f"{i:06d}_10.png"
+    for sub, img in (("image_2", left), ("image_3", right)):
+        save_png(np.clip(np.round(img), 0, 255).astype(np.uint8), root / "training" / sub / name)
+    save_png(np.round(disp * 256.0).astype(np.uint16), root / "training/disp_occ_0" / name)
+    return f"training/image_2/{name} training/image_3/{name} training/disp_occ_0/{name}"
+
+
 def write_kitti_set(root, n, hw, max_disp=192):
     """`n` random-dot stereograms (`make_stereogram`, seeds 0..n-1) in the KITTI
     2015 layout: training/image_2, image_3 PNG and disp_occ_0 uint16 PNG of
     disparity × 256; returns the split lines."""
-    from concurrent.futures import ThreadPoolExecutor
-
-    from PIL import Image
-
-    from openstereo_tpu_torch.tools.overfit_check import make_stereogram
+    import functools
 
     for sub in ("image_2", "image_3", "disp_occ_0"):
         (root / "training" / sub).mkdir(parents=True, exist_ok=True)
-
-    def one(i):
-        left, right, disp = make_stereogram(np.random.RandomState(i), *hw, max_disp)
-        name = f"{i:06d}_10.png"
-        for sub, img in (("image_2", left), ("image_3", right)):
-            Image.fromarray(np.clip(np.round(img), 0, 255).astype(np.uint8)).save(
-                root / "training" / sub / name)
-        Image.fromarray(np.round(disp * 256.0).astype(np.uint16)).save(
-            root / "training/disp_occ_0" / name)
-        return f"training/image_2/{name} training/image_3/{name} training/disp_occ_0/{name}"
-
-    with ThreadPoolExecutor(8) as pool:
-        return list(pool.map(one, range(n)))
+    return write_pairs(functools.partial(kitti_pair, root, hw, max_disp), range(n))
 
 
 def phase_igev_eval(dev, card):
@@ -3712,10 +3949,16 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     t0 = time.perf_counter()
+    pools = []  # worker process pools, stopped at the end
     try:
         smi, kind = run_phase("1 card", phase_card)
         card = peaks(kind)
+        pool, futures = start_beside_build()
+        pools.append(pool)
         ptxas = run_phase("2 build", phase_build)
+        learned, grads = run_phase("2 checks beside the build", phase_beside_build, futures)
+        pool.shutdown()  # the workers' card memory goes with them
+        start_writers()  # the synthetic sets' writers, ready by phase 37
         k1_err = run_phase("3 K1", phase_k1, dev)
         k2_err = run_phase("4 K2", phase_k2, dev)
         k4_err = run_phase("5 K4", phase_k4, dev)
@@ -3758,22 +4001,22 @@ def main():
                                       "48 MonSter")
         k1_eval, k2_eval, k2_eval_splits = run_phase("13 evaluation batch", phase_eval_batch, dev)
         trained = run_phase("14 LightStereo training", phase_train, dev)
-        overfit = run_phase("15 LightStereo overfit", phase_overfit)
         k4_train = run_phase("23 K4 under autograd", phase_k4_train, dev, card)
         sttr_trained = run_phase("24 STTR training", phase_sttr_train, dev, card, k4_train)
         sttr_overfit = run_phase("25 STTR overfit", phase_sttr_overfit)
         paths = zoo_train_paths()
         zoo_kernels = run_phase("26-34 kernels at the trainer evaluations' shapes",
                                 phase_zoo_kernels, dev, card, paths)
-        zoo = run_phase("26-34, 41-44 training", phase_zoo_train, dev, paths)
-        overfits = {"GwcNet": run_phase("30 GwcNet overfit", phase_zoo_overfit),
-                    "FADNet": run_phase("35 FADNet overfit (Lamb)", phase_zoo_overfit, "FADNet",
-                                        FADNET_OVERFIT_ARGS),
-                    "IGEV": run_phase("45 IGEV overfit", phase_zoo_overfit, "IGEV",
-                                      IGEV_OVERFIT_ARGS)}
+        zoo = run_phase("26-34, 41-44, 49-51 training", phase_zoo_train, dev, paths, grads)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
+    finally:
+        for pool in WRITERS + pools:
+            pool.shutdown(cancel_futures=True)
+        shutil.rmtree(SET_DIR, ignore_errors=True)
+    overfit = learned["LightStereo"]
+    overfits = {k: v for k, v in learned.items() if k != "LightStereo"}
 
     entries = [
         dict(name="corr_volume", route="cuda", source="openstereo_tpu_torch/csrc/cost_volume.cu",
@@ -3802,7 +4045,7 @@ def main():
              eval_batch=dict(max_abs_err=k2_eval[1], max_abs_err_f32=k2_eval[0],
                              splits=[dict(shape=list(k), splits=v)
                                      for k, v in k2_eval_splits.items()]),
-             igev_family_eval=zoo_kernels["igev_family"]["fused_mbconv"],
+             trainer_eval=zoo_kernels["trainer_eval"]["fused_mbconv"],
              eval_batch2=dict(max_abs_err=zoo_kernels["fused_mbconv"][1],
                               max_abs_err_f32=zoo_kernels["fused_mbconv"][0],
                               splits=[dict(shape=list(k), splits=v)
@@ -3849,7 +4092,7 @@ def main():
                             **igev_eval["k3"]),
              launches_trainer_eval=trainer_eval_launches(trained, zoo, "gwc_volume"),
              eval_batch=volume_checks(zoo_kernels["gwc_volume"]),
-             igev_family_eval=zoo_kernels["igev_family"]["gwc_volume"],
+             trainer_eval=zoo_kernels["trainer_eval"]["gwc_volume"],
              ptxas=ptxas["cost_volume"], **k3),
     ]
     print(f"[slice] fps eager {bench['eager']['fps']:.2f}, kernels {bench['kernels']['fps']:.2f}; "

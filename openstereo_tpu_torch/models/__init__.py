@@ -2,8 +2,8 @@
 
 LightStereo, STTR, GwcNet, PSMNet, CoEx, MSNet3D, MSNet2D, CFNet, FADNet,
 CasGwcNet, CasPSMNet, IGEV, IGEV-RT, StereoBase (also under its configs'
-name StereoBaseGRU) and IGEV++ are ported, for inference and for training;
-FoundationStereo, FastFoundationStereo and MonSter for inference; the other names
+name StereoBaseGRU), IGEV++, FoundationStereo, FastFoundationStereo and
+MonSter are ported, for inference and for training; the other names
 of the JAX zoo raise NotImplementedError naming the ROADMAP item that
 brings them.
 """
@@ -152,7 +152,10 @@ def init_training_weights(model: nn.Module, generator: torch.Generator) -> nn.Mo
     (`runtime/trainer.py:186-194`): conv, deconv and linear kernels
     lecun-normal (truncated normal, variance 1/fan_in), zero biases,
     BatchNorm scale 1, bias 0, mean 0, var 1, LayerNorm scale 1, bias 0,
-    CFNet's range scalars 0. STTR's as its flax modules declare them: each
+    CFNet's range scalars 0; the ViT's LayerScale 1, class token 0 and
+    position table N(0, 0.02), EdgeNeXt's layer scales 1e-6 and XCA's
+    temperature 1 (`backbones/dinov2.py`, `backbones/edgenext.py`,
+    `foundationstereo/blocks.py:313`). STTR's as its flax modules declare them: each
     third of the packed attention projection (the q, k and v `nn.Dense`)
     lecun-normal over its own fan-in, zero biases; the weight-normed convs'
     directions he-normal (variance 2/fan_in, `blocks.py:184`), gains 1,
@@ -193,6 +196,19 @@ def init_training_weights(model: nn.Module, generator: torch.Generator) -> nn.Mo
             elif isinstance(m, CFNet):
                 for p in (m.gamma_s3, m.beta_s3, m.gamma_s2, m.beta_s2):
                     fill(p, 0.0)
+            elif isinstance(m, LayerScale):
+                fill(m.gamma, 1.0)
+            elif isinstance(m, (ConvEncoder, EdgeNextConvEncoderPlain)):
+                fill(m.gamma, 1e-6)
+            elif isinstance(m, SDTAEncoder):
+                fill(m.gamma, 1e-6)
+                fill(m.gamma_xca, 1e-6)
+            elif isinstance(m, XCA):
+                fill(m.temperature, 1.0)
+            elif isinstance(m, DinoViT):
+                fill(m.cls_token, 0.0)
+                m.pos_embed.normal_(0.0, 0.02, generator=generator)
+                drawn.add(id(m.pos_embed))
     missed = [k for k, t in list(model.named_parameters()) + list(model.named_buffers())
               if id(t) not in drawn]
     if missed:

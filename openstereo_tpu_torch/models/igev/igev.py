@@ -66,6 +66,30 @@ def sequence_loss(loss: torch.Tensor, preds, gt: torch.Tensor, mask: torch.Tenso
     return loss
 
 
+def init_sequence_loss(pred: Dict, data: Dict, max_disp: float):
+    """Smooth-L1 on the upsampled initial disparity plus the γ-weighted L1
+    over the iterates, both over 0 < gt < max_disp (`igev.py:339-348`; also
+    FoundationStereo's, FastFoundationStereo's and MonSter's) → (loss,
+    {'loss_disp': loss})."""
+    gt = data["disp"]
+    mask = disp_valid_mask(gt, max_disp)
+    loss = sequence_loss(masked_smooth_l1(pred["init_disp"], gt, mask), pred["disp_preds"], gt,
+                         mask)
+    return loss, {"loss_disp": loss}
+
+
+def upsample_folded(upsample, iterates, stem_2x: torch.Tensor):
+    """Every iterate (disp [B,1,h,w], mask features) ×4 through `upsample` in
+    one call, the iterations folded into the batch, iteration-major
+    (`igev.py:309-319`: `spx_2_gru`'s BatchNorm takes one set of statistics
+    over all of them and updates its running ones once) → a list of
+    [B,H,W]."""
+    n = len(iterates)
+    up = upsample(torch.cat([d for d, _ in iterates]), torch.cat([m for _, m in iterates]),
+                  stem_2x.repeat(n, 1, 1, 1))
+    return list(up.chunk(n))
+
+
 def unit_range(image: torch.Tensor) -> torch.Tensor:
     """[0,255] → [-1,1] in at least f32 (`igev.py:192-193`; an f64 image
     stays f64)."""
@@ -247,17 +271,11 @@ class IGEVFamily(nn.Module):
 
     def outputs(self, iterates, stem_2x: torch.Tensor, feat4: torch.Tensor, init_disps):
         """{'disp_pred'}: the last iterate ×4; in training also 'disp_preds',
-        every iterate ×4 with the iterations folded into the batch,
-        iteration-major (`igev.py:309-319`: `spx_2_gru`'s BatchNorm takes one
-        set of statistics over all of them and updates its running ones
-        once), and 'init_disp', `init_disps` through the training heads (one
-        tensor, or IGEV++'s list of three)."""
+        every iterate ×4 (`upsample_folded`), and 'init_disp', `init_disps`
+        through the training heads (one tensor, or IGEV++'s list of three)."""
         if not self.training:
             return {"disp_pred": self.upsample(*iterates[-1], stem_2x)}
-        n = len(iterates)
-        up = self.upsample(torch.cat([d for d, _ in iterates]),
-                           torch.cat([m for _, m in iterates]), stem_2x.repeat(n, 1, 1, 1))
-        preds = list(up.chunk(n))
+        preds = upsample_folded(self.upsample, iterates, stem_2x)
         init = self.init_upsample(feat4, stem_2x, init_disps)
         return {"disp_pred": preds[-1], "init_disp": init if len(init) > 1 else init[0],
                 "disp_preds": preds}
@@ -333,10 +351,5 @@ class IGEV(IGEVFamily):
         return self.outputs(iterates, stem_2x, feats_l[0], [init_disp])
 
     def get_loss(self, pred: Dict, data: Dict):
-        """Smooth-L1 on the upsampled initial disparity plus the γ-weighted L1
-        over the iterates, both over 0 < gt < max_disp (`igev.py:339-348`)."""
-        gt = data["disp"]
-        mask = disp_valid_mask(gt, self.max_disp)
-        loss = sequence_loss(masked_smooth_l1(pred["init_disp"], gt, mask), pred["disp_preds"],
-                             gt, mask)
-        return loss, {"loss_disp": loss}
+        """`init_sequence_loss` over 0 < gt < max_disp (`igev.py:339-348`)."""
+        return init_sequence_loss(pred, data, self.max_disp)

@@ -232,13 +232,13 @@ class REMP(nn.Module):
     a dilated conv; `SimpleUNet`; a global gate (pooled, LFE) and a local
     one (LMC) blended; a 3×3 conv to one channel; leaky_relu 0.01 of the
     stereo disparity plus it. disp_mono, disp_stereo [B,1,H,W] (f32), left,
-    right [B,3,H,W] → [B,1,H,W] in their dtype. The convs run in `dtype`.
-    Keys: conv1_mono, conv1_stereo, conv2_mono, conv2_stereo (.0 conv, .1
-    BN), conv_start, RefinementBlock, LFE.{0,2}, LMC.{0,1,3}, final_conv."""
+    right [B,3,H,W] → [B,1,H,W] in their dtype. The convs run in the
+    caller's compute `dtype`. Keys: conv1_mono, conv1_stereo, conv2_mono,
+    conv2_stereo (.0 conv, .1 BN), conv_start, RefinementBlock, LFE.{0,2},
+    LMC.{0,1,3}, final_conv."""
 
-    def __init__(self, dtype: torch.dtype = torch.float32):
+    def __init__(self):
         super().__init__()
-        self.dtype = dtype
         for name, cin in (("conv1_mono", 6), ("conv1_stereo", 6), ("conv2_mono", 1),
                           ("conv2_stereo", 1)):
             setattr(self, name, nn.Sequential(*conv_norm(cin, 16, 3, norm="batch")))
@@ -250,15 +250,15 @@ class REMP(nn.Module):
                                  nn.ReLU(), nn.Conv2d(64, 32, 3, padding=1), nn.Sigmoid())
         self.final_conv = nn.Conv2d(32, 1, 3, padding=1)
 
-    def forward(self, disp_mono, disp_stereo, left, right):
+    def forward(self, disp_mono, disp_stereo, left, right, dtype: torch.dtype):
         cbn = leaky_relu(0.2)
         flaw_m = disp_warp(right, disp_mono[:, 0], "border", torch_unaligned=True)[0] - left
         flaw_s = disp_warp(right, disp_stereo[:, 0], "border", torch_unaligned=True)[0] - left
         x = torch.cat([
-            cbn(run_seq(torch.cat([flaw_m, left], 1).to(self.dtype), self.conv1_mono)),
-            cbn(run_seq(disp_mono.to(self.dtype), self.conv2_mono)),
-            cbn(run_seq(torch.cat([flaw_s, left], 1).to(self.dtype), self.conv1_stereo)),
-            cbn(run_seq(disp_stereo.to(self.dtype), self.conv2_stereo))], dim=1)
+            cbn(run_seq(torch.cat([flaw_m, left], 1).to(dtype), self.conv1_mono)),
+            cbn(run_seq(disp_mono.to(dtype), self.conv2_mono)),
+            cbn(run_seq(torch.cat([flaw_s, left], 1).to(dtype), self.conv1_stereo)),
+            cbn(run_seq(disp_stereo.to(dtype), self.conv2_stereo))], dim=1)
         x = self.RefinementBlock(self.conv_start(x))
         gap = x.to(head_dtype(x.dtype)).mean((2, 3), keepdim=True).to(x.dtype)
         low = torch.sigmoid(run_conv(F.relu(run_conv(gap, self.LFE[0])), self.LFE[2]))

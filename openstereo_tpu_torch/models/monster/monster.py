@@ -1,36 +1,45 @@
-"""MonSter inference, NCHW / NCDHW (counterpart of
-`openstereo_tpu/models/monster/monster.py:59-327`).
+"""MonSter, NCHW / NCDHW (counterpart of
+`openstereo_tpu/models/monster/monster.py:59-382`).
 
 - the mono branches (`mono_branches`): both views resized ×14/16 (align
   corners: 544×960 → 476×840, a 34×60 patch grid) through one pass of the
   frozen DINOv2 ViT as a 2B batch, whose taps feed the frozen DPT depth
   head (left view only; its relative depth resized back to H×W) and the
-  trainable DPT pyramid decoder (both views);
+  trainable DPT pyramid decoder (both views); the ViT and the depth head
+  run under `torch.no_grad()` (the JAX model's `stop_gradient` on the taps
+  and the depth): their parameters get no gradient;
 - the stereo features: `FeatTransfer` on the decoder's paths, the four
   InstanceNorm stems (1/2 and 1/4 shared by both views), the 1/4 features
   with the stem's 48 channels (96) through `conv` and `desc`;
 - IGEV's volume: the group-wise volume (8 groups, D/4 planes) through the
-  CUDA kernel K3 (`ops.gwc_volume`; on a CPU tensor, its plain version),
+  CUDA kernel K3 in eval (`ops.gwc_volume`; on a CPU tensor, its plain
+  version), through the plain builder in training (K3 has no backward),
   the 3D stem with its feature gate, the hourglass (IGEV's `GeoHourglass`),
   the classifier and the soft-argmax initial disparity;
 - the context (`FeatTransferCnet`, tanh and the `context_zqr_convs`
   biases);
-- VALID_ITERS − MIX_ITERS of IGEV's GRU iterations (no slow-fast calls),
-  the disparity detached at the top of each (`igev.carried`), over the
-  gathered geometry and correlation pyramids;
-- the mono depth at 1/4 aligned to the stereo disparity by a closed-form
-  scale and shift (`compute_scale_shift`);
-- MIX_ITERS mutual-refinement iterations: the right 1/4 features warped by
-  both disparities (border padding, the reference's half-pixel shear), and
-  the twin `MixUpdateBlock`s, the mono branch's hidden states starting from
-  the states before the first iteration;
-- both last iterates upsampled ×4 by the superpixel weights, and the stereo
-  one refined at full resolution by `REMP`.
+- n − MIX_ITERS of IGEV's GRU iterations (no slow-fast calls; n is
+  VALID_ITERS in eval, TRAIN_ITERS in training), the disparity detached at
+  the top of each (`carried`), over the gathered geometry and correlation
+  pyramids;
+- the mono depth at 1/4 aligned to the detached stereo disparity by a
+  closed-form scale and shift (`compute_scale_shift`);
+- MIX_ITERS mutual-refinement iterations: both disparities detached, the
+  right 1/4 features warped by both (border padding, the reference's
+  half-pixel shear), and the twin `MixUpdateBlock`s, the mono branch's
+  hidden states starting from the states before the first iteration;
+- in eval both last iterates upsampled ×4 by the superpixel weights, and
+  the stereo one refined at full resolution by `REMP`; in training every
+  iterate upsampled in three folded calls (the IGEV iterations, the mutual
+  ones' stereo iterates, then their mono iterates: `spx_2_gru`'s BatchNorm
+  updated three times, in that order), ordered A's iterates, then each
+  mutual iteration's mono and stereo ones, the last stereo one refined by
+  `REMP`; and the initial disparity through the training heads;
+- the loss: IGEV's (`igev.init_sequence_loss`) over all of them.
 
 Images come as the config's transforms leave them ([-1,1] after
 NormalizeToMinusOneOne); the model does not rescale them. The resizes, the
-warps and REMP's inputs stay in f32; the rest runs in `dtype`. Training
-waits for a later port (ROADMAP): a forward in training mode raises.
+warps and REMP's inputs stay in f32; the rest runs in `dtype`.
 """
 
 from __future__ import annotations
@@ -46,14 +55,17 @@ from ..backbones.dinov2 import PATCH, VIT_CONFIGS, DinoViT
 from ..backbones.dpt import DAV2_CONFIGS, DPTHead, DPTPyramidDecoder
 from ..igev.blocks import BasicConvBN, BasicConvIN, Conv2x, FeatureAtt
 from ..igev.geometry import CombinedGeoEncodingVolume, lookup_dtype
-from ..igev.igev import FEATURE_CHANNELS, GeoHourglass, IGEVFamily, carried, pixel_columns, stem
+from ..igev.igev import (FEATURE_CHANNELS, GeoHourglass, IGEVFamily, carried,
+                         init_sequence_loss, pixel_columns, stem, upsample_folded)
 from ..igev.update import BasicMultiUpdateBlock
 from ..layers import head_dtype, run_conv, run_seq, siamese
 from .blocks import FeatTransfer, FeatTransferCnet, MixUpdateBlock, REMP, compute_scale_shift
 
 
 class MonSter(IGEVFamily):
-    """forward(data) → {'disp_pred': [B,H,W]} in eval.
+    """forward(data) → {'disp_pred': [B,H,W]}, in training also 'init_disp'
+    [B,H,W], 'disp_preds' (TRAIN_ITERS + MIX_ITERS of [B,H,W] where
+    TRAIN_ITERS ≥ MIX_ITERS) and 'depth_mono' [B,H,W].
 
     data['left'] / data['right']: [B,3,H,W] images, H and W multiples of 32.
     `dtype` is the compute dtype (bf16 on the main path); parameters stay
@@ -114,25 +126,25 @@ class MonSter(IGEVFamily):
         self.update_block = BasicMultiUpdateBlock(hd[::-1], n_gru_layers, cor_planes)
         self.update_block_mix_stereo = MixUpdateBlock(hd[::-1], n_gru_layers, cor_planes, c4)
         self.update_block_mix_mono = MixUpdateBlock(hd[::-1], n_gru_layers, cor_planes, c4)
-        self.REMP = REMP(dtype)
+        self.REMP = REMP()
 
     def mono_branches(self, left: torch.Tensor, right: torch.Tensor):
         """(`monster.py:59-92`) → (the relative depth [B,H,W] of the left view,
         the decoder's paths [p1 @1/4 … p4 @1/32] of both views as one 2B
-        batch, left first)."""
+        batch, left first). The ViT and the depth head are frozen: they run
+        under `torch.no_grad()`."""
         h, w = left.shape[2:]
         hr, wr = h * 14 // 16, w * 14 // 16
         x = resize_linear_align_corners(torch.cat([left, right]), (hr, wr)).to(self.dtype)
-        taps = self.mono_encoder(x)
         ph, pw = hr // PATCH, wr // PATCH
         b = left.shape[0]
-        _, depth = self.mono_decoder([(t[:b], c[:b]) for t, c in taps], ph, pw, depth=True)
+        with torch.no_grad():
+            taps = self.mono_encoder(x)
+            _, depth = self.mono_decoder([(t[:b], c[:b]) for t, c in taps], ph, pw, depth=True)
         depth = resize_linear(depth[:, None], (h, w))[:, 0]
         return depth, self.feat_decoder(taps, ph, pw)
 
     def images(self, data: Dict[str, torch.Tensor]):
-        if self.training:
-            raise NotImplementedError("MonSter training is not ported yet (ROADMAP.md, item 15b)")
         return [data[k].to(head_dtype(data[k].dtype)) for k in ("left", "right")]
 
     def stereo_features(self, left: torch.Tensor, right: torch.Tensor, pyr):
@@ -194,21 +206,54 @@ class MonSter(IGEVFamily):
                                            geo_volume.to(ld), self.corr_levels, self.corr_radius)
         coords = pixel_columns(init_disp)
 
-        n_a = max(self.valid_iters - self.mix_iters, 0)
+        n_a = max(self.iters - self.mix_iters, 0)
         net_mono = list(net)  # the mono branch starts from the states before the loop
-        disp = init_disp[:, None]
+        disp, phase_a = init_disp[:, None], []
         for _ in range(n_a):
-            net, disp, _ = self.gru_iteration(net, inp, geo_fn, coords, carried(disp))
-        scale, shift = compute_scale_shift(disp_mono_4x[:, 0].float(), disp[:, 0].float())
+            net, disp, mask = self.gru_iteration(net, inp, geo_fn, coords, carried(disp))
+            phase_a += [(disp, mask)] if self.training else []
+        scale, shift = compute_scale_shift(disp_mono_4x[:, 0].float(),
+                                           disp[:, 0].detach().float())
         disp_m = (scale[:, None, None, None] * disp_mono_4x
                   + shift[:, None, None, None]).to(disp.dtype)
         hd = head_dtype(self.dtype)
         feat_l, feat_r = feats_l[0].to(hd), feats_r[0].to(hd)
-        for _ in range(self.valid_iters - n_a):
+        phase_b = []
+        for _ in range(self.iters - n_a):
             net, net_mono, disp, disp_m, mask, mask_m = self.mix_iteration(
                 net, net_mono, inp, geo_fn, coords, feat_l, feat_r, disp, disp_m)
+            phase_b = phase_b + [(disp, mask, disp_m, mask_m)] if self.training else []
 
-        disp_up = self.upsample(disp, mask, stems[0])
-        disp_m_up = self.upsample(disp_m, mask_m, stems[0])
-        refined = self.REMP(disp_m_up[:, None], disp_up[:, None], left, right)[:, 0]
-        return {"disp_pred": disp_up + refined}
+        if not self.training:
+            disp_up = self.upsample(disp, mask, stems[0])
+            disp_m_up = self.upsample(disp_m, mask_m, stems[0])
+            refined = self.REMP(disp_m_up[:, None], disp_up[:, None], left, right,
+                                 self.dtype)[:, 0]
+            return {"disp_pred": disp_up + refined}
+        return self.training_outputs(phase_a, phase_b, stems[0], feats_l[0], init_disp,
+                                     depth_mono, left, right)
+
+    def training_outputs(self, phase_a, phase_b, stem_2x, feat4, init_disp, depth_mono, left,
+                         right):
+        """(`monster.py:330-369`) The iterates ×4 in three folded calls, in the
+        JAX model's order: phase A's, the mutual iterations' stereo ones,
+        their mono ones (`spx_2_gru`'s BatchNorm takes three sets of
+        statistics); 'disp_preds' A's iterates, then each mutual iteration's
+        mono and stereo ones, the last stereo one plus `REMP`'s refinement;
+        'init_disp' through the training heads; 'depth_mono'."""
+        preds = upsample_folded(self.upsample, phase_a, stem_2x) if phase_a else []
+        ups_b = upsample_folded(self.upsample, [(d, m) for d, m, _, _ in phase_b], stem_2x)
+        ups_m = upsample_folded(self.upsample, [(d, m) for _, _, d, m in phase_b], stem_2x)
+        for i, (up, up_m) in enumerate(zip(ups_b, ups_m)):
+            if i == len(ups_b) - 1:
+                up = up + self.REMP(up_m[:, None], up[:, None], left, right, self.dtype)[:, 0]
+            preds += [up_m, up]
+        init = self.init_upsample(feat4, stem_2x, [init_disp])[0]
+        return {"disp_pred": preds[-1], "disp_preds": preds, "init_disp": init,
+                "depth_mono": depth_mono}
+
+    def get_loss(self, pred: Dict, data: Dict):
+        """Smooth-L1 on the initial disparity plus the γ-weighted L1 over all
+        the iterates, mono and stereo, γ = 0.9^(15/(n−1)), over 0 < gt <
+        max_disp (`monster.py:371-382`)."""
+        return init_sequence_loss(pred, data, self.max_disp)

@@ -36,9 +36,8 @@ from ...ops import build_concat_volume, build_sub_volume
 from ..layers import ConvBlock, conv_norm, run_seq
 from ..igev.blocks import BasicConvIN, Conv2x, Feature, MultiBasicEncoder
 from ..igev.geometry import CombinedGeoEncodingVolume, lookup_dtype
-from ..igev.igev import (FEATURE_CHANNELS, GeoHourglass, IGEVFamily, pixel_columns,
-                         sequence_loss, stem)
-from ..losses import disp_valid_mask, masked_smooth_l1
+from ..igev.igev import (FEATURE_CHANNELS, GeoHourglass, IGEVFamily, init_sequence_loss,
+                         pixel_columns, stem)
 from ..igev.update import BasicMultiUpdateBlock
 from ..msnet.msnet import masked_depth_stages
 
@@ -183,8 +182,4 @@ class StereoBase(IGEVFamily):
 
     def get_loss(self, pred: Dict, data: Dict):
         """IGEV's sequence loss over 0 < gt < max_disp (`stereobase.py:298-308`)."""
-        gt = data["disp"]
-        mask = disp_valid_mask(gt, self.max_disp)
-        loss = sequence_loss(masked_smooth_l1(pred["init_disp"], gt, mask), pred["disp_preds"],
-                             gt, mask)
-        return loss, {"loss_disp": loss}
+        return init_sequence_loss(pred, data, self.max_disp)

@@ -9,7 +9,8 @@ statistics (`models/layers.py:freeze_bn`). Evaluation is `model.eval()`
 under `torch.inference_mode()` on the whole batch (STTR reads its
 occlusion mask), through the kernels (K1 and K2 on LightStereo and CoEx,
 K4 on STTR, K3 on GwcNet and MSNet3D, K2 on MSNet3D and MSNet2D, K3 and K2
-on the IGEV family), with
+on the IGEV family, K3 on FoundationStereo, FastFoundationStereo and
+MonSter), with
 per-image metrics deduplicated by the sample's dataset index. Checkpoints are `torch.save` files of the train
 state, one per epoch, with the MAX_CKPT_SAVE_NUM rotation; resume restores
 parameters, BatchNorm statistics, optimizer state and step.

@@ -122,15 +122,42 @@ def bench_eager_vs_kernels(model: torch.nn.Module, groups: int, reps: int,
     return out
 
 
+def device_rows(prof) -> list:
+    """The device rows of a finished torch.profiler trace: [(kernel, calls,
+    total ms)] by kernel name, the largest total first. They are the rows of
+    `prof.key_averages()` whose device type is CUDA (kernels, copies, fills),
+    read from the trace's raw events: the profiler's own function events and
+    their averages take seconds of host time for ~10^4 launches."""
+    from torch.autograd import DeviceType
+
+    rows: Dict[str, list] = {}
+    for e in prof.profiler.kineto_results.events():
+        if (e.device_type() != DeviceType.CUDA or e.is_hidden_event()
+                or e.name() in ("[memory]", "[OutOfMemory]")):
+            continue
+        row = rows.setdefault(e.name(), [0, 0.0])
+        row[0] += 1
+        if not e.is_async() and e.start_thread_id() == e.end_thread_id():  # else no device time
+            row[1] += e.duration_ns() / 1e6
+    return sorted(((k, n, ms) for k, (n, ms) in rows.items()), key=lambda r: -r[2])
+
+
+def write_rows(rows: list, path: str, per: int, unit: str) -> None:
+    """`device_rows` as a table of its 40 largest rows, per `unit` over `per`."""
+    with open(path, "w") as f:
+        f.write(f"{'ms/' + unit:>12} {'calls/' + unit:>12}  kernel\n")
+        for name, n, ms in rows[:40]:
+            f.write(f"{ms / per:12.4f} {n / per:12g}  {name}\n")
+
+
 def profile_paths(model: torch.nn.Module, frames: int, out_dir: str,
                   size: Tuple[int, int] = (H, W),
                   paths: Tuple[str, ...] = ("eager", "kernels")) -> Dict[str, dict]:
     """torch.profiler over `frames` chained frames of each of `paths`: device
     time per frame summed over kernels (one stream, so the sum is the busy
     time), the device operations (kernels, copies, fills) per frame, the top
-    kernels, and the full table in `out_dir/profile_<path>.txt`.
+    kernels, and the 40 largest rows in `out_dir/profile_<path>.txt`.
     A model without kernels of the port is profiled with paths=("eager",)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     data = pair(next(model.parameters()).device, size)
@@ -142,16 +169,13 @@ def profile_paths(model: torch.nn.Module, frames: int, out_dir: str,
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             traced_ms = time_frames(model, data, groups=1, reps=frames, warmup=0)[0]
         # kernel rows only: an op's row repeats the device time of the kernels it launched
-        events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-        events.sort(key=lambda e: -e.self_device_time_total)
-        busy = sum(e.self_device_time_total for e in events) / 1e3 / frames
-        launches = sum(e.count for e in events) / frames
-        with open(os.path.join(out_dir, f"profile_{path}.txt"), "w") as f:
-            f.write(prof.key_averages().table(sort_by="self_device_time_total", row_limit=40))
-        out[path] = {"device_busy_ms_per_frame": busy, "device_ops_per_frame": launches,
+        rows = device_rows(prof)
+        write_rows(rows, os.path.join(out_dir, f"profile_{path}.txt"), frames, "frame")
+        out[path] = {"device_busy_ms_per_frame": sum(r[2] for r in rows) / frames,
+                     "device_ops_per_frame": sum(r[1] for r in rows) / frames,
                      "traced_ms_per_frame": float(traced_ms),
-                     "top": [{"kernel": e.key[:90], "ms_per_frame": e.self_device_time_total / 1e3 / frames,
-                              "calls_per_frame": e.count / frames} for e in events[:12]]}
+                     "top": [{"kernel": k[:90], "ms_per_frame": ms / frames,
+                              "calls_per_frame": n / frames} for k, n, ms in rows[:12]]}
     set_kernels(model, True)
     return out
 

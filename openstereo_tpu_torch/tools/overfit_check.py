@@ -10,10 +10,11 @@ its config's optimizer, RMSprop, at a constant rate with its clip by norm
 35; the mean loss of the last 20 steps should fall below 0.8 of the first
 5 steps' (the train EPE is printed beside it). GwcNet, PSMNet, CoExNet,
 MSNet3D, MSNet2D, CFNet, CasGwcNet, CasPSMNet and FADNet, and IGEV, IGEVRT,
-StereoBase (StereoBaseGRU) and IGEVPP train the same way with their
-SceneFlow configs' dtype, optimizer and clip (`RECIPES`; FADNet with Lamb;
-the IGEV family in bf16 with AdamW, all TRAIN_ITERS GRU iterations unless
-`--kwargs` sets fewer) at a constant rate, under the same check.
+StereoBase (StereoBaseGRU), IGEVPP, FoundationStereo, FastFoundationStereo
+and MonSter train the same way with their SceneFlow configs' dtype,
+optimizer and clip (`RECIPES`; FADNet with Lamb; the GRU models in bf16
+with AdamW, all TRAIN_ITERS GRU iterations unless `--kwargs` sets fewer)
+at a constant rate, under the same check.
 
     python -m openstereo_tpu_torch.tools.overfit_check [--steps 400] [--device cpu]
     python -m openstereo_tpu_torch.tools.overfit_check --model STTR --steps 200 --batch 2 --lr 1e-4
@@ -23,6 +24,8 @@ the IGEV family in bf16 with AdamW, all TRAIN_ITERS GRU iterations unless
         --size 192 384 --lr 4e-3
     python -m openstereo_tpu_torch.tools.overfit_check --model IGEV --steps 60 --batch 2 \
         --lr 2e-4
+    python -m openstereo_tpu_torch.tools.overfit_check --model FastFoundationStereo --steps 40 \
+        --batch 1 --lr 2e-4
 """
 
 from __future__ import annotations
@@ -98,7 +101,10 @@ RECIPES = {"LightStereo": ("bf16", "adamw", ("value", 0.1), "final train EPE < 3
            "IGEVRT": ("bf16", "adamw", ("norm", 1.0), LOSS_RULE),
            "StereoBase": ("bf16", "adamw", ("value", 1.0), LOSS_RULE),
            "StereoBaseGRU": ("bf16", "adamw", ("value", 1.0), LOSS_RULE),
-           "IGEVPP": ("bf16", "adamw", ("norm", 1.0), LOSS_RULE)}
+           "IGEVPP": ("bf16", "adamw", ("norm", 1.0), LOSS_RULE),
+           "FoundationStereo": ("bf16", "adamw", ("norm", 1.0), LOSS_RULE),
+           "FastFoundationStereo": ("bf16", "adamw", ("norm", 1.0), LOSS_RULE),
+           "MonSter": ("bf16", "adamw", ("norm", 1.0), LOSS_RULE)}
 
 
 def main(argv: Optional[Sequence[str]] = None):

@@ -78,7 +78,7 @@ def test_features_match_flax(reference, port):
     _, data, _, inter = reference
     x = to_nchw(np.concatenate([data["left"], data["right"]], axis=0))
     with torch.inference_mode():
-        got = port.feature(x)
+        got = port.feature(x, port.dtype)
     assert got[0].shape[1] == 224
     for i, (g, r) in enumerate(zip(got, captured(inter, "feature"))):
         within_scale(to_nhwc(g), r, f"features level {i}")

@@ -48,6 +48,7 @@ from openstereo_tpu_torch.models.layers import gelu
 from openstereo_tpu_torch.tools.bench import eval_size
 from openstereo_tpu_torch.utils import jax_weights as jw
 
+import torch_train_step as ts
 from test_torch_bf16_parity import FLIP_SHARE, bf16_units
 from test_torch_igev_rt import counted_plain_kernels
 from test_torch_igevpp import _module_variables
@@ -213,7 +214,7 @@ def test_features_match_flax(reference, port):
     _, data, _, inter = reference
     _, x = both_views(data)
     with torch.inference_mode():
-        feats, vit = port.feature(x)
+        feats, vit = port.feature(x, port.dtype)
     ref_feats, ref_vit = captured(inter, "feature")
     for i, (g, r) in enumerate(zip(feats, ref_feats)):
         within_scale(to_nhwc(g), r, f"features level {i}")
@@ -437,8 +438,10 @@ def test_load_pretrained_skips_the_reference_only_modules(port, tmp_path):
 def test_build_model_runs_the_config_on_the_cpu_through_the_plain_k3(monkeypatch):
     """At full width (vitl, D/4 104, 371.7M parameters) on a 64×128 pair, the
     GRU loop cut to 2 iterations for time: a finite disparity, K3 once with
-    divisor 1 (its plain version); training waits (a training forward raises);
-    AANet, NMRF and IINet are still unported. The config has no
+    divisor 1 (its plain version); a training forward (the config's 22
+    iterations) gives the initial disparity and 22 iterates at the images'
+    size through the plain cosine volume, not K3's wrapper; AANet, NMRF and
+    IINet are still unported. The config has no
     EVALUATING transforms: the bench's `eval_size` falls back to 544×960."""
     calls = counted_plain_kernels(monkeypatch)
     cfg = load_config(str(CFG))
@@ -458,9 +461,10 @@ def test_build_model_runs_the_config_on_the_cpu_through_the_plain_k3(monkeypatch
         disp = model({"left": x, "right": x.roll(-3, dims=-1)})["disp_pred"]
     assert disp.shape == (1, 64, 128) and torch.isfinite(disp).all()
     assert seen == [(104, 8, 1)] and calls["mbconv"] == 0
-    model.train()
-    with pytest.raises(NotImplementedError, match="training"):
-        model({"left": x, "right": x})
+    assert model.train_iters == 22
+    with torch.no_grad():
+        ts.check_training_outputs(model, {"left": x, "right": x.roll(-3, dims=-1)})
+    assert seen == [(104, 8, 1)]
     for name in ("AANet", "NMRF", "IINet"):
         assert name in NOT_PORTED
         with pytest.raises(NotImplementedError):

@@ -8,20 +8,27 @@ backward through it raises on every device, naming the plain function to
 train through, where a result without a graph would cut the gradient
 without a word. The models that run these kernels in eval (GwcNet, MSNet3D,
 CoEx, and IGEV, IGEV-RT, StereoBase and IGEV++ with K3 and K2 in their
-trunks) build their training forwards with the plain builders and the
-trunk's eager blocks, so a gradient reaches their first backbone conv with
-`use_kernels` on: no K2 or K3 result enters a backward.
+trunks; FoundationStereo, FastFoundationStereo and MonSter with K3) build
+their training forwards with the plain builders and the trunk's eager
+blocks, so a gradient reaches their first backbone conv (MonSter's: the
+first of its trainable pyramid decoder, behind the frozen ViT) with
+`use_kernels` on: no K2 or K3 result enters a backward. The compute dtype
+set on those three models reaches every conv and linear of their forwards.
 """
 
 import pytest
 import torch
 
 from openstereo_tpu_torch import ops
+from openstereo_tpu_torch.models import set_kernels
 from openstereo_tpu_torch.models.coex import CoExNet
+from openstereo_tpu_torch.models.fastfoundationstereo import FastFoundationStereo
+from openstereo_tpu_torch.models.foundationstereo import FoundationStereo
 from openstereo_tpu_torch.models.gwcnet import GwcNet
 from openstereo_tpu_torch.models.igev import IGEV
 from openstereo_tpu_torch.models.igev_rt import IGEVRT
 from openstereo_tpu_torch.models.igevpp import IGEVPP
+from openstereo_tpu_torch.models.monster import MonSter
 from openstereo_tpu_torch.models.msnet import MSNet3D
 from openstereo_tpu_torch.models.stereobase import StereoBase
 
@@ -94,7 +101,11 @@ def test_kernel_wrapper_forward_equals_the_plain_version(name):
      (32, 64), "feature.conv_stem"),
     (IGEVPP, dict(max_disp=128, s_disp_range=16, m_disp_range=16, l_disp_range=32,
                   train_iters=2), (32, 128), "feature.conv_stem"),
-], ids=["GwcNet", "MSNet3D", "CoEx", "IGEV", "IGEV-RT", "StereoBase", "IGEV++"])
+    (FoundationStereo, dict(max_disp=32, train_iters=2), (32, 64), "feature.stem.0"),
+    (FastFoundationStereo, dict(max_disp=32, train_iters=2), (32, 64), "feature.stem.0"),
+    (MonSter, dict(max_disp=32, train_iters=3, mix_iters=2), (32, 64), "feat_decoder.projects.0"),
+], ids=["GwcNet", "MSNet3D", "CoEx", "IGEV", "IGEV-RT", "StereoBase", "IGEV++", "FoundationStereo",
+        "FastFoundationStereo", "MonSter"])
 def test_training_forward_with_kernels_on_reaches_the_backbone(cls, kw, hw, first_conv):
     g = torch.Generator().manual_seed(3)
     model = cls(**kw).train()
@@ -108,3 +119,36 @@ def test_training_forward_with_kernels_on_reaches_the_backbone(cls, kw, hw, firs
     loss.backward()
     grad = model.get_submodule(first_conv).weight.grad
     assert grad is not None and float(grad.abs().max()) > 0
+
+
+@pytest.mark.parametrize("cls,kw", [
+    (FoundationStereo, dict(max_disp=32, valid_iters=2)),
+    (FastFoundationStereo, dict(max_disp=32, valid_iters=2)),
+    (MonSter, dict(max_disp=32, valid_iters=3, mix_iters=2)),
+], ids=["FoundationStereo", "FastFoundationStereo", "MonSter"])
+def test_model_dtype_reaches_every_conv_and_linear(cls, kw):
+    """The compute dtype is the model's alone: set on a built model (as the
+    f64 reference of a gradient check sets it), every conv and linear of
+    the forward runs in it, the features, the ViT and MonSter's REMP
+    included (they take it from their caller)."""
+    import torch.nn.functional as F
+    from torch.overrides import TorchFunctionMode
+
+    ops_seen = (F.conv2d, F.conv3d, F.conv_transpose2d, F.conv_transpose3d, F.linear)
+    seen = set()
+
+    class Record(TorchFunctionMode):
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            if func in ops_seen:
+                seen.add((func.__name__, args[0].dtype))
+            return func(*args, **(kwargs or {}))
+
+    g = torch.Generator().manual_seed(4)
+    model = set_kernels(cls(**kw).double().eval(), False)  # the kernels take f32 and bf16
+    model.dtype = torch.float64
+    batch = {k: torch.randn(1, 3, 32, 64, generator=g, dtype=torch.float64)
+             for k in ("left", "right")}
+    with torch.inference_mode(), Record():
+        model(batch)
+    assert {d for _, d in seen} == {torch.float64}, seen
+    assert {"conv2d", "conv3d", "linear"} <= {f for f, _ in seen}

@@ -47,6 +47,7 @@ from openstereo_tpu_torch.models.monster import blocks as tmb
 from openstereo_tpu_torch.models.monster import monster as tm
 from openstereo_tpu_torch.utils import jax_weights as jw
 
+import torch_train_step as ts
 from test_torch_bf16_parity import assert_bf16_rule, to_torch
 from test_torch_foundationstereo import within_scale
 from test_torch_igev_rt import counted_plain_kernels
@@ -561,7 +562,7 @@ def test_remp_matches_flax(reference, port):
     v = {c: reference[0][c]["REMP"] for c in ("params", "batch_stats")}
     ref = run_jitted_fast(jmb.REMP().apply, v, dm, ds, left, right)
     with torch.inference_mode():
-        got = port.REMP(*(nchw(a) for a in (dm, ds, left, right)))
+        got = port.REMP(*(nchw(a) for a in (dm, ds, left, right)), port.dtype)
     within_scale(to_nhwc(got), ref, "REMP")
 
 
@@ -630,8 +631,10 @@ def test_build_model_runs_the_config_on_the_cpu_through_the_plain_k3(reference, 
     are the config's (max_disp and the iterations hold none), the training
     heads `spx_4`, `spx_2`, `spx` included; on a 64×128 pair with the loop
     cut to 1 + 7 iterations for time, a finite disparity, K3 once at D 48 G 8
-    (its plain version) and no K2; training waits (a training forward
-    raises, naming ROADMAP item 15b)."""
+    (its plain version) and no K2; a training forward (the config's 22
+    iterations, 15 + 7 mutual) gives the initial disparity, the mono depth
+    and 15 + 2·7 = 29 iterates at the images' size, through the plain
+    volume, not K3's wrapper."""
     calls_ = counted_plain_kernels(monkeypatch)
     cfg = load_config(str(CFG))
     assert "MonSter" in MODELS and "MonSter" not in NOT_PORTED
@@ -654,8 +657,11 @@ def test_build_model_runs_the_config_on_the_cpu_through_the_plain_k3(reference, 
         disp = model({"left": x, "right": x.roll(-3, dims=-1)})["disp_pred"]
     assert disp.shape == (1, 64, 128) and torch.isfinite(disp).all()
     assert seen == [((1, 96, 16, 32), 48, 8, 12)] and calls_["mbconv"] == 0
-    model.train()
-    with pytest.raises(NotImplementedError, match="15b"):
-        model({"left": x, "right": x})
+    assert (model.train_iters, model.mix_iters) == (22, 7)
+    with torch.no_grad():
+        out = ts.check_training_outputs(model, {"left": x, "right": x.roll(-3, dims=-1)},
+                                        n_preds=29)
+    assert out["depth_mono"].shape == (1, 64, 128)
+    assert len(seen) == 1
     with pytest.raises(NotImplementedError):
         build_model(Config.from_dict({"NAME": "AANet"}), device="cpu")

@@ -1,6 +1,7 @@
 """One train step of a port model against the JAX package's, on the CPU: the
 shared part of `tests/test_torch_train_{gwcnet,psmnet,coex,msnet3d,msnet2d,cfnet,
-casgwcnet,caspsmnet,fadnet,igev,igev_rt,stereobase,igevpp}.py`.
+casgwcnet,caspsmnet,fadnet,igev,igev_rt,stereobase,igevpp,foundationstereo,
+fastfoundationstereo,monster}.py`.
 
 A tiny model (the eval tests' sizes) with flax variables drawn with numpy in
 the tree that the JAX converter makes of the port's state_dict
@@ -23,6 +24,7 @@ running statistics rtol 1e-10, atol 1e-12, with one update per view for a
 backbone BatchNorm.
 """
 
+import shutil
 import sys
 from dataclasses import dataclass
 from pathlib import Path
@@ -128,7 +130,7 @@ def steps(case: Case, variants: Optional[Dict[str, Dict]] = None) -> Tuple[Dict,
                                            TOTAL_STEPS, got["model"].named_parameters())
     got["before"] = {k: p.detach().clone() for k, p in got["model"].named_parameters()}
     opt.step()
-    got.update(lr=schedule(0), opt=opt.name,
+    got.update(lr=schedule(0), opt=opt.name, optimizer=opt,
                variants={n: port_grads(case, {"variables": variables, "data": data}, **kw)
                          for n, kw in variants.items()})
 
@@ -197,18 +199,22 @@ def check_loss(ref, got, name):
     np.testing.assert_allclose(got["loss"], ref["loss"], rtol=1e-8)
 
 
-def check_gradients(ref, got):
-    """Every parameter has a gradient; the names are the JAX gradients';
-    each within 1e-6·max|g| of its tensor + 1e-12 of the model's largest."""
+def check_gradients(ref, got, frozen=()):
+    """Every parameter has a gradient but those under the prefixes `frozen` (a
+    frozen branch: none in the port, exactly zero in JAX's, checked by
+    `check_frozen_branch`); the names are the JAX gradients'; each within
+    1e-6·max|g| of its tensor + 1e-12 of the model's largest."""
     params = {k for k, _ in got["model"].named_parameters()}
     assert set(got["grads"]) == params
     assert params == {k for k in ref["grads"] if not k.endswith(
         ("running_mean", "running_var", "num_batches_tracked"))}
-    missing = [k for k, g in got["grads"].items() if g is None]
+    missing = [k for k, g in got["grads"].items() if g is None and not k.startswith(frozen)]
     assert not missing, missing
     scale = max(float(ref["grads"][k].abs().max()) for k in params)
     worst = 0.0
     for k, g in got["grads"].items():
+        if k.startswith(frozen):
+            continue
         r = ref["grads"][k].double().numpy()
         rmax = np.abs(r).max()
         if rmax > 1e-9 * scale:
@@ -245,51 +251,62 @@ def check_updated_parameters(ref, got):
         print(f"{noise} tensors with a zero gradient moved by lr·‖p‖ in both packages")
 
 
-def check_batchnorm_statistics(ref, got, per_view: str, once: str):
+def check_batchnorm_statistics(ref, got, per_view: Optional[str], once: str):
     """Every running statistic as flax's after the step; `per_view`, a
-    backbone BatchNorm, updated twice (left, then right), `once` once."""
+    backbone BatchNorm, updated twice (left, then right; None where no
+    BatchNorm runs per view), `once` once."""
     sd = got["model"].state_dict()
     keys = [k for k in sd if k.endswith(("running_mean", "running_var"))]
     assert len(keys) > 20
     for k in keys:
         np.testing.assert_allclose(sd[k].numpy(), ref["after"][k].double().numpy(), rtol=1e-10,
                                    atol=1e-12, err_msg=k)
-    assert int(sd[f"{per_view}.num_batches_tracked"]) == 2
+    if per_view is not None:
+        assert int(sd[f"{per_view}.num_batches_tracked"]) == 2
     assert int(sd[f"{once}.num_batches_tracked"]) == 1
 
 
-def check_batchnorm_update_counts(got, twice=("feature.",)):
+def check_batchnorm_update_counts(got, twice=("feature.",), thrice=()):
     """Every BatchNorm of the stepped model updated its running statistics
     twice (left, then right) where its key starts with one of `twice` (the
-    per-view trunk), else once: the IGEV family's context net, volume
-    stems, hourglasses and `spx_2_gru`, whose one update covers every
-    iterate folded into its batch."""
+    per-view trunk), three times where with one of `thrice` (MonSter's
+    `spx_2_gru`: its three folded upsamples), else once: the IGEV family's
+    context net, volume stems, hourglasses and `spx_2_gru`, whose one update
+    covers every iterate folded into its batch."""
     sd = got["model"].state_dict()
     counts = {k[:-len(".num_batches_tracked")]: int(v) for k, v in sd.items()
               if k.endswith("num_batches_tracked")}
-    want = {k: 2 if k.startswith(tuple(twice)) else 1 for k in counts}
+    want = {k: 2 if k.startswith(tuple(twice)) else 3 if k.startswith(tuple(thrice)) else 1
+            for k in counts}
     assert counts == want, {k: v for k, v in counts.items() if v != want[k]}
-    print(f"{len(counts)} BatchNorms: {sum(v == 2 for v in counts.values())} updated twice, "
+    print(f"{len(counts)} BatchNorms: {sum(v == 3 for v in counts.values())} updated three "
+          f"times, {sum(v == 2 for v in counts.values())} twice, "
           f"{sum(v == 1 for v in counts.values())} once")
 
 
-def check_detach_matters(case: Case, ref, got):
-    """The control of the IGEV family's GRU loop: with `igev.carried` (the
-    detach of the carried disparity) made the identity, the gradient flows
-    through the carried disparity, and some gradient leaves JAX's by more
-    than `check_gradients`' tolerance; the loss stays the same."""
-    from openstereo_tpu_torch.models.igev import igev as mod
+def check_detach_matters(case: Case, ref, got, modules=("igev.igev",)):
+    """The control of the IGEV family's GRU loop: with `carried` (the detach of
+    the carried disparity) made the identity in each of `modules` (under
+    `openstereo_tpu_torch.models`; each model module binds its own by
+    import), the gradient flows through the carried disparity, and some
+    gradient leaves JAX's by more than `check_gradients`' tolerance; the
+    loss stays the same."""
+    import importlib
 
-    saved = mod.carried
-    mod.carried = lambda disp: disp
+    mods = [importlib.import_module(f"openstereo_tpu_torch.models.{m}") for m in modules]
+    saved = [mod.carried for mod in mods]
+    for mod in mods:
+        mod.carried = lambda disp: disp
     try:
         ctl = port_grads(case, ref)
     finally:
-        mod.carried = saved
+        for mod, fn in zip(mods, saved):
+            mod.carried = fn
     assert abs(ctl["loss"] - got["loss"]) <= 1e-12 * abs(got["loss"])
     beyond = [k for k, g in ctl["grads"].items()
-              if not np.allclose(g.numpy(), ref["grads"][k].double().numpy(), rtol=0,
-                                 atol=1e-6 * float(ref["grads"][k].abs().max()))]
+              if g is not None and not np.allclose(
+                  g.numpy(), ref["grads"][k].double().numpy(), rtol=0,
+                  atol=1e-6 * float(ref["grads"][k].abs().max()))]
     print(f"without the detach: {len(beyond)} of {len(ctl['grads'])} gradients beyond 1e-6·max|g| "
           f"of JAX's")
     assert beyond
@@ -320,18 +337,44 @@ def check_sequence_loss(case: Case, n_init: int = 1, **kwargs):
     np.testing.assert_allclose(float(got), float(ref), rtol=1e-12)
 
 
-def check_training_outputs(model, batch, n_init: int = 1):
-    """A training forward gives 'init_disp' (`n_init` of them) and the model's
-    `train_iters` 'disp_preds', each of the images' [B,H,W], the last
-    'disp_pred'."""
+def check_training_outputs(model, batch, n_init: int = 1, n_preds: Optional[int] = None):
+    """A training forward gives 'init_disp' (`n_init` of them) and `n_preds`
+    (default: the model's `train_iters`) 'disp_preds', each of the images'
+    [B,H,W], the last 'disp_pred'."""
     out = model.train()(batch)
     b, _, h, w = batch["left"].shape
     init = out["init_disp"] if n_init > 1 else [out["init_disp"]]
-    assert len(init) == n_init and len(out["disp_preds"]) == model.train_iters
+    assert len(init) == n_init
+    assert len(out["disp_preds"]) == (model.train_iters if n_preds is None else n_preds)
     for t in init + out["disp_preds"]:
         assert t.shape == (b, h, w) and torch.isfinite(t).all()
     assert out["disp_pred"] is out["disp_preds"][-1]
     return out
+
+
+def check_frozen_branch(ref, got, frozen, n_frozen: int):
+    """A frozen branch (the parameters under the prefixes `frozen`, `n_frozen`
+    of them): no gradient in the port (it runs under `torch.no_grad()`),
+    exactly zero in JAX's (its `stop_gradient`); the step moves each by
+    AdamW's decay alone, p·(1 − lr·wd), in both packages, as optax's
+    `adamw` moves a zero-gradient leaf; the other parameters have
+    gradients."""
+    opt = got["optimizer"]
+    lr, wd = got["lr"], opt.weight_decay
+    assert opt.name == "adamw" and wd > 0
+    names = [k for k in got["grads"] if k.startswith(frozen)]
+    assert len(names) == n_frozen
+    for k in names:
+        assert got["grads"][k] is None, k
+        assert not ref["grads"][k].any(), k
+        want = got["before"][k] * (1.0 - lr * wd)
+        for after in (got["model"].get_parameter(k).detach(), ref["after"][k].double()):
+            np.testing.assert_allclose(after.numpy(), want.numpy(), rtol=1e-12, atol=1e-300,
+                                       err_msg=k)
+    others = [k for k, g in got["grads"].items() if not k.startswith(frozen)]
+    assert others and all(got["grads"][k] is not None for k in others)
+    print(f"{len(names)} frozen tensors: no gradient in the port, zero in JAX's, both moved by "
+          f"the decay alone (lr {lr:.3g}, wd {wd:g}); {len(others)} trained")
 
 
 def check_freeze_bn(case: Case, ref, bn: str):
@@ -507,6 +550,9 @@ def check_train_cli(case: Case, tmp_path: Path, monkeypatch, resume: bool = Fals
             assert torch.equal(again.model.state_dict()[k], v), k
     print(f"{d['MODEL']['NAME']} via tools/train.py: losses {trainer.epoch_losses}, "
           f"evaluation EPE {evals[0]['epe']:.4f} px")
+    # the checkpoint holds the config's full-width parts (FoundationStereo's ~0.7 GB): pytest
+    # keeps its temporary directories, and a run cut by its time limit keeps them for days
+    shutil.rmtree(trainer.ckpt_dir)
 
 
 def check_overfit_recipe(case: Case, name: str, kwargs: Dict):
